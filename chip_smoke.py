@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's serving path on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout, on a machine with one NVIDIA H100 (any
+CUDA card with sm_90a). Phases, each of which must pass:
+
+  1. print the card (name, power limit), the CUDA and nvcc versions, and
+     build the kernels from ``dquartic_tpu_torch/csrc`` (timed);
+  2. hold each CUDA kernel (K1 linear attention, K2 fused ResnetBlock, K3
+     int8 matmul) against its plain PyTorch version at the main path's
+     shapes, in float32 (TF32 off) and bfloat16, and time both;
+  3. build the canonical UNet1d (``dquartic_train_config.json``, 1.2 B
+     parameters, int8 mid convs, seeded random weights) through
+     ``build_model`` and hold one forward on the kernels against one
+     through the plain versions, in float32 and bfloat16;
+  4. run ``DDIMSampler.predict`` for 50 steps on one synthetic
+     (34 x 40000) pair batch in bf16, check the result and that every
+     kernel was launched (K1 700, K2 1450, K3 200 times), then time
+     ms/window on the kernel path and on the plain path (median of 3).
+
+It prints one JSON line of per-kernel results and, last, one JSON line
+``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
+when there is no CUDA device, when it is run outside a checkout, or when
+any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(REPO, "dquartic_train_config.json")
+RT, MZ, STEPS = 34, 40000, 50
+SAMPLE_REPS = 3
+# float32 kernel vs plain: sums in another order (split across CTAs, exp2
+# with pre-scaled weights); values are O(1), so 1e-4 is ~1000 ulps.
+F32_TOL = (1e-4, 1e-4)
+# bf16: the kernels take bf16 activations and compute in float32, rounding
+# only matmul operands (K1) and the output; they are held against the plain
+# version run in float32 on the same bf16 values (and, for K2, the same
+# bf16-rounded conv weights). Outputs are O(1) to O(10) (RMSNorm-scaled
+# plus a unit-normal residual), where one bf16 ulp is up to 2^-5.
+BF16_TOL = (3e-2, 3e-2)
+# Whole-model forward, kernels vs plain versions: relative L2 error of the
+# (1, 34, 40000) output. float32: summation order only, through ~60
+# layers. bf16: roundings that differ per layer, accumulated over the net.
+MODEL_REL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_time(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / max(reps, 1)
+
+
+def phase_info():
+    import torch
+
+    from dquartic_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    log("card (nvidia-smi name, power.limit):")
+    log(smi.stdout.strip())
+    log(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          timeout=60)
+    log("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
+    prebuilt = _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernels from {os.path.relpath(_build.CSRC, REPO)} for sm_90a "
+        f"({[s.name for s in _build.sources()]}): "
+        f"{'loaded a library already built' if prebuilt else 'built by nvcc'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ptxas = _build.BUILD_DIR / "ptxas.log"
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
+
+
+def _err(out, ref):
+    a, b = out.float(), ref.float()
+    return float((a - b).abs().max()), float(((a - b).abs() / (b.abs() + 1e-6)).max())
+
+
+def _compare(name, out, ref, tol, atol_scale=1.0):
+    import torch
+
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite kernel output")
+    rtol, atol = tol
+    atol = atol * atol_scale
+    bad = ((out.float() - ref.float()).abs() > atol + rtol * ref.float().abs()).sum().item()
+    max_abs, max_rel = _err(out, ref)
+    log(f"  {name}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} tol (rtol {rtol:g}, "
+        f"atol {atol:.3e}) -> {'ok' if bad == 0 else f'{bad} elements out of tolerance'}")
+    check(bad == 0, f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def phase_kernels(gen, results):
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+
+    from dquartic_tpu_torch.ops import fused_resnet as fr
+    from dquartic_tpu_torch.ops import int8_matmul as im
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    def la_args(C, N):
+        H = 128
+        return [randn(34, C, N), randn(C, 3 * H, s=0.3), randn(H, C, s=0.1), randn(C, s=0.1),
+                randn(C), 1.0 + randn(C, s=0.2)]
+
+    def rn_args(c_in, c_out, N):
+        res = c_in != c_out
+        return [randn(34, c_in, N), randn(3, c_in, c_out, s=0.3), randn(c_out, s=0.1),
+                1.0 + randn(c_out, s=0.2), randn(34, c_out, s=0.2), randn(34, c_out, s=0.2),
+                randn(3, c_out, c_out, s=0.3), randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2),
+                randn(1, c_in, c_out, s=0.3) if res else None,
+                randn(c_out, s=0.1) if res else None]
+
+    def bf16_values(t):
+        return None if t is None else t.to(torch.bfloat16).to(torch.float32)
+
+    errs = {"linear_attention": 0.0, "fused_resnet_block_t": 0.0, "int8_matmul": 0.0}
+    timing = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        tag = str(dt).replace("torch.", "")
+        for C, N in ((4, MZ), (16, MZ // 64)):
+            a = la_args(C, N)
+            a[0] = a[0].to(dt)
+            out = la.linear_attention(*a)
+            ref = la.linear_attention_nr_reference(a[0].float(), *a[1:], 4, 32)
+            errs["linear_attention"] = max(errs["linear_attention"], _compare(
+                f"K1 linear_attention {tag} (34, {C}, {N})", out, ref, tol))
+            if dt == torch.bfloat16 and C == 4:
+                timing["linear_attention"] = (
+                    cuda_time(lambda: la.linear_attention(*a), 20),
+                    cuda_time(lambda: la.linear_attention_nr_reference(*a, 4, 32), 5),
+                )
+        for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
+            a = rn_args(c_in, c_out, N)
+            a[0] = a[0].to(dt)
+            out = fr.fused_resnet_block_t(*a)
+            # K2 consumes its conv weights rounded to the activation dtype
+            ra = a if dt == torch.float32 else [
+                bf16_values(v) if i in (0, 1, 6, 9) else v for i, v in enumerate(a)]
+            ref = fr.resnet_block_t_reference(*ra)
+            errs["fused_resnet_block_t"] = max(errs["fused_resnet_block_t"], _compare(
+                f"K2 fused_resnet_block_t {tag} {c_in}->{c_out} N={N}", out, ref, tol))
+            if dt == torch.bfloat16 and c_in == 4:
+                timing["fused_resnet_block_t"] = (
+                    cuda_time(lambda: fr.fused_resnet_block_t(*a), 20),
+                    cuda_time(lambda: fr.resnet_block_t_reference(*a), 5),
+                )
+        x = randn(34, 3 * 10000).to(dt)
+        q, s = im.quantize_weight_matrix(randn(3 * 10000, 10000))
+        out = im.int8_matmul(x, q, s)
+        ref = im.int8_matmul_reference(x, q, s)
+        # sums of 30000 products: rounding scales with the size of the sums
+        scale = float(ref.float().abs().max())
+        k3_tol = (1e-5, 1e-5) if dt == torch.float32 else (2**-7, 2**-8)
+        errs["int8_matmul"] = max(errs["int8_matmul"], _compare(
+            f"K3 int8_matmul {tag} M=34 K=30000 N=10000", out, ref, k3_tol, atol_scale=scale))
+        if dt == torch.bfloat16:
+            timing["int8_matmul"] = (
+                cuda_time(lambda: im.int8_matmul(x, q, s), 20),
+                cuda_time(lambda: im.int8_matmul_reference(x, q, s), 5),
+            )
+        del q, s
+    for name, (ms, plain_ms) in timing.items():
+        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+
+
+def _model_inputs(gen, b=1):
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn((b, RT, MZ), generator=gen, device=dev)
+    ms2 = torch.rand((b, RT, MZ), generator=gen, device=dev)
+    ms1 = torch.rand((b, RT), generator=gen, device=dev)
+    return x, ms2, ms1
+
+
+def phase_forward(config, seed, gen):
+    import torch
+
+    from dquartic_tpu_torch.utils.builder import build_model
+
+    x, ms2, ms1 = _model_inputs(gen)
+    t = torch.full((1,), 500, dtype=torch.long, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        cfg = json.loads(json.dumps(config))
+        cfg["tpu"]["compute_dtype"] = dtype
+        model = build_model(cfg, device="cuda", seed=seed)
+        n_params = sum(p.numel() for p in model.parameters()) + sum(
+            b.numel() for b in model.buffers() if b.dtype == torch.int8)
+        with torch.inference_mode():
+            out = model.use_kernels(True)(x, t, ms2 * 2 - 1, ms1 * 2 - 1)
+            ref = model.use_kernels(False)(x, t, ms2 * 2 - 1, ms1 * 2 - 1)
+        model.use_kernels(True)
+        torch.cuda.synchronize()
+        check(out.shape == (1, RT, MZ), f"forward shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out.float()).all()), "non-finite forward output")
+        rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+        max_abs, _ = _err(out, ref)
+        log(f"  canonical UNet1d forward {dtype} ({n_params / 1e9:.3f} B params, int8 mid "
+            f"convs): kernels vs plain rel L2 {rel:.3e} (tol {MODEL_REL_TOL[dtype]:g}), "
+            f"max_abs {max_abs:.3e}, max|ref| {float(ref.float().abs().max()):.3e}")
+        check(rel <= MODEL_REL_TOL[dtype], f"{dtype} forward: kernels disagree with plain path")
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_sample(config, seed, gen, results):
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.utils.builder import build_model, build_process
+
+    model = build_model(config, device="cuda", seed=seed)
+    sampler = DDIMSampler(model, build_process(config))
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.uniform(0, 1, s).astype(np.float32) for k, s in
+             (("ms2_1", (1, RT, MZ)), ("ms1_1", (1, RT)), ("ms2_2", (1, RT, MZ)))}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = sampler.predict([batch], num_steps=STEPS, seed=seed, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    pred = recs[0]["pred"]
+    log(f"  predict {STEPS} steps: pred {pred.shape}, finite {bool(np.isfinite(pred).all())}, "
+        f"range [{pred.min():.4f}, {pred.max():.4f}], first call {wall:.2f} s wall, "
+        f"launches {counts}")
+    check(pred.shape == (1, RT, MZ), f"pred shape {pred.shape}")
+    check(bool(np.isfinite(pred).all()), "non-finite prediction")
+    check(bool(np.isfinite(recs[0]["pred_noise"]).all()), "non-finite pred_noise")
+    expect = {"linear_attention": 14 * STEPS, "fused_resnet_block_t": 29 * STEPS,
+              "int8_matmul": 4 * STEPS}
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    for name, n in counts.items():
+        results[name]["launches"] = n
+
+    # ms/window: one warm-up sample, then SAMPLE_REPS timed samples per path;
+    # the 50-step loop is host-launched, so samples spread with host load
+    x_t, ms2, ms1 = _model_inputs(gen)
+    per_window = {}
+    for path, kernels in (("kernel", True), ("plain", False)):
+        model.use_kernels(kernels)
+        cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=0, warmup=1)
+        runs = sorted(cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
+                      for _ in range(SAMPLE_REPS))
+        per_window[path] = runs[len(runs) // 2]
+        log(f"  {STEPS}-step DDIM ms/window (bs1, 34x40000, bf16, int8 mid convs), {path} "
+            f"path: median {per_window[path]:.2f} ms of {SAMPLE_REPS} "
+            f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
+    model.use_kernels(True)
+    return per_window
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
+    args = ap.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "dquartic_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    config = load_train_config(CONFIG)
+    config["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=True)
+    results = {
+        "linear_attention": dict(source="dquartic_tpu_torch/csrc/linear_attention.cu",
+                                 replaces="dquartic_tpu/ops/linear_attention.py:606"),
+        "fused_resnet_block_t": dict(source="dquartic_tpu_torch/csrc/fused_resnet.cu",
+                                     replaces="dquartic_tpu/ops/fused_resnet.py:241"),
+        "int8_matmul": dict(source="dquartic_tpu_torch/csrc/int8_matmul.cu",
+                            replaces="dquartic_tpu/ops/int8_matmul.py:111"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t_start = time.perf_counter()
+    try:
+        log("== phase 1: card and build")
+        phase_info()
+        log("== phase 2: kernels vs plain versions")
+        phase_kernels(gen, results)
+        log("== phase 3: canonical UNet1d forward, kernels vs plain")
+        phase_forward(config, args.seed, gen)
+        log("== phase 4: 50-step DDIM deconvolution through DDIMSampler.predict")
+        phase_sample(config, args.seed, gen, results)
+    except Exception as e:  # any failed phase fails the run, with its traceback
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

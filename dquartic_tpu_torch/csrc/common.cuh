@@ -1,0 +1,35 @@
+// Shared helpers for the dquartic_tpu_torch kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+namespace dq {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even
+}
+
+// Rounds v to the matmul operand type of the compute dtype: bf16 operands
+// for bf16 models, float32 otherwise (the JAX kernels' `cd` cast).
+template <typename T>
+__device__ __forceinline__ float round_cd(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace dq

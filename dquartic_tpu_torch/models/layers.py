@@ -1,0 +1,154 @@
+"""Building-block layers of the UNet1d, channel-first ``(batch, C, length)``.
+
+Ports of :mod:`dquartic_tpu.models.layers`. Module and parameter names
+follow the reference PyTorch UNet1d, whose state_dict the JAX converter
+(:func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict`) maps:
+Conv1d weights (out, in, k), Linear weights (out, in), norm gains
+(1, C, 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.int8_matmul import int8_conv1d, int8_matmul, int8_matmul_reference, quantize_conv_kernel
+from ..ops.linear_attention import rmsnorm_reference
+
+
+def sinusoidal_pos_emb(t: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:
+    """Timestep embedding (b,) -> (b, dim) float32: ``[sin, cos]`` of
+    ``t · theta^(-i / (half_dim - 1))``."""
+    half_dim = dim // 2
+    emb = math.log(theta) / (half_dim - 1)
+    freqs = torch.exp(
+        torch.arange(half_dim, dtype=torch.float32, device=t.device) * -emb
+    )
+    args = t.to(torch.float32)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class SinusoidalPosEmb(nn.Module):
+    def __init__(self, dim: int, theta: float = 10000.0):
+        super().__init__()
+        self.dim, self.theta = dim, theta
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return sinusoidal_pos_emb(t, self.dim, self.theta)
+
+
+class RMSNorm(nn.Module):
+    """Channel RMSNorm ``x / max(||x||, 1e-12) · g · sqrt(C)`` over dim 1,
+    float32 math, result in x's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(1, dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm_reference(x, self.g.reshape(-1)).to(x.dtype)
+
+
+class Int8Conv1d(nn.Module):
+    """Same-padding conv1d with int8 weights and per-output-channel scales
+    (inference only). ``weight_q`` (k·C_in, C_out) int8 and ``scale``
+    (C_out,) float32 are buffers in the layout of
+    :func:`~dquartic_tpu_torch.ops.int8_matmul.quantize_conv_kernel`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+        super().__init__()
+        self.kernel = kernel
+        self.kernels = True
+        self.register_buffer(
+            "weight_q", torch.zeros(kernel * in_channels, out_channels, dtype=torch.int8)
+        )
+        self.register_buffer("scale", torch.ones(out_channels, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv1d) -> "Int8Conv1d":
+        c_out, c_in, k = conv.weight.shape
+        with torch.device("meta"):
+            q = cls(c_in, c_out, k)
+        q.weight_q, q.scale = quantize_conv_kernel(conv.weight.detach())
+        q.bias = nn.Parameter(conv.bias.detach().clone(), requires_grad=False)
+        return q
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        matmul = int8_matmul if self.kernels else int8_matmul_reference
+        return int8_conv1d(x, self.weight_q, self.scale, self.bias, self.kernel, matmul)
+
+
+class Block(nn.Module):
+    """conv3 -> RMSNorm -> (FiLM) -> SiLU."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Conv1d(dim_in, dim_out, 3, padding=1)
+        self.norm = RMSNorm(dim_out)
+
+    def forward(
+        self, x: torch.Tensor, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ) -> torch.Tensor:
+        x = self.norm(self.proj(x))
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1.0) + shift
+        return F.silu(x)
+
+
+class ResnetBlock(nn.Module):
+    """Two conv Blocks + residual, FiLM on block1 from ``time_emb``
+    (one row of ``time_emb`` per batch row of x)."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_emb_dim: Optional[int] = None):
+        super().__init__()
+        self.mlp = (
+            nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+            if time_emb_dim is not None
+            else None
+        )
+        self.block1 = Block(dim_in, dim_out)
+        self.block2 = Block(dim_out, dim_out)
+        self.res_conv = nn.Conv1d(dim_in, dim_out, 1) if dim_in != dim_out else None
+
+    def film(self, time_emb: Optional[torch.Tensor]):
+        """(scale, shift), each (b, C_out), or None."""
+        if self.mlp is None or time_emb is None:
+            return None
+        return tuple(self.mlp(time_emb).chunk(2, dim=-1))
+
+    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ss = self.film(time_emb)
+        if ss is not None:
+            ss = (ss[0][:, :, None], ss[1][:, :, None])
+        h = self.block2(self.block1(x, ss))
+        return h + (self.res_conv(x) if self.res_conv is not None else x)
+
+
+class ConditionalScaleShift(nn.Module):
+    """FiLM of the init condition by the time embedding."""
+
+    def __init__(self, dim: int, time_emb_dim: int):
+        super().__init__()
+        self.to_scale_shift = nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim * 2))
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        scale, shift = self.to_scale_shift(t).chunk(2, dim=-1)
+        return x * (scale[:, :, None] + 1.0) + shift[:, :, None]
+
+
+def Upsample(dim_in: int, dim_out: int) -> nn.Sequential:
+    """Nearest x2 upsample, then conv3."""
+    return nn.Sequential(
+        nn.Upsample(scale_factor=2, mode="nearest"), nn.Conv1d(dim_in, dim_out, 3, padding=1)
+    )
+
+
+def Downsample(dim_in: int, dim_out: int) -> nn.Conv1d:
+    """Stride-2 conv4 downsample."""
+    return nn.Conv1d(dim_in, dim_out, 4, stride=2, padding=1)

@@ -1,0 +1,212 @@
+"""Conditional 1-D U-Net denoiser (``simple=True``, conditional).
+
+Port of :class:`dquartic_tpu.models.unet1d.UNet1d` in its transposed-
+resident form (``fused_resnet=True``): per-RT-row activations stay
+channel-first ``(b·rt, C, mz')`` from the init conv to the head, every
+down/up ResnetBlock is the K2 op and every mixer the K1 op, and the
+bottleneck pivot and the final head are pure reshapes. The bottleneck
+runs channel-first over the RT axis, ``(b, C·mz', rt)``, where the mid
+convs are either torch convs or int8 convs on the K3 op.
+
+Module and parameter names are those of the reference PyTorch UNet1d, so
+:func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict` maps this
+module's ``state_dict()`` onto the JAX parameter tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import Attention, LinearAttentionBlock, PreNorm, Residual
+from .fused_blocks import ResnetBlockT
+from .layers import ConditionalScaleShift, Downsample, ResnetBlock, SinusoidalPosEmb, Upsample
+
+
+class UNet1d(nn.Module):
+    """Constructor arguments mirror the reference (and the JSON configs).
+    ``downsample_dim`` is the m/z length the bottleneck is built for;
+    a forward at another m/z raises."""
+
+    def __init__(
+        self,
+        dim: int,
+        init_dim: Optional[int] = None,
+        out_dim: Optional[int] = None,
+        dim_mults: Sequence[int] = (1, 2, 4, 8),
+        channels: int = 3,
+        dropout: float = 0.0,
+        conditional: bool = True,
+        init_cond_channels: Optional[int] = None,
+        attn_cond_channels: Optional[int] = None,
+        attn_cond_init_dim: Optional[int] = None,
+        learned_variance: bool = False,
+        sinusoidal_pos_emb_theta: float = 10000.0,
+        attn_heads: int = 4,
+        attn_dim_head: int = 32,
+        tfer_dim_mult: int = 620,
+        tfer_depth: int = 4,
+        downsample_dim: int = 40000,
+        simple: bool = True,
+        pos_output_only: bool = False,
+    ):
+        super().__init__()
+        if not simple or not conditional:
+            raise NotImplementedError("the port implements UNet1d(simple=True, conditional=True)")
+        if dropout != 0.0:
+            raise NotImplementedError("the port's inference path has no dropout")
+        del tfer_dim_mult, tfer_depth  # simple=False only
+        self.dim_mults = tuple(dim_mults)
+        stride = 2 ** (len(self.dim_mults) - 1)
+        if downsample_dim % stride:
+            raise ValueError(f"downsample_dim={downsample_dim} is not divisible by {stride}")
+        init_dim = init_dim if init_dim is not None else dim
+        self.init_dim = init_dim
+        self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
+        self.pos_output_only = pos_output_only
+        time_dim = dim * 4
+        dims = [init_dim] + [dim * m for m in self.dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        ic = init_cond_channels or 1
+        acid = attn_cond_init_dim if attn_cond_init_dim is not None else dim * 2
+
+        self.time_mlp = nn.Sequential(
+            SinusoidalPosEmb(dim, sinusoidal_pos_emb_theta),
+            nn.Linear(dim, time_dim),
+            nn.GELU(),
+            nn.Linear(time_dim, time_dim),
+        )
+        self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
+        self.init_conv = nn.Conv1d(channels + ic, init_dim, 7, padding=3)
+        self.attn_cond_proj = nn.Sequential(
+            nn.Identity(),  # mz_net of the simple model
+            nn.Sequential(
+                nn.Conv1d(attn_cond_channels or 1, acid, 7, padding=3),
+                nn.GELU(),
+                nn.Conv1d(acid, acid, 1),
+            ),
+        )
+
+        self.downs = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(in_out):
+            last = i == len(in_out) - 1
+            self.downs.append(nn.ModuleList([
+                ResnetBlockT(d_in, d_in, time_dim),
+                ResnetBlockT(d_in, d_in, time_dim),
+                LinearAttentionBlock(d_in),
+                nn.Conv1d(d_in, d_out, 3, padding=1) if last else Downsample(d_in, d_out),
+            ]))
+
+        mid_dim = dims[-1]
+        self.mid_ch = mid_dim * (downsample_dim // stride)
+        self.mid_block1 = ResnetBlock(self.mid_ch, self.mid_ch, time_dim)
+        self.mid_attn = Residual(PreNorm(self.mid_ch, Attention(
+            self.mid_ch, attn_heads, attn_dim_head, cond_dim=acid
+        )))
+        self.mid_block2 = ResnetBlock(self.mid_ch, self.mid_ch, time_dim)
+
+        self.ups = nn.ModuleList()
+        for i, (d_in, d_out) in enumerate(reversed(in_out)):
+            last = i == len(in_out) - 1
+            self.ups.append(nn.ModuleList([
+                ResnetBlockT(d_out + d_in, d_out, time_dim),
+                ResnetBlockT(d_out + d_in, d_out, time_dim),
+                LinearAttentionBlock(d_out),
+                nn.Conv1d(d_out, d_in, 3, padding=1) if last else Upsample(d_out, d_in),
+            ]))
+
+        self.final_res_block = ResnetBlockT(init_dim * 2, init_dim, time_dim)
+        self.final_conv = nn.Conv1d(init_dim, self.out_dim, 1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the conv weights."""
+        return self.init_conv.weight.dtype
+
+    def use_kernels(self, enabled: bool = True) -> "UNet1d":
+        """Route the K1/K2/K3 modules through their kernels (default) or
+        through their plain PyTorch versions, e.g. to compare the two on a
+        card. On CPU tensors the kernel wrappers run the plain versions
+        either way."""
+        for m in self.modules():
+            if hasattr(m, "kernels"):
+                m.kernels = enabled
+        return self
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        time: torch.Tensor,
+        init_cond: Optional[torch.Tensor] = None,
+        attn_cond: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """x (b, rt, mz) or (rt, mz); time (b,); init_cond like x; attn_cond
+        (b, rt) or (b, rt, mz_c). Returns (b, rt·out_dim, mz)."""
+        if x.dim() == 2:
+            x = x[None]
+        b, rt, mz = x.shape
+        n_levels = len(self.dim_mults)
+        stride = 2 ** (n_levels - 1)
+        if mz % stride != 0:
+            raise ValueError(
+                f"UNet1d requires the m/z length to be divisible by "
+                f"2**(len(dim_mults)-1) = {stride} so the {n_levels}-level "
+                f"down/up path round-trips (got mz={mz}; pad or re-bin the input, "
+                f"e.g. to {((mz + stride - 1) // stride) * stride})"
+            )
+        dtype = self.dtype
+        if time.dim() == 0:
+            time = time[None]
+
+        t = self.time_mlp[1:](self.time_mlp[0](time).to(dtype))
+        t_rows = torch.repeat_interleave(t, rt, dim=0)  # (b*rt, time_dim): per-row FiLM
+
+        x = x.reshape(b * rt, 1, mz).to(dtype)
+        if init_cond is None:
+            init_cond = torch.zeros((b, rt, mz), dtype=dtype, device=x.device)
+        ic = init_cond.reshape(b * rt, -1, mz).to(dtype)
+        ic = self.init_cond_proj(ic, t_rows)
+        x = self.init_conv(torch.cat([ic, x], dim=1))  # (b*rt, init_dim, mz)
+        r = x
+
+        # MS1 condition tower: pivot to (b, C, rt), channel-major over (d, mz_c)
+        if attn_cond is None:
+            attn_cond = torch.zeros((b, rt), dtype=dtype, device=x.device)
+        cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
+        cond = self.attn_cond_proj(cond)  # (b, acid, rt)
+
+        skips = []
+        for block1, block2, attn, down in self.downs:
+            x = block1(x, t_rows)
+            skips.append(x)
+            x = attn(block2(x, t_rows))
+            skips.append(x)
+            x = down(x)
+
+        # bottleneck: (b*rt, mid_dim, mz') -> (b, mid_dim*mz', rt); the
+        # channel-major flattening is a reshape
+        mid_dim, mzp = x.shape[1], x.shape[2]
+        if mid_dim * mzp != self.mid_ch:
+            raise ValueError(
+                f"bottleneck width {mid_dim}*{mzp} at mz={mz} does not match the "
+                f"{self.mid_ch} channels this model was built for"
+            )
+        x = x.reshape(b, rt, self.mid_ch).transpose(1, 2)
+        x = self.mid_block1(x, t)
+        x = self.mid_attn(x, cond)
+        x = self.mid_block2(x, t)
+        x = x.transpose(1, 2).reshape(b * rt, mid_dim, mzp)
+
+        for block1, block2, attn, up in self.ups:
+            x = block1(torch.cat([x, skips.pop()], dim=1), t_rows)
+            x = block2(torch.cat([x, skips.pop()], dim=1), t_rows)
+            x = up(attn(x))
+
+        x = self.final_res_block(torch.cat([x, r], dim=1), t_rows)
+        x = self.final_conv(x).reshape(b, rt * self.out_dim, mz)
+        if self.pos_output_only:
+            x = F.softplus(x)
+        return x

@@ -1,0 +1,22 @@
+"""Ops of the serving path; K1-K3 launch hand-written CUDA kernels on CUDA
+tensors and run their plain PyTorch versions on CPU tensors."""
+
+from . import fused_resnet as _fused_resnet
+from . import int8_matmul as _int8_matmul
+from . import linear_attention as _linear_attention
+
+# The kernel wrappers; each counts its launches in ``.launches``.
+KERNELS = {
+    "linear_attention": _linear_attention.linear_attention,
+    "fused_resnet_block_t": _fused_resnet.fused_resnet_block_t,
+    "int8_matmul": _int8_matmul.int8_matmul,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

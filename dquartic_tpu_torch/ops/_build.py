@@ -1,0 +1,129 @@
+"""Build, load and call the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with :mod:`ctypes`. The
+build happens at the first kernel launch, never at import, into
+``dquartic_tpu_torch/_build/`` under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises with the compiler's output.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the entry points in csrc/ (argtypes, restype int).
+_SIGNATURES = {
+    # x, wq, wk, wv, wout, qshift, kshift, g_pre, b_out, g, part, M, y,
+    # B, C, N, heads, nsplit, chunk, bf16, device, stream
+    "dq_linear_attention": [_P] * 13 + [_I] * 8 + [_P],
+    # x, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, out,
+    # B, C_in, C_out, N, film, has_res, bf16, device, stream
+    "dq_fused_resnet": [_P] * 12 + [_I] * 8 + [_P],
+    # x, w_q, scale, part, out, M, K, N, ksplit, kchunk, bf16, device, stream
+    "dq_int8_matmul": [_P] * 5 + [_I] * 7 + [_P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+            "kernels of dquartic_tpu_torch are built from csrc/ at first use"
+        )
+    return found
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """Where the library of the current sources is (or will be) built."""
+    return BUILD_DIR / f"libdquartic_kernels_{_source_hash()}.so"
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = library_path()
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            (BUILD_DIR / "ptxas.log").write_text(proc.stderr)
+            os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_no_grad(op: str, *tensors) -> None:
+    """The kernels have no backward yet: refuse a call autograd would track."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op} is forward only (no backward kernel); run it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )

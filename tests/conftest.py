@@ -71,7 +71,7 @@ _FAST_MODULES = {
 def pytest_collection_modifyitems(config, items):
     for item in items:
         mod = item.module.__name__.rsplit(".", 1)[-1]
-        item.add_marker("fast" if mod in _FAST_MODULES else "slow")
+        item.add_marker("fast" if mod in _FAST_MODULES or mod.startswith("test_torch_") else "slow")
 
 
 @pytest.fixture

@@ -1,0 +1,309 @@
+"""The port's kernel ops (dquartic_tpu_torch.ops) against the JAX package.
+
+Each op's plain PyTorch version — what the wrapper runs on CPU tensors —
+is held against the JAX plain reference on the same numpy inputs in
+float32, and once against the JAX Pallas kernel run in interpret mode, as
+the JAX package's own tests run it on the CPU. The CUDA kernels
+themselves are held against the plain versions by the tests marked
+``cuda``, which skip without a card. On a CUDA machine without JAX (which
+then cannot load tests/conftest.py), run them with
+
+    python -m pytest tests/test_torch_ops.py -m cuda --noconftest -q
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import dquartic_tpu_torch.ops.fused_resnet as tfr
+import dquartic_tpu_torch.ops.int8_matmul as tim
+import dquartic_tpu_torch.ops.linear_attention as tla
+
+try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
+    import jax.numpy as jnp
+
+    import dquartic_tpu.ops.fused_resnet as jfr
+    import dquartic_tpu.ops.int8_matmul as jim
+    import dquartic_tpu.ops.linear_attention as jla
+except ImportError:
+    jnp = jfr = jim = jla = None
+
+# float32 on both sides; the remaining difference is summation order over
+# at most a few thousand terms, followed by normalizations that keep values
+# O(1): 1e-5 absolute / relative is ~100 float32 ulps.
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels only run on the card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _linattn_args(rng, B, C, N, heads=4, dim_head=32):
+    H = heads * dim_head
+    return dict(
+        x=rng.normal(size=(B, C, N)).astype(np.float32),
+        w_qkv=(rng.normal(size=(C, 3 * H)) * 0.3).astype(np.float32),
+        w_out=(rng.normal(size=(H, C)) * 0.1).astype(np.float32),
+        b_out=(rng.normal(size=(C,)) * 0.1).astype(np.float32),
+        g=rng.normal(size=(C,)).astype(np.float32),
+        g_pre=(1.0 + 0.2 * rng.normal(size=(C,))).astype(np.float32),
+    )
+
+
+def _jax_linattn_nr(a):
+    xt = jnp.swapaxes(jnp.asarray(a["x"]), 1, 2)  # JAX takes (B, N, C)
+    out = jla.linear_attention_nr_reference(
+        xt, *(jnp.asarray(a[k]) for k in ("w_qkv", "w_out", "b_out", "g", "g_pre")),
+        heads=4, dim_head=32,
+    )
+    return np.swapaxes(np.asarray(out), 1, 2)
+
+
+def _torch_linattn(a, op=tla.linear_attention_nr_reference):
+    t = {k: _t(v) for k, v in a.items()}
+    return op(t["x"], t["w_qkv"], t["w_out"], t["b_out"], t["g"], t["g_pre"], 4, 32)
+
+
+@pytest.mark.parametrize("C,N", [(4, 1025), (8, 300), (16, 64)])
+def test_linear_attention_plain_matches_jax_reference(C, N):
+    a = _linattn_args(np.random.default_rng(0), 3, C, N)
+    np.testing.assert_allclose(_torch_linattn(a).numpy(), _jax_linattn_nr(a), **F32_TOL)
+
+
+def test_linear_attention_matches_jax_kernel_interpret():
+    """The JAX kernel (static shifts, exp2, folded W_out) computes the same
+    function; 2e-5 allows its exp2/log2(e) rescale on top of F32_TOL."""
+    a = _linattn_args(np.random.default_rng(1), 2, 4, 200)
+    xt = jnp.swapaxes(jnp.asarray(a["x"]), 1, 2)
+    out = jla.fused_linear_attention_t(
+        xt, *(jnp.asarray(a[k]) for k in ("w_qkv", "w_out", "b_out", "g")),
+        heads=4, dim_head=32, g_pre=jnp.asarray(a["g_pre"]), residual=True,
+    )
+    np.testing.assert_allclose(
+        _torch_linattn(a).numpy(), np.swapaxes(np.asarray(out), 1, 2), rtol=2e-5, atol=2e-5
+    )
+    # the CPU wrapper is the plain version
+    np.testing.assert_array_equal(
+        _torch_linattn(a, tla.linear_attention).numpy(), _torch_linattn(a).numpy()
+    )
+
+
+def _resnet_args(rng, B, c_in, c_out, N, film, res):
+    a = dict(
+        x_t=rng.normal(size=(B, c_in, N)).astype(np.float32),
+        w1=(rng.normal(size=(3, c_in, c_out)) * 0.3).astype(np.float32),
+        b1=(rng.normal(size=(c_out,)) * 0.1).astype(np.float32),
+        g1=(1.0 + 0.2 * rng.normal(size=(c_out,))).astype(np.float32),
+        scale=(rng.normal(size=(B, c_out)) * 0.2).astype(np.float32) if film else None,
+        shift=(rng.normal(size=(B, c_out)) * 0.2).astype(np.float32) if film else None,
+        w2=(rng.normal(size=(3, c_out, c_out)) * 0.3).astype(np.float32),
+        b2=(rng.normal(size=(c_out,)) * 0.1).astype(np.float32),
+        g2=(1.0 + 0.2 * rng.normal(size=(c_out,))).astype(np.float32),
+        w_res=(rng.normal(size=(1, c_in, c_out)) * 0.3).astype(np.float32) if res else None,
+        b_res=(rng.normal(size=(c_out,)) * 0.1).astype(np.float32) if res else None,
+    )
+    return a
+
+
+_RESNET_KEYS = ("x_t", "w1", "b1", "g1", "scale", "shift", "w2", "b2", "g2", "w_res", "b_res")
+
+
+def _torch_resnet(a, op=tfr.resnet_block_t_reference):
+    return op(*(None if a[k] is None else _t(a[k]) for k in _RESNET_KEYS))
+
+
+def _jax_args(a):
+    return [None if a[k] is None else jnp.asarray(a[k]) for k in _RESNET_KEYS]
+
+
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("res", [True, False])
+def test_fused_resnet_plain_matches_jax_reference(film, res):
+    c_in, c_out = (12, 8) if res else (8, 8)
+    a = _resnet_args(np.random.default_rng(2), 3, c_in, c_out, 129, film, res)
+    ref = jfr.resnet_block_t_reference(*_jax_args(a))
+    np.testing.assert_allclose(_torch_resnet(a).numpy(), np.asarray(ref), **F32_TOL)
+
+
+def test_fused_resnet_matches_jax_kernel_interpret():
+    a = _resnet_args(np.random.default_rng(3), 2, 8, 4, 300, True, True)
+    out = jfr.fused_resnet_block_t(*_jax_args(a), block_n=256, interpret=True)
+    np.testing.assert_allclose(_torch_resnet(a).numpy(), np.asarray(out), **F32_TOL)
+    np.testing.assert_array_equal(
+        _torch_resnet(a, tfr.fused_resnet_block_t).numpy(), _torch_resnet(a).numpy()
+    )
+
+
+def test_quantization_matches_jax_exactly():
+    """Same int8 values and scales as quantize_conv_kernel, padding sliced
+    off (both round half to even; the division is the same float32 op)."""
+    rng = np.random.default_rng(4)
+    w = rng.normal(size=(70, 33, 3)).astype(np.float32)  # torch (out, in, k)
+    q, s = tim.quantize_conv_kernel(_t(w))
+    jq, js = jim.quantize_conv_kernel(jnp.asarray(np.transpose(w, (2, 1, 0))))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq)[: 3 * 33, :70])
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js)[:70])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_plain_matches_jax_reference(dtype):
+    """float32: sums in another order. bfloat16: both accumulate exact products in float32
+    and round once to bf16, so they differ by at most one bf16 ulp (2^-8
+    relative) where the summation orders round differently."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(34, 150)).astype(np.float32)
+    w = rng.normal(size=(150, 70)).astype(np.float32)
+    q, s = tim.quantize_weight_matrix(_t(w))
+    jq, js = jim.quantize_weight_matrix(jnp.asarray(w))
+    xt = _t(x).to(getattr(torch, dtype))
+    out = tim.int8_matmul_reference(xt, q, s).float().numpy()
+    ref = jim.int8_matmul_reference(jnp.asarray(x, getattr(jnp, dtype)), jq, js)
+    ref = np.asarray(ref.astype(jnp.float32))[:, :70]
+    tol = dict(rtol=1e-5, atol=1e-6 * np.abs(ref).max())  # as in the test below
+    if dtype == "bfloat16":
+        tol = dict(rtol=2**-8, atol=1e-6)
+    np.testing.assert_allclose(out, ref, **tol)
+
+
+def test_int8_matmul_matches_jax_kernel_interpret():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(34, 600)).astype(np.float32)
+    w = rng.normal(size=(600, 40)).astype(np.float32)
+    q, s = tim.quantize_weight_matrix(_t(w))
+    jq, js = jim.quantize_weight_matrix(jnp.asarray(w))
+    ref = np.asarray(jim.int8_matmul(jnp.asarray(x), jq, js, interpret=True))[:, :40]
+    # sums of 600 O(1) products in another order: the rounding error scales
+    # with the size of the sums, not of each (possibly cancelled) result
+    np.testing.assert_allclose(
+        tim.int8_matmul(_t(x), q, s).numpy(), ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max()
+    )
+
+
+def test_int8_conv1d_matches_jax():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 24, 9)).astype(np.float32)  # (b, C_in, L)
+    w = (rng.normal(size=(16, 24, 3)) * 0.2).astype(np.float32)  # torch (out, in, k)
+    bias = rng.normal(size=(16,)).astype(np.float32)
+    q, s = tim.quantize_conv_kernel(_t(w))
+    out = tim.int8_conv1d(_t(x), q, s, _t(bias))
+    jq, js = jim.quantize_conv_kernel(jnp.asarray(np.transpose(w, (2, 1, 0))))
+    ref = jim.int8_conv1d(
+        jnp.asarray(np.transpose(x, (0, 2, 1))), jq, js, jnp.asarray(bias), 3, 16, impl="xla"
+    )
+    np.testing.assert_allclose(out.numpy(), np.transpose(np.asarray(ref), (0, 2, 1)), **F32_TOL)
+
+
+def test_ops_refuse_gradients():
+    """No backward kernel exists yet: asking for a gradient raises."""
+    rng = np.random.default_rng(8)
+    a = {k: _t(v) for k, v in _linattn_args(rng, 1, 4, 16).items()}
+    a["x"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tla.linear_attention(a["x"], a["w_qkv"], a["w_out"], a["b_out"], a["g"], a["g_pre"])
+    r = {k: None if v is None else _t(v) for k, v in _resnet_args(rng, 1, 4, 4, 8, True, False).items()}
+    r["w1"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfr.fused_resnet_block_t(*(r[k] for k in _RESNET_KEYS))
+    x = torch.ones(2, 6, requires_grad=True)
+    q, s = tim.quantize_weight_matrix(torch.ones(6, 4))
+    with pytest.raises(RuntimeError, match="forward only"):
+        tim.int8_matmul(x, q, s)
+    with torch.no_grad():
+        assert tim.int8_matmul(x, q, s).shape == (2, 4)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, dquartic_tpu_torch.infer, dquartic_tpu_torch.utils.builder, "
+        "dquartic_tpu_torch.compat.jax_params; "
+        "assert 'jax' not in sys.modules, 'jax imported'; print('ok')"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+# --------------------------------------------------------------------- #
+# on the card: each CUDA kernel against its plain version               #
+# --------------------------------------------------------------------- #
+
+# In bf16 the kernels take bf16 activations (K2 also rounds its conv
+# weights to bf16) and compute in float32, rounding only matmul operands
+# (K1) and the output. They are held against the plain version run in
+# float32 on the same bf16 values: the plain version's own bf16 rounding
+# points differ from the kernel's, and an RMSNorm over 4 channels whose
+# norm cancels amplifies those roundings far beyond a bf16 ulp. Outputs
+# are O(1) to O(10) (RMSNorm-scaled plus a unit-normal residual), where one
+# bf16 ulp is up to 2^-5.
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+F32_CARD_TOL = dict(rtol=1e-4, atol=1e-4)  # sums in another order, exp2
+
+
+def _bf16_values(t):
+    return None if t is None else t.to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,N", [(4, 40000), (16, 625), (8, 1000)])
+def test_linear_attention_kernel_on_card(cuda, dtype, C, N):
+    a = _linattn_args(np.random.default_rng(9), 34, C, N)
+    t = {k: _t(v, cuda) for k, v in a.items()}
+    x = t["x"].to(getattr(torch, dtype))
+    w = [t[k] for k in ("w_qkv", "w_out", "b_out", "g", "g_pre")]
+    before = tla.linear_attention.launches
+    out = tla.linear_attention(x, *w)
+    assert tla.linear_attention.launches == before + 1
+    ref = tla.linear_attention_nr_reference(x.to(torch.float32), *w, 4, 32)
+    torch.cuda.synchronize()
+    tol = F32_CARD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "c_in,c_out,N,film", [(4, 4, 40000, True), (32, 16, 625, True), (8, 4, 40000, True),
+                          (12, 8, 1000, False)]
+)
+def test_fused_resnet_kernel_on_card(cuda, dtype, c_in, c_out, N, film):
+    a = _resnet_args(np.random.default_rng(10), 34, c_in, c_out, N, film, c_in != c_out)
+    t = {k: None if v is None else _t(v, cuda) for k, v in a.items()}
+    t["x_t"] = t["x_t"].to(getattr(torch, dtype))
+    out = tfr.fused_resnet_block_t(*(t[k] for k in _RESNET_KEYS))
+    if dtype == "bfloat16":
+        t = {k: _bf16_values(v) if k in ("x_t", "w1", "w2", "w_res") else v for k, v in t.items()}
+    ref = tfr.resnet_block_t_reference(*(t[k] for k in _RESNET_KEYS))
+    torch.cuda.synchronize()
+    tol = F32_CARD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", [(34, 30000, 10000), (7, 1537, 130), (100, 600, 48)])
+def test_int8_matmul_kernel_on_card(cuda, dtype, M, K, N):
+    rng = np.random.default_rng(11)
+    x = _t(rng.normal(size=(M, K)).astype(np.float32), cuda).to(getattr(torch, dtype))
+    q, s = tim.quantize_weight_matrix(_t(rng.normal(size=(K, N)).astype(np.float32), cuda))
+    out = tim.int8_matmul(x, q, s).float()
+    ref = tim.int8_matmul_reference(x, q, s).float()
+    torch.cuda.synchronize()
+    # float32 sums of K products in another order: relative to sqrt(K)·|x||w|
+    scale = float(ref.abs().max())
+    tol = dict(rtol=1e-5, atol=1e-5 * scale) if dtype == "float32" else dict(
+        rtol=2**-7, atol=2**-8 * scale
+    )
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **tol)
