@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -18,7 +18,21 @@ CUDA card with sm_90a). Phases, each of which must pass:
   4. run ``DDIMSampler.predict`` for 50 steps on one synthetic
      (34 x 40000) pair batch in bf16, check the result and that every
      kernel was launched (K1 700, K2 1450, K3 200 times), then time
-     ms/window on the kernel path and on the plain path (median of 3).
+     ms/window on the kernel path and on the plain path (median of 3);
+  5. hold each backward kernel (K4 linear attention, K5 fused ResnetBlock)
+     against autograd of its plain version at the training path's shapes,
+     in float32 (TF32 off) and bfloat16, check that two identical calls
+     give bitwise equal gradients, and time both at the level-0 shape;
+  6. full-width training of the canonical model through ``build_trainer``
+     (bf16 compute on float32 master weights, AdamW + EMA, batch 1):
+     (a) one step's gradients on the kernels against the plain path on the
+     same weights and draws, float32 and bf16; (b) ``train_step`` 1 + 5
+     times with a finite loss, moving parameters and EMA, and K1/K4 14,
+     K2/K5 29 launches per step; (c) median ms/step of 5 on the kernel and
+     the plain path, and the peak device memory;
+  7. ``Trainer.train`` for 2 epochs of a 3-level model (m/z 256) writing
+     latest and best checkpoints to a temporary directory, a resumed run
+     from them, and a 10-step ``predict`` from the EMA weights.
 
 It prints one JSON line of per-kernel results and, last, one JSON line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -33,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +67,25 @@ BF16_TOL = (3e-2, 3e-2)
 # (1, 34, 40000) output. float32: summation order only, through ~60
 # layers. bf16: roundings that differ per layer, accumulated over the net.
 MODEL_REL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# Backward kernels vs autograd of the plain versions, max |error| over the
+# largest entry of each gradient. float32: sums in another order over up to
+# 40000 columns, and dW_k formed as the difference dW_k' - bmat T of two
+# larger terms (as the TPU kernel forms it). bf16: the kernels take the
+# bf16 activations and cotangent and compute in float32, so they are held
+# against the plain version run in float32 on the same bf16 values (and,
+# for K5, the same bf16-rounded conv weights); dx is rounded once to bf16.
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# One full-width step's gradients, kernels vs plain path on the same weights
+# and draws: relative L2 of the whole gradient vector, and the smallest
+# cosine between a parameter's two gradients. float32: summation order
+# through ~60 layers. bf16: the plain path rounds every stage to bf16 where
+# the kernels keep float32 inside, and the two roundings compound through
+# the forward and the backward of the net.
+STEP_GRAD_TOL = {"float32": (1e-3, 0.999), "bfloat16": (1e-1, 0.9)}
+TRAIN_STEPS = 5
+# launches per full-width train step (29 ResnetBlocks, 14 mixers)
+STEP_LAUNCHES = {"linear_attention": 14, "linear_attention_backward": 14,
+                 "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0}
 
 
 class SmokeFailure(RuntimeError):
@@ -282,7 +316,8 @@ def phase_sample(config, seed, gen, results):
     check(bool(np.isfinite(pred).all()), "non-finite prediction")
     check(bool(np.isfinite(recs[0]["pred_noise"]).all()), "non-finite pred_noise")
     expect = {"linear_attention": 14 * STEPS, "fused_resnet_block_t": 29 * STEPS,
-              "int8_matmul": 4 * STEPS}
+              "int8_matmul": 4 * STEPS, "linear_attention_backward": 0,
+              "fused_resnet_backward": 0}
     check(counts == expect, f"launch counts {counts} != {expect}")
     for name, n in counts.items():
         results[name]["launches"] = n
@@ -302,6 +337,268 @@ def phase_sample(config, seed, gen, results):
             f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
     model.use_kernels(True)
     return per_window
+
+
+def _scaled_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-12)), float((a - b).abs().max())
+
+
+def _compare_grads(name, got, ref, tol):
+    import torch
+
+    worst, worst_abs = 0.0, 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            check(g is None, f"{name}: gradient {i} should be None")
+            continue
+        check(g.shape == r.shape, f"{name}: gradient {i} shape {tuple(g.shape)} != {tuple(r.shape)}")
+        check(bool(torch.isfinite(g.float()).all()), f"{name}: non-finite gradient {i}")
+        err, abs_err = _scaled_err(g, r)
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+    log(f"  {name}: worst max|err|/max|ref| {worst:.3e} (tol {tol:g}), max|err| {worst_abs:.3e}")
+    check(worst < tol, f"{name}: backward kernel disagrees with autograd of its plain version")
+    return worst_abs
+
+
+def phase_backward_kernels(gen, results):
+    """K4 and K5 against autograd of their plain versions, at the training
+    path's shapes, float32 and bf16; determinism; times at level 0."""
+    import torch
+
+    from dquartic_tpu_torch.ops import fused_resnet as fr
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    def bf16_values(t):
+        return None if t is None else t.to(torch.bfloat16).to(torch.float32)
+
+    errs = {"linear_attention_backward": 0.0, "fused_resnet_backward": 0.0}
+    timing = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        for C, N in ((4, MZ), (16, MZ // 64)):
+            H = 128
+            x, dy = randn(34, C, N).to(dt), randn(34, C, N).to(dt)
+            w = [randn(C, 3 * H, s=0.3), randn(H, C, s=0.1), randn(C, s=0.1), randn(C),
+                 1.0 + randn(C, s=0.2)]
+            got = la.linear_attention_backward(dy, x, *w)
+            again = la.linear_attention_backward(dy, x, *w)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "K4: two identical calls gave different gradients")
+            ref = la.linear_attention_backward_reference(dy.float(), x.float(), *w, 4, 32)
+            errs["linear_attention_backward"] = max(errs["linear_attention_backward"], _compare_grads(
+                f"K4 linear_attention_backward {tag} (34, {C}, {N})", got, ref, GRAD_TOL[tag]))
+            if dt == torch.bfloat16 and C == 4:
+                timing["linear_attention_backward"] = (
+                    cuda_time(lambda: la.linear_attention_backward(dy, x, *w), 10),
+                    cuda_time(lambda: la.linear_attention_backward_reference(dy, x, *w, 4, 32), 3),
+                )
+            del got, again, ref
+        for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
+            res = c_in != c_out
+            a = [randn(34, c_in, N).to(dt), randn(3, c_in, c_out, s=0.3), randn(c_out, s=0.1),
+                 1.0 + randn(c_out, s=0.2), randn(34, c_out, s=0.2), randn(34, c_out, s=0.2),
+                 randn(3, c_out, c_out, s=0.3), randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2),
+                 randn(1, c_in, c_out, s=0.3) if res else None, randn(c_out, s=0.1) if res else None]
+            dy = randn(34, c_out, N).to(dt)
+            got = fr.fused_resnet_backward(dy, *a)
+            again = fr.fused_resnet_backward(dy, *a)
+            torch.cuda.synchronize()
+            check(all((g is None and h is None) or torch.equal(g, h) for g, h in zip(got, again)),
+                  "K5: two identical calls gave different gradients")
+            # K5 uses the conv weights rounded to the activation dtype, as K2
+            ra = [bf16_values(v) if dt == torch.bfloat16 and i in (0, 1, 6, 9)
+                  else (None if v is None else v.float()) for i, v in enumerate(a)]
+            ref = fr.resnet_block_t_backward_reference(dy.float(), *ra)
+            errs["fused_resnet_backward"] = max(errs["fused_resnet_backward"], _compare_grads(
+                f"K5 fused_resnet_backward {tag} {c_in}->{c_out} N={N}", got, ref, GRAD_TOL[tag]))
+            if dt == torch.bfloat16 and c_in == 4:
+                timing["fused_resnet_backward"] = (
+                    cuda_time(lambda: fr.fused_resnet_backward(dy, *a), 10),
+                    cuda_time(lambda: fr.resnet_block_t_backward_reference(dy, *a), 3),
+                )
+            del got, again, ref
+    for name, (ms, plain_ms) in timing.items():
+        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+
+
+def _train_config(config, **tpu):
+    cfg = json.loads(json.dumps(config))
+    cfg["tpu"].update(quantize_mid=False, fused_resnet=True, **tpu)
+    return cfg
+
+
+def _pair_batch(seed, mz=None):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mz = mz or MZ
+    return {k: rng.uniform(0, 1, s).astype(np.float32) for k, s in
+            (("ms2_1", (1, RT, mz)), ("ms1_1", (1, RT)), ("ms2_2", (1, RT, mz)))}
+
+
+def _step_grads(model, process, batch, t, eps):
+    """float32 copies of one step's gradients, in parameter order."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    ms2_cond = 0.5 * batch["ms2_1"] + 0.5 * batch["ms2_2"]
+    loss, _ = process.train_loss(model, batch["ms2_1"], ms2_cond, batch["ms1_1"], t=t, eps=eps)
+    loss.backward()
+    grads = [p.grad.float().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_train(config, seed, gen, results):
+    """Full-width training through build_trainer: kernel vs plain gradients,
+    six steps with launch counts, ms/step and peak memory."""
+    import torch
+
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 1).items()}
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=gen, device=dev)
+
+    # (a) one step's gradients, kernels vs plain path, same weights and draws
+    cfg = _train_config(config, compute_dtype="float32")
+    model = build_model(cfg, device=dev, seed=seed, trainable=True)
+    process = build_process(cfg)
+    names = [n for n, _ in model.named_parameters()]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        model.compute_dtype = dtype
+        loss_k, gk = _step_grads(model.use_kernels(True), process, batch, t, eps)
+        loss_p, gp = _step_grads(model.use_kernels(False), process, batch, t, eps)
+        model.use_kernels(True)
+        num = sum(float((a - b).square().sum()) for a, b in zip(gk, gp))
+        den = sum(float(b.square().sum()) for b in gp)
+        rel = (num / den) ** 0.5
+        cos = [(float((a * b).sum() / (a.norm() * b.norm() + 1e-30)), n)
+               for a, b, n in zip(gk, gp, names)]
+        worst = min(cos)
+        finite = all(bool(torch.isfinite(a).all()) for a in gk)
+        rel_tol, cos_tol = STEP_GRAD_TOL[tag]
+        log(f"  full-width step gradients {tag}: loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
+            f"rel L2 of the gradient vector {rel:.3e} (tol {rel_tol:g}), worst per-tensor "
+            f"cosine {worst[0]:.6f} ({worst[1]}, tol {cos_tol:g}), all finite {finite}")
+        check(finite, f"{tag}: non-finite gradient")
+        check(rel <= rel_tol and worst[0] >= cos_tol,
+              f"{tag}: full-width gradients on the kernels disagree with the plain path")
+        del gk, gp
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) train_step 1 + 5 times through build_trainer, bf16 on float32 masters
+    cfg = _train_config(config, compute_dtype="bfloat16")
+    trainer = build_trainer(cfg, device=dev, seed=seed)
+    n_params = trainer.num_parameters()
+    probe = dict(trainer.model.named_parameters())["init_conv.weight"]
+    idx = [i for i, p in enumerate(trainer.optimizer.params) if p is probe][0]
+    p0, e0 = probe.detach().clone(), trainer.ema_params[idx].clone()
+    lr = 1e-4
+    m = trainer.train_step(batch, lr, generator=gen)  # warm-up step
+    torch.cuda.synchronize()
+    losses = [float(m["loss"])]
+    step_ms = {}
+    for path, kernels in (("kernel", True), ("plain", False)):
+        trainer.model.use_kernels(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        runs = []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.train_step(batch, lr, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.sort()
+        step_ms[path] = runs[len(runs) // 2]
+        log(f"  train_step ({n_params / 1e9:.3f} B params, bs1, 34x40000, bf16 on float32 "
+            f"masters, AdamW + EMA), {path} path: median {step_ms[path]:.2f} ms/step of "
+            f"{TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), peak device memory "
+            f"{peak:.2f} GiB, launches {counts}")
+        if kernels:
+            expect = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
+            check(counts == expect, f"train launches {counts} != {expect}")
+            for name, n in counts.items():
+                results[name]["train_launches"] = n
+            for name in ("linear_attention_backward", "fused_resnet_backward"):
+                results[name]["launches"] = counts[name]
+            results["train"] = dict(ms_per_step=step_ms[path], peak_gib=peak)
+        else:
+            results["train"].update(plain_ms_per_step=step_ms[path], plain_peak_gib=peak)
+    trainer.model.use_kernels(True)
+    log(f"  losses over the {len(losses)} steps: {[round(v, 6) for v in losses]}")
+    check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
+    moved = float((probe.detach() - p0).abs().max())
+    ema_moved = float((trainer.ema_params[idx] - e0).abs().max())
+    log(f"  init_conv.weight moved by max {moved:.3e}, its EMA by {ema_moved:.3e}")
+    check(moved > 0 and ema_moved > 0, "parameters or EMA did not move")
+    del trainer, probe
+    torch.cuda.empty_cache()
+
+
+def phase_train_loop(config, seed):
+    """Trainer.train for 2 epochs at small depth with checkpoints, resume,
+    and a 10-step predict from the EMA weights."""
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.train import latest_path_for, load_checkpoint
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    mz = 256
+    cfg = _train_config(config, compute_dtype="bfloat16")
+    cfg["model"]["UNet1d"].update(dim_mults=[1, 2, 2], downsample_dim=mz)
+    data = [_pair_batch(seed + 10 + i, mz=mz) for i in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        best = os.path.join(tmp, "best_model.ckpt")
+        reset_launch_counts()
+        trainer = build_trainer(cfg, device="cuda", seed=seed)
+        trainer.train(data, epochs=2, warmup_epochs=1, learning_rate=1e-3, checkpoint_path=best)
+        counts = launch_counts()
+        latest = latest_path_for(best)
+        check(os.path.exists(best) and os.path.exists(latest), "checkpoints were not written")
+        ck = load_checkpoint(latest)
+        check(ck["epoch"] == 1 and ck["step"] == 4, f"latest checkpoint epoch {ck['epoch']}")
+        check(all(counts[k] > 0 for k in ("linear_attention", "linear_attention_backward",
+                                          "fused_resnet_block_t", "fused_resnet_backward")),
+              f"small-depth training did not run every kernel: {counts}")
+        resumed = build_trainer(cfg, device="cuda", seed=seed)
+        resumed.train(data, epochs=3, warmup_epochs=1, learning_rate=1e-3, checkpoint_path=best)
+        check(resumed.step == 6, f"resumed run took {resumed.step - 4} steps after step 4, not 2")
+        log(f"  2 epochs of 2 steps, checkpoints {sorted(os.listdir(tmp))} "
+            f"({os.path.getsize(latest) / 2**20:.1f} MiB each), launches {counts}; resumed "
+            f"after epoch {ck['epoch']} and ran epoch 2 (step {resumed.step})")
+        model = build_model(cfg, device="cuda", seed=seed + 99)
+        model.load_state_dict(resumed.ema_state_dict())
+        recs = DDIMSampler(model, build_process(cfg)).predict(
+            [data[0]], num_steps=10, seed=seed, device="cuda")
+        pred = recs[0]["pred"]
+        log(f"  10-step predict from the EMA weights: pred {pred.shape}, finite "
+            f"{bool(np.isfinite(pred).all())}, range [{pred.min():.4f}, {pred.max():.4f}]")
+        check(pred.shape == (1, RT, mz) and bool(np.isfinite(pred).all()), "bad EMA prediction")
+        del trainer, resumed, model
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -336,6 +633,11 @@ def main(argv=None) -> int:
                                      replaces="dquartic_tpu/ops/fused_resnet.py:241"),
         "int8_matmul": dict(source="dquartic_tpu_torch/csrc/int8_matmul.cu",
                             replaces="dquartic_tpu/ops/int8_matmul.py:111"),
+        "linear_attention_backward": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_bwd.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:998"),
+        "fused_resnet_backward": dict(source="dquartic_tpu_torch/csrc/fused_resnet_bwd.cu",
+                                      replaces="dquartic_tpu/ops/fused_resnet.py:500"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t_start = time.perf_counter()
@@ -348,6 +650,12 @@ def main(argv=None) -> int:
         phase_forward(config, args.seed, gen)
         log("== phase 4: 50-step DDIM deconvolution through DDIMSampler.predict")
         phase_sample(config, args.seed, gen, results)
+        log("== phase 5: backward kernels vs autograd of the plain versions")
+        phase_backward_kernels(gen, results)
+        log("== phase 6: full-width training through build_trainer")
+        phase_train(config, args.seed, gen, results)
+        log("== phase 7: Trainer.train at small depth: checkpoints, resume, EMA predict")
+        phase_train_loop(config, args.seed)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -355,6 +663,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    train = results.pop("train")
+    log(f"train step: {json.dumps(train)}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

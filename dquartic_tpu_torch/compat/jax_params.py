@@ -1,7 +1,8 @@
-"""JAX parameter tree -> PyTorch state_dict of the port's UNet1d.
+"""JAX parameter tree <-> PyTorch state_dict of the port's UNet1d.
 
-The inverse of :func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict`
-(numpy only), for handing both packages the same weights:
+:func:`jax_params_to_torch` is the inverse of
+:func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict` (numpy
+only), for handing both packages the same weights:
 
   * flax conv kernel (k, in, out)  -> torch Conv1d weight (out, in, k)
   * flax dense kernel (in, out)    -> torch Linear weight (out, in)
@@ -12,6 +13,14 @@ It also accepts the tree of ``quantize_mid_block_params`` (JAX
 N_pad), kernel_scale (N_pad,), bias (N,)}`` becomes the port's
 ``weight_q`` (K, N) / ``scale`` (N,) / ``bias`` with the TPU tile padding
 sliced off (the mid convs are square, C_in = C_out, so K = 3·C_out).
+
+The other direction is the JAX converter itself: the port's names and
+layouts are the reference PyTorch ones, so ``convert_unet1d_state_dict``
+maps the port's ``state_dict()`` onto the JAX tree. The mapping is linear
+(transposes and reshapes), so it maps gradients too:
+``convert_unet1d_state_dict(grads_state_dict(model), dim_mults)`` is the
+gradient tree ``jax.grad`` returns for the same loss, which is how the
+tests compare the two packages' gradients.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Sequence
 
 import numpy as np
+import torch
 
 
 def _conv(p: Dict[str, Any], name: str, out: Dict[str, np.ndarray]) -> None:
@@ -99,3 +109,13 @@ def jax_params_to_torch(params: Dict[str, Any], dim_mults: Sequence[int]) -> Dic
     _resnet(p["final_res_block"], "final_res_block", out)
     _conv(p["final_conv"], "final_conv", out)
     return out
+
+
+def grads_state_dict(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """``{name: grad}`` of every parameter, float32 numpy, in the layout of
+    ``model.state_dict()`` (zeros for a parameter with no gradient)."""
+    return {
+        name: (p.grad if p.grad is not None else torch.zeros_like(p))
+        .detach().float().cpu().numpy()
+        for name, p in model.named_parameters()
+    }

@@ -1,9 +1,10 @@
-"""Deterministic (eta=0) DDIM reverse process on torch tensors.
+"""DDIM process on torch tensors: deterministic (eta=0) reverse pass and
+the training objective.
 
-Port of the inference half of :mod:`dquartic_tpu.core.diffusion`
-(``normalize``/``unnormalize``, ``q_sample``, ``ddim_step``, ``sample``).
-The reverse pass is a plain Python loop over the sub-sampled timesteps;
-the JAX package compiles the same loop as one ``lax.scan``.
+Port of :mod:`dquartic_tpu.core.diffusion` (``normalize``/``unnormalize``,
+``q_sample``, ``ddim_step``, ``sample``, ``train_loss``). The reverse pass
+is a plain Python loop over the sub-sampled timesteps; the JAX package
+compiles the same loop as one ``lax.scan``.
 
 Per-step schedule scalars are taken from the float32 numpy tables and
 combined in float32 on the host, so the DDIM algebra sees the same
@@ -41,11 +42,12 @@ def _f32(v) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class DDIMProcess:
-    """See :class:`dquartic_tpu.core.diffusion.DDIMProcess`; its sampling
-    flags with the same defaults."""
+    """See :class:`dquartic_tpu.core.diffusion.DDIMProcess`; the same
+    fields with the same defaults."""
 
     schedule: DiffusionSchedule
     auto_normalize: bool = True
+    ms1_loss_weight: float = 0.0
     parity_neighbor_stepping: bool = True
     clip_denoised: bool = True
 
@@ -131,3 +133,85 @@ class DDIMProcess:
         if ms2_cond is not None:
             pred_noise = self.unnormalize(ms2_n) - x_out
         return x_out, pred_noise
+
+    def train_loss(
+        self,
+        denoise_fn: DenoiseFn,
+        x_0: torch.Tensor,
+        ms2_cond: Optional[torch.Tensor] = None,
+        ms1_cond: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        *,
+        t: Optional[torch.Tensor] = None,
+        eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, dict]:
+        """Diffusion training loss; returns ``(scalar_loss, aux)`` with the
+        per-sample loss, ``t`` and the mean primary (MSE) loss.
+
+        The draws are t ~ U[0, T) (b,) and eps ~ N(0, I) like ``x_0``. Pass
+        them as ``t`` and ``eps`` (tests hand both packages the same draws),
+        or they are drawn from ``generator`` (on ``x_0``'s device). An
+        explicit ``noise`` is normalized like the data and replaces eps, as
+        in the JAX function."""
+        batch = x_0.shape[0]
+        if t is None:
+            t = torch.randint(
+                0, self.schedule.num_timesteps, (batch,), generator=generator, device=x_0.device
+            )
+        x_0n = self.normalize(x_0)
+        if noise is not None:
+            noise = self.normalize(noise)
+        elif eps is not None:
+            noise = eps.to(x_0n.dtype)
+        else:
+            noise = torch.randn(
+                x_0.shape, generator=generator, dtype=x_0n.dtype, device=x_0.device
+            )
+        ms2_n = self.normalize(ms2_cond)
+        ms1_n = self.normalize(ms1_cond)
+
+        x_t = self.q_sample(x_0n, t, noise)
+        pred = denoise_fn(x_t, t, ms2_n, ms1_n)
+
+        if self.schedule.pred_type == "eps":
+            target = noise
+            denoised = x_t - pred
+        elif self.schedule.pred_type == "x0":
+            target = x_0n
+            denoised = pred
+        else:
+            raise ValueError(f"Unknown pred_type: {self.schedule.pred_type!r}")
+
+        sq = torch.square(pred.to(torch.float32) - target.to(torch.float32))
+        primary = torch.mean(sq.reshape(batch, -1), dim=1)
+        if self.ms1_loss_weight > 0.0 and ms1_n is not None:
+            additional = self._ms1_sic_loss(denoised, ms1_n)
+            per_sample = (1.0 - self.ms1_loss_weight) * primary + self.ms1_loss_weight * additional
+        else:
+            per_sample = primary
+
+        weight = torch.as_tensor(self.schedule.loss_weight, device=x_0.device)[t.long()]
+        per_sample = per_sample * weight
+        aux = {"per_sample_loss": per_sample, "t": t, "primary_loss": torch.mean(primary)}
+        return torch.mean(per_sample), aux
+
+    @staticmethod
+    def _ms1_sic_loss(denoised: torch.Tensor, ms1: torch.Tensor) -> torch.Tensor:
+        """MS1 pseudo-chromatogram consistency loss: sum/mean/max (values)
+        projections of the denoised map over m/z, each max-normalized per
+        sample, against the same projections of the MS1 condition."""
+        eps = 1e-12
+        projections = (
+            lambda x: torch.sum(x, dim=-1),
+            lambda x: torch.mean(x, dim=-1),
+            lambda x: torch.amax(x, dim=-1),
+        )
+        total = torch.zeros((denoised.shape[0],), dtype=torch.float32, device=denoised.device)
+        for fn in projections:
+            sic = (denoised if denoised.ndim == 2 else fn(denoised)).to(torch.float32)
+            ms1_sic = (ms1 if ms1.ndim == 2 else fn(ms1)).to(torch.float32)
+            sic_n = sic / (torch.amax(torch.abs(sic), dim=-1, keepdim=True) + eps)
+            ms1_n = ms1_sic / (torch.amax(torch.abs(ms1_sic), dim=-1, keepdim=True) + eps)
+            total = total + torch.mean(torch.square(sic_n - ms1_n), dim=-1)
+        return total

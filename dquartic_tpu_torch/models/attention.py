@@ -13,7 +13,7 @@ from torch import nn
 
 from ..ops.attention_dispatch import dot_product_attention
 from ..ops.linear_attention import linear_attention, linear_attention_nr_reference
-from .layers import RMSNorm
+from .layers import Conv1d, RMSNorm
 
 
 def rope_rotate(x: torch.Tensor, rot_dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -41,16 +41,17 @@ class LinearAttention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.kernels = True
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv1d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Sequential(nn.Conv1d(hidden, dim, 1), RMSNorm(dim))
+        self.to_qkv = Conv1d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Sequential(Conv1d(hidden, dim, 1), RMSNorm(dim))
 
     def forward(self, x: torch.Tensor, g_pre: torch.Tensor) -> torch.Tensor:
         op = linear_attention if self.kernels else linear_attention_nr_reference
+        cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
         return op(
             x,
-            self.to_qkv.weight[:, :, 0].t(),  # flax layout (C, 3H)
-            self.to_out[0].weight[:, :, 0].t(),  # (H, C)
-            self.to_out[0].bias,
+            self.to_qkv.weight[:, :, 0].t().to(cd),  # flax layout (C, 3H)
+            self.to_out[0].weight[:, :, 0].t().to(cd),  # (H, C)
+            self.to_out[0].bias.to(cd),
             self.to_out[1].g.reshape(-1),
             g_pre.reshape(-1),
             self.heads,
@@ -99,9 +100,9 @@ class Attention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         hidden = heads * dim_head
-        self.to_qv = nn.Conv1d(dim, hidden * 2, 1, bias=False)
-        self.to_k = nn.Conv1d(cond_dim, hidden, 1, bias=False)
-        self.to_out = nn.Conv1d(hidden, dim, 1)
+        self.to_qv = Conv1d(dim, hidden * 2, 1, bias=False)
+        self.to_k = Conv1d(cond_dim, hidden, 1, bias=False)
+        self.to_out = Conv1d(hidden, dim, 1)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         b, hc, n = t.shape  # (b, h*c, n) -> (b, h, n, c)

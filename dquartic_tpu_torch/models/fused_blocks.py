@@ -21,16 +21,17 @@ class ResnetBlockT(ResnetBlock):
 
     def forward(self, x: torch.Tensor, t_rows: torch.Tensor) -> torch.Tensor:
         scale, shift = self.film(t_rows)
+        cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
 
         def flax(conv):  # torch (out, in, k) -> flax (k, in, out)
-            return conv.weight.permute(2, 1, 0)
+            return conv.weight.permute(2, 1, 0).to(cd)
 
         res = self.res_conv
         op = fused_resnet_block_t if self.kernels else resnet_block_t_reference
         return op(
             x,
-            flax(self.block1.proj), self.block1.proj.bias, self.block1.norm.g.reshape(-1),
+            flax(self.block1.proj), self.block1.proj.bias.to(cd), self.block1.norm.g.reshape(-1),
             scale, shift,
-            flax(self.block2.proj), self.block2.proj.bias, self.block2.norm.g.reshape(-1),
-            flax(res) if res is not None else None, res.bias if res is not None else None,
+            flax(self.block2.proj), self.block2.proj.bias.to(cd), self.block2.norm.g.reshape(-1),
+            flax(res) if res is not None else None, res.bias.to(cd) if res is not None else None,
         )

@@ -5,6 +5,11 @@ follow the reference PyTorch UNet1d, whose state_dict the JAX converter
 (:func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict`) maps:
 Conv1d weights (out, in, k), Linear weights (out, in), norm gains
 (1, C, 1).
+
+Mixed precision follows flax's ``dtype=bf16, param_dtype=float32``: the
+convs and linears cast their parameters to the activation dtype at use, so
+float32 master weights compute in bf16 and autograd returns float32
+gradients; norm gains and RMSNorm math stay float32.
 """
 
 from __future__ import annotations
@@ -18,6 +23,22 @@ from torch import nn
 
 from ..ops.int8_matmul import int8_conv1d, int8_matmul, int8_matmul_reference, quantize_conv_kernel
 from ..ops.linear_attention import rmsnorm_reference
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` with its parameters cast to the input's dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with its parameters cast to the input's dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -88,7 +109,7 @@ class Block(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Conv1d(dim_in, dim_out, 3, padding=1)
+        self.proj = Conv1d(dim_in, dim_out, 3, padding=1)
         self.norm = RMSNorm(dim_out)
 
     def forward(
@@ -108,13 +129,13 @@ class ResnetBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, time_emb_dim: Optional[int] = None):
         super().__init__()
         self.mlp = (
-            nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim_out * 2))
+            nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim_out * 2))
             if time_emb_dim is not None
             else None
         )
         self.block1 = Block(dim_in, dim_out)
         self.block2 = Block(dim_out, dim_out)
-        self.res_conv = nn.Conv1d(dim_in, dim_out, 1) if dim_in != dim_out else None
+        self.res_conv = Conv1d(dim_in, dim_out, 1) if dim_in != dim_out else None
 
     def film(self, time_emb: Optional[torch.Tensor]):
         """(scale, shift), each (b, C_out), or None."""
@@ -135,7 +156,7 @@ class ConditionalScaleShift(nn.Module):
 
     def __init__(self, dim: int, time_emb_dim: int):
         super().__init__()
-        self.to_scale_shift = nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim, dim * 2))
+        self.to_scale_shift = nn.Sequential(nn.SiLU(), Linear(time_emb_dim, dim * 2))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         scale, shift = self.to_scale_shift(t).chunk(2, dim=-1)
@@ -145,10 +166,10 @@ class ConditionalScaleShift(nn.Module):
 def Upsample(dim_in: int, dim_out: int) -> nn.Sequential:
     """Nearest x2 upsample, then conv3."""
     return nn.Sequential(
-        nn.Upsample(scale_factor=2, mode="nearest"), nn.Conv1d(dim_in, dim_out, 3, padding=1)
+        nn.Upsample(scale_factor=2, mode="nearest"), Conv1d(dim_in, dim_out, 3, padding=1)
     )
 
 
-def Downsample(dim_in: int, dim_out: int) -> nn.Conv1d:
+def Downsample(dim_in: int, dim_out: int) -> Conv1d:
     """Stride-2 conv4 downsample."""
-    return nn.Conv1d(dim_in, dim_out, 4, stride=2, padding=1)
+    return Conv1d(dim_in, dim_out, 4, stride=2, padding=1)

@@ -20,16 +20,24 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, LinearAttentionBlock, PreNorm, Residual
 from .fused_blocks import ResnetBlockT
-from .layers import ConditionalScaleShift, Downsample, ResnetBlock, SinusoidalPosEmb, Upsample
+from .layers import (
+    ConditionalScaleShift, Conv1d, Downsample, Linear, ResnetBlock, SinusoidalPosEmb, Upsample,
+)
 
 
 class UNet1d(nn.Module):
     """Constructor arguments mirror the reference (and the JSON configs).
     ``downsample_dim`` is the m/z length the bottleneck is built for;
-    a forward at another m/z raises."""
+    a forward at another m/z raises. ``dtype`` is the compute dtype (flax's
+    ``dtype``): inputs are cast to it and every conv, linear and kernel
+    call casts its parameters to it at use, whatever dtype they are stored
+    in. ``remat_blocks`` recomputes the two mid ResnetBlocks in the
+    backward (``torch.utils.checkpoint``) instead of keeping their
+    activations; the numbers are the same."""
 
     def __init__(
         self,
@@ -52,12 +60,14 @@ class UNet1d(nn.Module):
         downsample_dim: int = 40000,
         simple: bool = True,
         pos_output_only: bool = False,
+        remat_blocks: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if not simple or not conditional:
             raise NotImplementedError("the port implements UNet1d(simple=True, conditional=True)")
         if dropout != 0.0:
-            raise NotImplementedError("the port's inference path has no dropout")
+            raise NotImplementedError("the port has no dropout path (dropout must be 0)")
         del tfer_dim_mult, tfer_depth  # simple=False only
         self.dim_mults = tuple(dim_mults)
         stride = 2 ** (len(self.dim_mults) - 1)
@@ -67,6 +77,8 @@ class UNet1d(nn.Module):
         self.init_dim = init_dim
         self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
         self.pos_output_only = pos_output_only
+        self.remat_blocks = remat_blocks
+        self.compute_dtype = dtype
         time_dim = dim * 4
         dims = [init_dim] + [dim * m for m in self.dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
@@ -75,18 +87,18 @@ class UNet1d(nn.Module):
 
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(dim, sinusoidal_pos_emb_theta),
-            nn.Linear(dim, time_dim),
+            Linear(dim, time_dim),
             nn.GELU(),
-            nn.Linear(time_dim, time_dim),
+            Linear(time_dim, time_dim),
         )
         self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
-        self.init_conv = nn.Conv1d(channels + ic, init_dim, 7, padding=3)
+        self.init_conv = Conv1d(channels + ic, init_dim, 7, padding=3)
         self.attn_cond_proj = nn.Sequential(
             nn.Identity(),  # mz_net of the simple model
             nn.Sequential(
-                nn.Conv1d(attn_cond_channels or 1, acid, 7, padding=3),
+                Conv1d(attn_cond_channels or 1, acid, 7, padding=3),
                 nn.GELU(),
-                nn.Conv1d(acid, acid, 1),
+                Conv1d(acid, acid, 1),
             ),
         )
 
@@ -97,7 +109,7 @@ class UNet1d(nn.Module):
                 ResnetBlockT(d_in, d_in, time_dim),
                 ResnetBlockT(d_in, d_in, time_dim),
                 LinearAttentionBlock(d_in),
-                nn.Conv1d(d_in, d_out, 3, padding=1) if last else Downsample(d_in, d_out),
+                Conv1d(d_in, d_out, 3, padding=1) if last else Downsample(d_in, d_out),
             ]))
 
         mid_dim = dims[-1]
@@ -115,16 +127,11 @@ class UNet1d(nn.Module):
                 ResnetBlockT(d_out + d_in, d_out, time_dim),
                 ResnetBlockT(d_out + d_in, d_out, time_dim),
                 LinearAttentionBlock(d_out),
-                nn.Conv1d(d_out, d_in, 3, padding=1) if last else Upsample(d_out, d_in),
+                Conv1d(d_out, d_in, 3, padding=1) if last else Upsample(d_out, d_in),
             ]))
 
         self.final_res_block = ResnetBlockT(init_dim * 2, init_dim, time_dim)
-        self.final_conv = nn.Conv1d(init_dim, self.out_dim, 1)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        """The compute dtype: that of the conv weights."""
-        return self.init_conv.weight.dtype
+        self.final_conv = Conv1d(init_dim, self.out_dim, 1)
 
     def use_kernels(self, enabled: bool = True) -> "UNet1d":
         """Route the K1/K2/K3 modules through their kernels (default) or
@@ -135,6 +142,11 @@ class UNet1d(nn.Module):
             if hasattr(m, "kernels"):
                 m.kernels = enabled
         return self
+
+    def _mid_block(self, block: nn.Module, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(block, x, t, use_reentrant=False)
+        return block(x, t)
 
     def forward(
         self,
@@ -157,7 +169,7 @@ class UNet1d(nn.Module):
                 f"down/up path round-trips (got mz={mz}; pad or re-bin the input, "
                 f"e.g. to {((mz + stride - 1) // stride) * stride})"
             )
-        dtype = self.dtype
+        dtype = self.compute_dtype
         if time.dim() == 0:
             time = time[None]
 
@@ -195,9 +207,9 @@ class UNet1d(nn.Module):
                 f"{self.mid_ch} channels this model was built for"
             )
         x = x.reshape(b, rt, self.mid_ch).transpose(1, 2)
-        x = self.mid_block1(x, t)
+        x = self._mid_block(self.mid_block1, x, t)
         x = self.mid_attn(x, cond)
-        x = self.mid_block2(x, t)
+        x = self._mid_block(self.mid_block2, x, t)
         x = x.transpose(1, 2).reshape(b * rt, mid_dim, mzp)
 
         for block1, block2, attn, up in self.ups:

@@ -1,5 +1,6 @@
-"""Ops of the serving path; K1-K3 launch hand-written CUDA kernels on CUDA
-tensors and run their plain PyTorch versions on CPU tensors."""
+"""Ops of the serving and training paths; K1-K5 launch hand-written CUDA
+kernels on CUDA tensors and run their plain PyTorch versions on CPU
+tensors."""
 
 from . import fused_resnet as _fused_resnet
 from . import int8_matmul as _int8_matmul
@@ -10,6 +11,8 @@ KERNELS = {
     "linear_attention": _linear_attention.linear_attention,
     "fused_resnet_block_t": _fused_resnet.fused_resnet_block_t,
     "int8_matmul": _int8_matmul.int8_matmul,
+    "linear_attention_backward": _linear_attention.linear_attention_backward,
+    "fused_resnet_backward": _fused_resnet.fused_resnet_backward,
 }
 
 

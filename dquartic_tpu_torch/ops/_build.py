@@ -1,8 +1,9 @@
 """Build, load and call the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with :mod:`ctypes`. The
-build happens at the first kernel launch, never at import, into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, loaded with :mod:`ctypes`. The build happens at
+the first kernel launch, never at import, into
 ``dquartic_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. A failed build raises with the compiler's output.
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -42,6 +43,13 @@ _SIGNATURES = {
     "dq_fused_resnet": [_P] * 12 + [_I] * 8 + [_P],
     # x, w_q, scale, part, out, M, K, N, ksplit, kchunk, bf16, device, stream
     "dq_int8_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    # x, dy, wq, wk, wv, wout, b_out, g, g_pre, qshift, kshift, wk2, kshift2,
+    # part, m, ctx, inv_s, dxq, part_q, sum_q, dctx, d2, dwo, part_k, sum_k,
+    # part_x, dgpre, dx, B, C, N, heads, nsplit, chunk, bf16, device, stream
+    "dq_linear_attention_bwd": [_P] * 28 + [_I] * 8 + [_P],
+    # x, dy, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, part, sums,
+    # dx, B, C_in, C_out, N, nsplit, chunk, film, has_res, bf16, device, stream
+    "dq_fused_resnet_bwd": [_P] * 15 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -79,6 +87,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdquartic_kernels_{_source_hash()}.so"
 
 
+def _check_proc(proc: subprocess.Popen, cmd) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    return err
+
+
+def _compile(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    objdir = BUILD_DIR / f"obj_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    objs = [objdir / f"{src.stem}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, sources())]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        logs = [_check_proc(proc, cmd) for proc, cmd in zip(procs, cmds)]
+    finally:
+        for proc in procs:  # stop the other compiles when one fails
+            proc.kill()
+            proc.wait()
+    (BUILD_DIR / "ptxas.log").write_text("".join(logs))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    _check_proc(subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True), link)
+    os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+    shutil.rmtree(objdir, ignore_errors=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
@@ -88,16 +127,7 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = library_path()
         if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            (BUILD_DIR / "ptxas.log").write_text(proc.stderr)
-            os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+            _compile(so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -119,7 +149,8 @@ def stream_of(t) -> int:
 
 
 def require_no_grad(op: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse a call autograd would track."""
+    """Refuse a call autograd would track, for a kernel that is inference
+    only and has no backward (K3, as in JAX)."""
     import torch
 
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):

@@ -1,11 +1,14 @@
-"""Fused ResnetBlock on channel-first (B, C, N) activations (K2).
+"""Fused ResnetBlock on channel-first (B, C, N) activations: forward (K2)
+and backward (K5).
 
-Port of :func:`dquartic_tpu.ops.fused_resnet.fused_resnet_block_t`
-(forward only): conv3 -> RMSNorm -> FiLM -> SiLU -> conv3 -> RMSNorm ->
-SiLU -> + (1x1 conv or identity) residual, as one CUDA launch
-(``csrc/fused_resnet.cu``). The public function keeps the JAX op's
-(B, C_in, N) layout and flax weight layouts, so tests hand both the same
-arrays. There is no backward kernel yet: the op raises under autograd.
+Port of :func:`dquartic_tpu.ops.fused_resnet.fused_resnet_block_t`:
+conv3 -> RMSNorm -> FiLM -> SiLU -> conv3 -> RMSNorm -> SiLU -> + (1x1
+conv or identity) residual, as one CUDA launch (``csrc/fused_resnet.cu``);
+its gradient is the recompute-based ``csrc/fused_resnet_bwd.cu``. On CUDA
+tensors the op is a ``torch.autograd.Function`` that saves only ``(x,
+params)``, as the JAX ``custom_vjp`` does. The public functions keep the
+JAX op's (B, C_in, N) layout and flax weight layouts, so tests hand both
+the same arrays.
 """
 
 from __future__ import annotations
@@ -46,6 +49,152 @@ def resnet_block_t_reference(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b
     return (h2 + res.to(dtype)).to(dtype)
 
 
+_CHUNK = 1024  # sequence columns per CTA of the backward
+
+
+def resnet_block_t_backward_reference(dy, *args):
+    """Plain backward: autograd of :func:`resnet_block_t_reference` at
+    ``args`` (the op's eleven arguments). Returns one gradient per
+    argument, None for an argument that is None."""
+    with torch.enable_grad():
+        leaves = [None if a is None else a.detach().requires_grad_(True) for a in args]
+        out = resnet_block_t_reference(*leaves)
+        live = [a for a in leaves if a is not None]
+        grads = iter(torch.autograd.grad(out, live, dy))
+        return tuple(None if a is None else next(grads) for a in leaves)
+
+
+def _check_args(op, x_t, w1, scale, shift, w2, w_res):
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift must both be provided or both None")
+    B, c_in, N = x_t.shape
+    c_out = w1.shape[-1]
+    if w_res is None and c_in != c_out:
+        raise ValueError("identity residual requires C_in == C_out")
+    if x_t.device.type == "cpu":
+        return
+    if x_t.device.type != "cuda":
+        raise RuntimeError(f"{op}: unsupported device {x_t.device}")
+    if x_t.dtype not in (torch.float32, torch.bfloat16) or not x_t.is_contiguous():
+        raise ValueError(f"{op}: x_t must be contiguous float32 or bfloat16")
+    if c_in > MAX_C_IN or c_out > MAX_C_OUT:
+        raise ValueError(
+            f"{op}: kernel takes C_in <= {MAX_C_IN}, C_out <= {MAX_C_OUT} (got {c_in} -> {c_out})"
+        )
+    if w1.shape != (3, c_in, c_out) or w2.shape != (3, c_out, c_out):
+        raise ValueError(f"conv kernels must be (3, {c_in}, {c_out}) and (3, {c_out}, {c_out})")
+
+
+def _kernel_params(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res):
+    """float32 kernel arguments; the conv weights are rounded to the
+    activation dtype first, like the TPU kernel's weights, so K2 and K5
+    see the same weights."""
+    dev = x_t.device
+    B, _, _ = x_t.shape
+    c_out = w1.shape[-1]
+
+    def weight(w):
+        return w.to(device=dev, dtype=x_t.dtype).to(torch.float32).contiguous()
+
+    def f32(v, shape):
+        return v.to(device=dev, dtype=torch.float32).reshape(shape).contiguous()
+
+    film, has_res = scale is not None, w_res is not None
+    return [
+        weight(w1), f32(b1, (c_out,)), f32(g1, (c_out,)),
+        f32(scale, (B, c_out)) if film else None,
+        f32(shift, (B, c_out)) if film else None,
+        weight(w2), f32(b2, (c_out,)), f32(g2, (c_out,)),
+        weight(w_res[0]) if has_res else None,
+        (f32(b_res, (c_out,)) if b_res is not None else torch.zeros(c_out, device=dev))
+        if has_res else None,
+    ]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward_kernel(x_t, *params):
+    """Launch K2 (``csrc/fused_resnet.cu``) on checked arguments."""
+    B, c_in, N = x_t.shape
+    c_out = params[0].shape[-1]
+    dev = x_t.device
+    args = _kernel_params(x_t, *params)
+    out = torch.empty((B, c_out, N), dtype=x_t.dtype, device=dev)
+    code = _build.library().dq_fused_resnet(
+        x_t.data_ptr(), *[_ptr(a) for a in args], out.data_ptr(), B, c_in, c_out, N,
+        int(params[3] is not None), int(params[8] is not None),
+        int(x_t.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x_t),
+    )
+    _build.check(code, "dq_fused_resnet")
+    fused_resnet_block_t.launches += 1
+    return out
+
+
+def fused_resnet_backward(dy, x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res):
+    """Gradients of :func:`fused_resnet_block_t` at its eleven arguments for
+    the output cotangent ``dy`` (K5): dx in x_t's dtype, every other
+    gradient in its argument's dtype, None where the argument is None.
+
+    CPU tensors run :func:`resnet_block_t_backward_reference`; CUDA
+    tensors launch ``csrc/fused_resnet_bwd.cu``, which recomputes the block
+    from x and returns per-row partial sums of the parameter gradients;
+    the sum over rows is finished here with torch ops."""
+    args = (x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
+    _check_args("fused_resnet_backward", x_t, w1, scale, shift, w2, w_res)
+    if x_t.device.type == "cpu":
+        return resnet_block_t_backward_reference(dy, *args)
+    B, c_in, N = x_t.shape
+    c_out = w1.shape[-1]
+    dev = x_t.device
+    film, has_res = scale is not None, w_res is not None
+    kp = _kernel_params(*args)
+    dy = dy.to(x_t.dtype).contiguous()
+    nsplit = max(1, -(-N // _CHUNK))
+    chunk = -(-N // nsplit)
+    # per-CTA partials: dw1 | dw2 | dw_res | b1 g1 b2 g2 b_res scale shift
+    n_w1, n_w2, n_wr = 3 * c_in * c_out, 3 * c_out * c_out, c_in * c_out
+    plen = n_w1 + n_w2 + n_wr + 7 * c_out
+    part = torch.empty((B, nsplit, plen), dtype=torch.float32, device=dev)
+    sums = torch.empty((B, plen), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x_t)
+    code = _build.library().dq_fused_resnet_bwd(
+        x_t.data_ptr(), dy.data_ptr(), *[_ptr(a) for a in kp], part.data_ptr(),
+        sums.data_ptr(), dx.data_ptr(), B, c_in, c_out, N, nsplit, chunk, int(film),
+        int(has_res), int(x_t.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x_t),
+    )
+    _build.check(code, "dq_fused_resnet_bwd")
+    fused_resnet_backward.launches += 1
+
+    total = sums.sum(0)
+    dw1, dw2, dwr, vec = torch.split(total, [n_w1, n_w2, n_wr, 7 * c_out])
+    db1, dg1, db2, dg2, dbr, _, _ = vec.reshape(7, c_out)
+    dsc, dsh = sums[:, n_w1 + n_w2 + n_wr + 5 * c_out :].reshape(B, 2, c_out).unbind(1)
+    grads = (
+        dx, dw1.reshape(3, c_in, c_out), db1, dg1, dsc if film else None,
+        dsh if film else None, dw2.reshape(3, c_out, c_out), db2, dg2,
+        dwr.reshape(1, c_in, c_out) if has_res else None,
+        dbr if has_res and b_res is not None else None,
+    )
+    return tuple(
+        None if d is None else d.reshape(a.shape).to(a.dtype) for d, a in zip(grads, args)
+    )
+
+
+class _FusedResnetFn(torch.autograd.Function):
+    """K2 forward, K5 backward; saves only ``(x, params)``."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _forward_kernel(*args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_resnet_backward(dy, *ctx.saved_tensors)
+
+
 def fused_resnet_block_t(
     x_t: torch.Tensor,
     w1: torch.Tensor,
@@ -59,7 +208,7 @@ def fused_resnet_block_t(
     w_res: Optional[torch.Tensor],
     b_res: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """Fused ResnetBlock forward.
+    """Fused ResnetBlock.
 
     Args:
       x_t: (B, C_in, N) activations, float32 or bfloat16.
@@ -71,59 +220,14 @@ def fused_resnet_block_t(
         for the identity residual (C_in == C_out).
 
     Returns (B, C_out, N) in x_t's dtype. CPU tensors run
-    :func:`resnet_block_t_reference`; CUDA tensors launch the kernel."""
-    if (scale is None) != (shift is None):
-        raise ValueError("scale and shift must both be provided or both None")
-    B, c_in, N = x_t.shape
-    c_out = w1.shape[-1]
-    if w_res is None and c_in != c_out:
-        raise ValueError("identity residual requires C_in == C_out")
-    _build.require_no_grad(
-        "fused_resnet_block_t", x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res
-    )
+    :func:`resnet_block_t_reference`, which autograd differentiates; CUDA
+    tensors run the K2 kernel, and its gradient is the K5 kernel."""
+    args = (x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
+    _check_args("fused_resnet_block_t", x_t, w1, scale, shift, w2, w_res)
     if x_t.device.type == "cpu":
-        return resnet_block_t_reference(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
-    if x_t.device.type != "cuda":
-        raise RuntimeError(f"fused_resnet_block_t: unsupported device {x_t.device}")
-    if x_t.dtype not in (torch.float32, torch.bfloat16) or not x_t.is_contiguous():
-        raise ValueError("fused_resnet_block_t: x_t must be contiguous float32 or bfloat16")
-    if c_in > MAX_C_IN or c_out > MAX_C_OUT:
-        raise ValueError(
-            f"fused_resnet_block_t: kernel takes C_in <= {MAX_C_IN}, C_out <= "
-            f"{MAX_C_OUT} (got {c_in} -> {c_out})"
-        )
-    if w1.shape != (3, c_in, c_out) or w2.shape != (3, c_out, c_out):
-        raise ValueError(f"conv kernels must be (3, {c_in}, {c_out}) and (3, {c_out}, {c_out})")
-
-    dev = x_t.device
-
-    def weight(w):  # rounded to the compute dtype like the TPU kernel's weights
-        return w.to(device=dev, dtype=x_t.dtype).to(torch.float32).contiguous()
-
-    def f32(v, shape):
-        return v.to(device=dev, dtype=torch.float32).reshape(shape).contiguous()
-
-    film = scale is not None
-    has_res = w_res is not None
-    args = [
-        weight(w1), f32(b1, (c_out,)), f32(g1, (c_out,)),
-        f32(scale, (B, c_out)) if film else None,
-        f32(shift, (B, c_out)) if film else None,
-        weight(w2), f32(b2, (c_out,)), f32(g2, (c_out,)),
-        weight(w_res[0]) if has_res else None,
-        (f32(b_res, (c_out,)) if b_res is not None else torch.zeros(c_out, device=dev))
-        if has_res else None,
-    ]
-    out = torch.empty((B, c_out, N), dtype=x_t.dtype, device=dev)
-    lib = _build.library()
-    code = lib.dq_fused_resnet(
-        x_t.data_ptr(), *[a.data_ptr() if a is not None else None for a in args],
-        out.data_ptr(), B, c_in, c_out, N, int(film), int(has_res),
-        int(x_t.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x_t),
-    )
-    _build.check(code, "dq_fused_resnet")
-    fused_resnet_block_t.launches += 1
-    return out
+        return resnet_block_t_reference(*args)
+    return _FusedResnetFn.apply(*args)
 
 
 fused_resnet_block_t.launches = 0  # kernel launches; reset by the caller
+fused_resnet_backward.launches = 0

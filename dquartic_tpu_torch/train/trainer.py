@@ -1,0 +1,234 @@
+"""The training runtime on one device (port of
+:class:`dquartic_tpu.train.trainer.Trainer` without a mesh).
+
+One train step: on-device multiplexing ``ms2_cond = w0·ms2_1 + w1·ms2_2``,
+the diffusion loss, backward (through the K4/K5 kernels on a card),
+global-norm clipping, AdamW at the epoch's learning rate, and an EMA of
+the parameters. The loop follows the JAX semantics: the learning rate is
+set per epoch by the warmup-cosine schedule, the host syncs once per epoch
+(unless ``sync_every_batch``), latest and best checkpoints are written
+with auto-resume after the stored epoch, and a callback can stop training.
+
+The train state is the model's float32 parameters, the optimizer state,
+the EMA tensors and the step count; it lives in this object and its model
+and is updated in place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.diffusion import DDIMProcess
+from .callbacks import CallbackHandler
+from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
+from .optim import ClippedAdamW, WarmupCosineSchedule, make_optimizer
+
+
+class Trainer:
+    """Owns the model, process, optimizer and EMA, and runs the loop."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        process: DDIMProcess,
+        optimizer: Optional[ClippedAdamW] = None,
+        ema_decay: Optional[float] = 0.999,
+        mixture_weights: Tuple[float, float] = (0.5, 0.5),
+        logger=None,
+        callback_handler: Optional[CallbackHandler] = None,
+        seed: int = 0,
+        sync_every_batch: bool = False,
+    ):
+        self.model = model
+        self.process = process
+        self.optimizer = optimizer if optimizer is not None else make_optimizer(model.parameters())
+        self.ema_decay = ema_decay
+        self.mixture_weights = mixture_weights
+        self.logger = logger
+        self.callback_handler = callback_handler or CallbackHandler()
+        self.seed = seed
+        self.sync_every_batch = sync_every_batch
+        self.device = next(model.parameters()).device
+        self.step = 0
+        self.ema_params: Optional[list] = None
+        self.init_state()
+
+    # ------------------------------------------------------------------ #
+    # state                                                              #
+    # ------------------------------------------------------------------ #
+
+    def init_state(self) -> None:
+        """Fresh optimizer moments, EMA = a copy of the parameters, step 0."""
+        self.optimizer.adamw.state.clear()
+        self.step = 0
+        self.ema_params = (
+            [p.detach().clone() for p in self.optimizer.params]
+            if self.ema_decay is not None
+            else None
+        )
+
+    def num_parameters(self) -> int:
+        return sum(p.numel() for p in self.optimizer.params)
+
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with the EMA parameters in place of the
+        trained ones, for ``model.load_state_dict`` (e.g. of the model a
+        :class:`~dquartic_tpu_torch.infer.DDIMSampler` runs)."""
+        if self.ema_params is None:
+            raise ValueError("this trainer keeps no EMA (ema_decay=None)")
+        sd = self.model.state_dict()
+        ids = {id(p): e for p, e in zip(self.optimizer.params, self.ema_params)}
+        for name, p in self.model.named_parameters():
+            if id(p) in ids:
+                sd[name] = ids[id(p)]
+        return sd
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+
+    # ------------------------------------------------------------------ #
+    # step                                                               #
+    # ------------------------------------------------------------------ #
+
+    def train_step(
+        self,
+        batch: Dict[str, Any],
+        lr: float,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        eps: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a pair batch (``ms2_1``, ``ms1_1``,
+        ``ms2_2``). The timesteps and noise are the injected ``t`` (b,)
+        and ``eps`` (N(0, 1) like ``ms2_1``), or are drawn from
+        ``generator``. Returns device scalars ``loss`` and ``grad_norm``
+        (before clipping)."""
+        b = self._device_batch(batch)
+        w0, w1 = self.mixture_weights
+        ms2_cond = w0 * b["ms2_1"] + w1 * b["ms2_2"]
+        self.optimizer.zero_grad()
+        loss, _ = self.process.train_loss(
+            self.model, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps, generator=generator
+        )
+        loss.backward()
+        grad_norm = self.optimizer.step(lr)
+        if self.ema_params is not None:
+            d = self.ema_decay
+            params = [p.detach() for p in self.optimizer.params]
+            torch._foreach_mul_(self.ema_params, d)
+            torch._foreach_add_(self.ema_params, params, alpha=1.0 - d)
+        self.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    # ------------------------------------------------------------------ #
+    # loop                                                               #
+    # ------------------------------------------------------------------ #
+
+    def train(
+        self,
+        dataset: Iterable,
+        epochs: int,
+        warmup_epochs: int = 5,
+        learning_rate: float = 1e-4,
+        checkpoint_path: str = "best_model.ckpt",
+        log_every_n_epochs: int = 100,
+        checkpoint_every_n_epochs: int = 1,
+        best_every_n_epochs: int = 1,
+        prediction_hook: Optional[Callable[[int, float, "Trainer"], None]] = None,
+    ) -> "Trainer":
+        """Run the training loop with the JAX package's epoch semantics.
+
+        ``dataset`` is any iterable of pair batches, optionally with
+        ``reset_epoch()``. The draws of epoch e come from a generator
+        seeded with (seed, e), so a resumed run draws what an
+        uninterrupted one would. ``best_every_n_epochs`` is the minimum
+        gap between best-model writes; a pending best is flushed at the
+        last epoch."""
+        if warmup_epochs > 0:
+            lr_of_epoch = WarmupCosineSchedule.clamped(learning_rate, warmup_epochs, epochs)
+        else:
+            lr_of_epoch = lambda e: learning_rate  # noqa: E731
+
+        ckpt, start_epoch, best_loss, resumed = restore_or_init(checkpoint_path, self.device)
+        if resumed:
+            # the stored epoch is the last completed one: continue after it
+            start_epoch += 1
+            self._load(ckpt)
+
+        best_epoch = start_epoch
+        best_pending = False
+        generator = torch.Generator(device=self.device)
+        for epoch in range(start_epoch, epochs):
+            if hasattr(dataset, "reset_epoch"):
+                dataset.reset_epoch()
+            lr = float(np.float32(lr_of_epoch(epoch)))
+            generator.manual_seed(self.seed * 1_000_003 + epoch)
+
+            t0 = time.time()
+            losses = []
+            for batch_idx, batch in enumerate(dataset):
+                metrics = self.train_step(batch, lr, generator=generator)
+                losses.append(metrics["loss"])
+                if self.sync_every_batch:
+                    val = float(metrics["loss"])
+                    self.callback_handler.batch_callback(batch_idx, val)
+                    if self.logger is not None:
+                        epoch_len = len(dataset) if hasattr(dataset, "__len__") else len(losses)
+                        self.logger.log(
+                            {"batch/train_loss": val, "batch": batch_idx + epoch * epoch_len}
+                        )
+
+            # one host sync per epoch
+            losses = torch.stack(losses).tolist() if losses else []
+            if not self.sync_every_batch:
+                for i, val in enumerate(losses):
+                    self.callback_handler.batch_callback(i, val)
+            avg_loss = float(np.mean(losses)) if losses else float("nan")
+            dt = time.time() - t0
+            if self.logger is not None:
+                self.logger.log({
+                    "epoch": epoch, "train/loss": avg_loss, "learning_rate": lr,
+                    "epoch_seconds": dt, "steps_per_second": len(losses) / dt if dt > 0 else 0.0,
+                })
+            print(f"[Training] Epoch={epoch + 1}, lr={lr}, loss={avg_loss}")
+
+            if (epoch + 1) % checkpoint_every_n_epochs == 0 or epoch == epochs - 1:
+                self._save(latest_path_for(checkpoint_path), epoch, avg_loss)
+            if avg_loss < best_loss:
+                best_loss = avg_loss
+                best_epoch = epoch + 1
+                best_pending = True
+            if best_pending and ((epoch + 1) % best_every_n_epochs == 0 or epoch == epochs - 1):
+                self._save(checkpoint_path, epoch, best_loss)
+                best_pending = False
+
+            if prediction_hook is not None and (epoch == 0 or epoch % log_every_n_epochs == 0):
+                prediction_hook(best_epoch, best_loss, self)
+
+            if not self.callback_handler.epoch_callback(epoch=epoch, epoch_loss=avg_loss):
+                print(f"Training stopped at epoch {epoch}")
+                break
+
+        print(f"Best model checkpoint saved at epoch {best_epoch} with loss: {best_loss:.6f}")
+        return self
+
+    def _save(self, path: str, epoch: int, loss: float) -> None:
+        save_checkpoint(path, {
+            "epoch": epoch,
+            "best_loss": loss,
+            "step": self.step,
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "ema_params": self.ema_params,
+        })
+
+    def _load(self, ckpt: Dict[str, Any]) -> None:
+        self.model.load_state_dict(ckpt["params"])
+        self.optimizer.load_state_dict(ckpt["opt_state"])
+        self.step = int(ckpt["step"])
+        if self.ema_params is not None and ckpt["ema_params"] is not None:
+            torch._foreach_copy_(self.ema_params, ckpt["ema_params"])

@@ -1,7 +1,7 @@
-"""Build the port's model and DDIM process from a config dict.
+"""Build the port's model, DDIM process and trainer from a config dict.
 
-Port of ``build_model`` / ``build_process`` of
-:mod:`dquartic_tpu.utils.builder` for the UNet1d serving path.
+Port of ``build_model`` / ``build_process`` / ``build_trainer`` of
+:mod:`dquartic_tpu.utils.builder` for the UNet1d.
 """
 
 from __future__ import annotations
@@ -13,13 +13,14 @@ import torch
 from ..core import DDIMProcess, make_schedule
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
+from ..train import Trainer, make_optimizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 # UNet1d keys of the JAX package that choose among its implementations
 # (TPU kernels, remat, sharding); the port has one implementation.
 _JAX_IMPL_KEYS = {
-    "attn_impl", "linear_attn_impl", "fused_resnet", "quantize_mid", "remat_blocks",
-    "remat_linear_attn", "kernel_dp_axis", "activation_sharding",
+    "attn_impl", "linear_attn_impl", "fused_resnet", "quantize_mid", "remat_linear_attn",
+    "kernel_dp_axis", "activation_sharding",
 }
 _UNET_KEYS = set(UNet1d.__init__.__code__.co_varnames[1 : UNet1d.__init__.__code__.co_argcount])
 
@@ -37,11 +38,19 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
 
 
-def build_model(config: Dict[str, Any], device="cpu", seed: int = 0) -> UNet1d:
+def build_model(
+    config: Dict[str, Any], device="cpu", seed: int = 0, trainable: bool = False
+) -> UNet1d:
     """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights
-    on ``device``, in ``tpu.compute_dtype``; with ``tpu.quantize_mid`` the
-    mid convs are int8. ``tpu.fused_resnet`` is accepted: the port's
-    kernels are the fused path. Inference only (no parameter needs grad).
+    on ``device``, computing in ``tpu.compute_dtype``; with
+    ``tpu.quantize_mid`` the mid convs are int8. ``tpu.fused_resnet`` is
+    accepted: the port's kernels are the fused path.
+
+    ``trainable=False`` (serving) stores the parameters in the compute
+    dtype, norm gains in float32, and no parameter needs grad.
+    ``trainable=True`` keeps float32 master parameters that require grad;
+    they are cast to the compute dtype at use, as flax's
+    ``param_dtype=float32`` does.
 
     The model is built on the meta device and materialized on ``device``,
     so the canonical 1.2 B-parameter model is never built on the host."""
@@ -58,9 +67,13 @@ def build_model(config: Dict[str, Any], device="cpu", seed: int = 0) -> UNet1d:
 
     device = torch.device(device)
     with torch.device("meta"):
-        model = UNet1d(**u)
+        model = UNet1d(**u, dtype=dtype)
     model.to_empty(device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if trainable:
+        if quantize:
+            raise ValueError("int8 mid convs (quantize_mid) are inference only")
+        return model.train()
     if quantize:
         quantize_mid_block_params(model)
     for name, p in model.named_parameters():
@@ -80,6 +93,28 @@ def build_process(config: Dict[str, Any]) -> DDIMProcess:
     return DDIMProcess(
         schedule=schedule,
         auto_normalize=m["auto_normalize"],
+        ms1_loss_weight=m["ms1_loss_weight"],
         parity_neighbor_stepping=not config["tpu"].get("ddim_proper_stepping", False),
         clip_denoised=config["tpu"].get("clip_denoised", bool(m["auto_normalize"])),
+    )
+
+
+def build_trainer(config: Dict[str, Any], device="cpu", seed: int = 0, logger=None) -> Trainer:
+    """Trainer over a trainable UNet1d (float32 master weights computing in
+    ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
+    of the config, as the JAX ``build_trainer`` wires them."""
+    if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
+        raise ValueError(
+            "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
+            "in a training config: int8 weights are frozen post-training artifacts with "
+            "no gradient. Train with float32 master weights, then quantize for predict."
+        )
+    model = build_model(config, device=device, seed=seed, trainable=True)
+    return Trainer(
+        model,
+        build_process(config),
+        optimizer=make_optimizer(model.parameters(), kind=config["tpu"].get("optimizer", "adamw")),
+        ema_decay=config["tpu"]["ema_decay"],
+        logger=logger,
+        seed=seed,
     )

@@ -206,16 +206,21 @@ def test_int8_conv1d_matches_jax():
 
 
 def test_ops_refuse_gradients():
-    """No backward kernel exists yet: asking for a gradient raises."""
+    """Only the inference-only op refuses a gradient: int8_matmul raises
+    under autograd (frozen int8 weights, as in JAX), while gradients flow
+    through the K1 and K2 ops (on CPU through their plain versions) to
+    the input and every weight."""
     rng = np.random.default_rng(8)
-    a = {k: _t(v) for k, v in _linattn_args(rng, 1, 4, 16).items()}
-    a["x"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tla.linear_attention(a["x"], a["w_qkv"], a["w_out"], a["b_out"], a["g"], a["g_pre"])
-    r = {k: None if v is None else _t(v) for k, v in _resnet_args(rng, 1, 4, 4, 8, True, False).items()}
-    r["w1"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tfr.fused_resnet_block_t(*(r[k] for k in _RESNET_KEYS))
+    a = {k: _t(v).requires_grad_(True) for k, v in _linattn_args(rng, 1, 4, 16).items()}
+    tla.linear_attention(a["x"], a["w_qkv"], a["w_out"], a["b_out"], a["g"], a["g_pre"]).sum().backward()
+    for k, v in a.items():
+        assert v.grad is not None and torch.isfinite(v.grad).all() and v.grad.abs().sum() > 0, k
+    r = {k: None if v is None else _t(v).requires_grad_(True)
+         for k, v in _resnet_args(rng, 1, 4, 4, 8, True, False).items()}
+    tfr.fused_resnet_block_t(*(r[k] for k in _RESNET_KEYS)).square().sum().backward()
+    for k, v in r.items():
+        if v is not None:
+            assert v.grad is not None and torch.isfinite(v.grad).all() and v.grad.abs().sum() > 0, k
     x = torch.ones(2, 6, requires_grad=True)
     q, s = tim.quantize_weight_matrix(torch.ones(6, 4))
     with pytest.raises(RuntimeError, match="forward only"):
