@@ -9,8 +9,10 @@ CUDA card with sm_90a). Phases, each of which must pass:
   1. print the card (name, power limit), the CUDA and nvcc versions, and
      build the kernels from ``dquartic_tpu_torch/csrc`` (timed);
   2. hold each CUDA kernel (K1 linear attention, K2 fused ResnetBlock, K3
-     int8 matmul) against its plain PyTorch version at the main path's
-     shapes, in float32 (TF32 off) and bfloat16, and time both;
+     int8 matmul, K7a flash attention) against its plain PyTorch version at
+     the main path's shapes, in float32 (TF32 off) and bfloat16, and time
+     both; sweep K7a against the plain attention over n = m from 34 to 16384
+     (the crossover behind ``attn_impl="auto"``);
   3. build the canonical UNet1d (``dquartic_train_config.json``, 1.2 B
      parameters, int8 mid convs, seeded random weights) through
      ``build_model`` and hold one forward on the kernels against one
@@ -19,8 +21,9 @@ CUDA card with sm_90a). Phases, each of which must pass:
      (34 x 40000) pair batch in bf16, check the result and that every
      kernel was launched (K1 700, K2 1450, K3 200 times), then time
      ms/window on the kernel path and on the plain path (median of 3);
-  5. hold each backward kernel (K4 linear attention, K5 fused ResnetBlock)
-     against autograd of its plain version at the training path's shapes,
+  5. hold each backward kernel (K4 linear attention, K5 fused ResnetBlock,
+     K7b flash attention) against autograd of its plain version at the
+     training path's shapes,
      in float32 (TF32 off) and bfloat16, check that two identical calls
      give bitwise equal gradients, and time both at the level-0 shape;
   6. full-width training of the canonical model through ``build_trainer``
@@ -32,7 +35,17 @@ CUDA card with sm_90a). Phases, each of which must pass:
      the plain path, and the peak device memory;
   7. ``Trainer.train`` for 2 epochs of a 3-level model (m/z 256) writing
      latest and best checkpoints to a temporary directory, a resumed run
-     from them, and a 10-step ``predict`` from the EMA weights.
+     from them, and a 10-step ``predict`` from the EMA weights;
+  8. the ``simple=False`` UNet1d (the MS1 tower and the transformer
+     bottleneck, ``tfer_depth`` 4, ``tpu.attn_impl = "pallas"``, full
+     width, 2.8 B parameters): one forward with int8 mid convs on the
+     kernels against the plain path, float32 and bf16; a 50-step
+     ``predict`` (K1 750, K2 1450, K3 200, K7a 400 launches) and ms/window
+     on both paths; training through ``build_trainer``: one step's
+     gradients on the kernels against the plain path (in bf16 each path
+     also against the float32 gradient, see BF16_TOWER), then ``train_step``
+     1 + 5 times on each path with K7a/K7b 8, K1/K4 15, K2/K5 29 launches
+     per step on the kernel path, ms/step and peak memory.
 
 It prints one JSON line of per-kernel results and, last, one JSON line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -50,6 +63,7 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()  # the whole run, imports and the kernel build included
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "dquartic_train_config.json")
 RT, MZ, STEPS = 34, 40000, 50
@@ -82,10 +96,37 @@ GRAD_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
 # the kernels keep float32 inside, and the two roundings compound through
 # the forward and the backward of the net.
 STEP_GRAD_TOL = {"float32": (1e-3, 0.999), "bfloat16": (1e-1, 0.9)}
+# simple=False in bf16: the MS1 tower's gradients (parameters under
+# BF16_TOWER) are tiny (|g| ~1e-6 to 1e-4) and cancel over the RT axis, and
+# either bf16 path reproduces them only to a cosine of 0.70-0.97 against the
+# float32 gradient, the two paths in turn and at random over draws. So the
+# per-tensor cosine between the paths is held outside the tower only, and
+# each path's whole gradient against the float32 one: the kernel path's
+# relative L2 error at most BF16_REL_RATIO times the plain path's (0.69 to
+# 1.11 times over five draws on the card).
+BF16_TOWER = "attn_cond_proj."
+BF16_REL_RATIO = 1.5
 TRAIN_STEPS = 5
 # launches per full-width train step (29 ResnetBlocks, 14 mixers)
 STEP_LAUNCHES = {"linear_attention": 14, "linear_attention_backward": 14,
-                 "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0}
+                 "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0,
+                 "flash_attention": 0, "flash_attention_backward": 0}
+# K7 (flash attention) shapes (b, h, n, m) of phases 2 and 5: the UNet's RT
+# axis at the canonical (34) and production (340) lengths, batch 8, and a
+# ragged case; d = 32.
+FLASH_SHAPES = ((1, 4, 34, 34), (1, 4, 340, 340), (8, 4, 34, 34), (1, 4, 130, 257))
+FLASH_SWEEP = (34, 340, 1024, 2048, 5120, 8192, 16384)
+# launches per forward of the canonical (simple=True) model
+SIMPLE_FORWARD = {"linear_attention": 14, "fused_resnet_block_t": 29, "int8_matmul": 4}
+# simple=False (phase 8): tfer_depth 4 gives 8 softmax attentions per
+# forward (2 in the MS1 tower, 2 self + 2 hybrid x 2 in the bottleneck) and
+# 15 linear-attention mixers (the 14 of the U-Net + the MS1 tower's).
+TFER_DEPTH = 4
+TFER_FORWARD = {"linear_attention": 15, "fused_resnet_block_t": 29, "int8_matmul": 4,
+                "flash_attention": 8}
+TFER_STEP = {"linear_attention": 15, "linear_attention_backward": 15,
+             "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0,
+             "flash_attention": 8, "flash_attention_backward": 8}
 
 
 class SmokeFailure(RuntimeError):
@@ -247,6 +288,69 @@ def phase_kernels(gen, results):
     for name, (ms, plain_ms) in timing.items():
         log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+    phase_flash_forward(gen, results)
+
+
+def _flash_inputs(gen, b, h, n, m, dt):
+    import torch
+
+    return [(torch.randn((b, h, x, 32), generator=gen, device="cuda")).to(dt)
+            for x in (n, m, m)]
+
+
+def phase_flash_forward(gen, results):
+    """K7a against flash_attention_reference at the FLASH_SHAPES, float32
+    and bf16, with times at the RT lengths 34 and 340; then the sweep of K7a
+    against the plain attention that ``attn_impl="auto"`` picks below
+    FLASH_MIN_SEQ."""
+    import torch
+
+    from dquartic_tpu_torch.ops import attention_dispatch as ad
+    from dquartic_tpu_torch.ops import flash_attention as fa
+
+    err, times = 0.0, {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt).replace("torch.", "")
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            for b, h, n, m in FLASH_SHAPES:
+                q, k, v = _flash_inputs(gen, b, h, n, m, dt)
+                out = fa.flash_attention(q, k, v)
+                _, lse, out32 = fa._launch_forward(q, k, v, 32 ** -0.5)
+                ref, ref_lse = fa.flash_attention_reference(q, k, v, 32 ** -0.5)
+                err = max(err, _compare(f"K7a flash_attention {tag} ({b}, {h}, {n}, 32) x m {m}",
+                                        out, ref, tol))
+                _compare(f"K7a lse {tag} ({b}, {h}, {n}) x m {m}", lse, ref_lse, F32_TOL)
+                if dt == torch.bfloat16:  # the float32 output K7b forms D from
+                    ref32, _ = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                                            32 ** -0.5)
+                    _compare(f"K7a float32 output {tag} ({b}, {h}, {n}) x m {m}", out32, ref32,
+                             F32_TOL)
+                if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
+                    times[n] = (cuda_time(lambda: fa.flash_attention(q, k, v), 50),
+                                cuda_time(lambda: fa.flash_attention_plain(q, k, v), 50))
+        for n, (ms, plain_ms) in times.items():
+            log(f"  time flash_attention bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+        results["flash_attention"].update(
+            max_abs_err=err, ms=times[34][0], plain_ms=times[34][1],
+            ms_340=times[340][0], plain_ms_340=times[340][1])
+
+        # the "auto" crossover: K7a against the plain ("xla") attention
+        log(f"  sweep, bf16 (1, 4, n, 32), n = m; FLASH_MIN_SEQ = {ad.FLASH_MIN_SEQ}:")
+        wins = []
+        for n in FLASH_SWEEP:
+            q, k, v = _flash_inputs(gen, 1, 4, n, n, torch.bfloat16)
+            reps = 20 if n <= 2048 else 5
+            ms = cuda_time(lambda: fa.flash_attention(q, k, v), reps)
+            plain = cuda_time(lambda: ad.xla_attention(q, k, v), reps)
+            wins.append(ms < plain)
+            log(f"    n {n}: kernel {ms:.4f} ms, plain {plain:.4f} ms -> "
+                f"{'kernel' if ms < plain else 'plain'} faster")
+            del q, k, v
+            torch.cuda.empty_cache()
+        first = next((n for i, n in enumerate(FLASH_SWEEP) if all(wins[i:])), None)
+        log(f"  smallest swept n from which K7a wins: {first}")
 
 
 def _model_inputs(gen, b=1):
@@ -259,9 +363,17 @@ def _model_inputs(gen, b=1):
     return x, ms2, ms1
 
 
-def phase_forward(config, seed, gen):
+def _expect(per_call, calls=1):
+    """Launch counts of every kernel: ``per_call`` times ``calls``, others 0."""
+    from dquartic_tpu_torch.ops import KERNELS
+
+    return {name: per_call.get(name, 0) * calls for name in KERNELS}
+
+
+def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
     import torch
 
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
     from dquartic_tpu_torch.utils.builder import build_model
 
     x, ms2, ms1 = _model_inputs(gen)
@@ -273,23 +385,29 @@ def phase_forward(config, seed, gen):
         n_params = sum(p.numel() for p in model.parameters()) + sum(
             b.numel() for b in model.buffers() if b.dtype == torch.int8)
         with torch.inference_mode():
+            reset_launch_counts()
             out = model.use_kernels(True)(x, t, ms2 * 2 - 1, ms1 * 2 - 1)
+            counts = launch_counts()
             ref = model.use_kernels(False)(x, t, ms2 * 2 - 1, ms1 * 2 - 1)
         model.use_kernels(True)
         torch.cuda.synchronize()
+        check(counts == _expect(per_forward), f"forward launches {counts}")
         check(out.shape == (1, RT, MZ), f"forward shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out.float()).all()), "non-finite forward output")
         rel = float((out.float() - ref.float()).norm() / ref.float().norm())
         max_abs, _ = _err(out, ref)
-        log(f"  canonical UNet1d forward {dtype} ({n_params / 1e9:.3f} B params, int8 mid "
+        log(f"  {what} forward {dtype} ({n_params / 1e9:.3f} B params, int8 mid "
             f"convs): kernels vs plain rel L2 {rel:.3e} (tol {MODEL_REL_TOL[dtype]:g}), "
-            f"max_abs {max_abs:.3e}, max|ref| {float(ref.float().abs().max()):.3e}")
+            f"max_abs {max_abs:.3e}, max|ref| {float(ref.float().abs().max()):.3e}, "
+            f"launches {counts}")
         check(rel <= MODEL_REL_TOL[dtype], f"{dtype} forward: kernels disagree with plain path")
         del model
         torch.cuda.empty_cache()
 
 
-def phase_sample(config, seed, gen, results):
+def phase_sample(config, seed, gen, per_forward, what="canonical"):
+    """One 50-step predict with its launch counts, then ms/window on the
+    kernel and the plain path. Returns (launch counts, ms/window by path)."""
     import numpy as np
     import torch
 
@@ -315,12 +433,8 @@ def phase_sample(config, seed, gen, results):
     check(pred.shape == (1, RT, MZ), f"pred shape {pred.shape}")
     check(bool(np.isfinite(pred).all()), "non-finite prediction")
     check(bool(np.isfinite(recs[0]["pred_noise"]).all()), "non-finite pred_noise")
-    expect = {"linear_attention": 14 * STEPS, "fused_resnet_block_t": 29 * STEPS,
-              "int8_matmul": 4 * STEPS, "linear_attention_backward": 0,
-              "fused_resnet_backward": 0}
+    expect = _expect(per_forward, STEPS)
     check(counts == expect, f"launch counts {counts} != {expect}")
-    for name, n in counts.items():
-        results[name]["launches"] = n
 
     # ms/window: one warm-up sample, then SAMPLE_REPS timed samples per path;
     # the 50-step loop is host-launched, so samples spread with host load
@@ -332,11 +446,12 @@ def phase_sample(config, seed, gen, results):
         runs = sorted(cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
                       for _ in range(SAMPLE_REPS))
         per_window[path] = runs[len(runs) // 2]
-        log(f"  {STEPS}-step DDIM ms/window (bs1, 34x40000, bf16, int8 mid convs), {path} "
+        log(f"  {STEPS}-step DDIM ms/window ({what}, bs1, 34x40000, bf16, int8 mid convs), {path} "
             f"path: median {per_window[path]:.2f} ms of {SAMPLE_REPS} "
             f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
-    model.use_kernels(True)
-    return per_window
+    del model, sampler
+    torch.cuda.empty_cache()
+    return counts, per_window
 
 
 def _scaled_err(a, b):
@@ -427,6 +542,50 @@ def phase_backward_kernels(gen, results):
     for name, (ms, plain_ms) in timing.items():
         log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+    phase_flash_backward(gen, results)
+
+
+def phase_flash_backward(gen, results):
+    """K7b against autograd of the flash op's plain version, run in float32
+    on the same values, at the FLASH_SHAPES; determinism; times at the RT
+    lengths 34 and 340 against the plain backward from the same saved
+    (float32 out, lse)."""
+    import torch
+
+    from dquartic_tpu_torch.ops import flash_attention as fa
+
+    scale = 32 ** -0.5
+    err, times = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        for b, h, n, m in FLASH_SHAPES:
+            q, k, v = _flash_inputs(gen, b, h, n, m, dt)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            _, lse, out = fa._launch_forward(q, k, v, scale)  # out: float32, as autograd saves it
+            got = fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+            again = fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  "K7b: two identical calls gave different gradients")
+            ts = [t.float().requires_grad_(True) for t in (q, k, v)]
+            ref = torch.autograd.grad(fa.flash_attention_plain(ts[0], ts[1], ts[2], scale),
+                                      ts, do.float())
+            err = max(err, _compare_grads(
+                f"K7b flash_attention_backward {tag} ({b}, {h}, {n}, 32) x m {m}", got, ref,
+                GRAD_TOL[tag]))
+            if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
+                times[n] = (
+                    cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, lse, do, scale), 50),
+                    cuda_time(lambda: fa.flash_attention_backward_reference(
+                        q, k, v, out, lse, do, scale), 50),
+                )
+            del got, again, ref
+    for n, (ms, plain_ms) in times.items():
+        log(f"  time flash_attention_backward bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+    results["flash_attention_backward"].update(
+        max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], ms_340=times[340][0],
+        plain_ms_340=times[340][1])
 
 
 def _train_config(config, **tpu):
@@ -444,18 +603,101 @@ def _pair_batch(seed, mz=None):
             (("ms2_1", (1, RT, mz)), ("ms1_1", (1, RT)), ("ms2_2", (1, RT, mz)))}
 
 
-def _step_grads(model, process, batch, t, eps):
-    """float32 copies of one step's gradients, in parameter order."""
+def _step_backward(model, process, batch, t, eps) -> float:
+    """One step's loss and backward; the gradients stay in ``.grad``."""
     import torch
 
     model.zero_grad(set_to_none=True)
     ms2_cond = 0.5 * batch["ms2_1"] + 0.5 * batch["ms2_2"]
     loss, _ = process.train_loss(model, batch["ms2_1"], ms2_cond, batch["ms1_1"], t=t, eps=eps)
     loss.backward()
-    grads = [p.grad.float().clone() for p in model.parameters()]
-    model.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
-    return float(loss.detach()), grads
+    return float(loss.detach())
+
+
+def _cos(a, b) -> float:
+    return float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+
+
+def _rel_l2(got, ref) -> float:
+    num = sum(float((a - b).square().sum()) for a, b in zip(got, ref))
+    return (num / sum(float(b.square().sum()) for b in ref)) ** 0.5
+
+
+def compare_step_grads(model, process, batch, t, eps, what="full-width", bf16_vs_f32=False):
+    """One step's gradients on the kernels against the plain path on the
+    same weights and draws, float32 and bf16 compute: relative L2 of the
+    whole gradient vector and the worst per-tensor cosine. Holds one copy
+    of the kernel path's gradients; the plain path's stay in ``.grad``.
+    ``bf16_vs_f32`` also keeps the float32 gradient and, in bf16, holds
+    both paths against it and the per-tensor cosine outside BF16_TOWER
+    (see there)."""
+    import torch
+
+    names = [n for n, _ in model.named_parameters()]
+    g32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        model.compute_dtype = dtype
+        loss_k = _step_backward(model.use_kernels(True), process, batch, t, eps)
+        gk = [p.grad.float().clone() for p in model.parameters()]
+        loss_p = _step_backward(model.use_kernels(False), process, batch, t, eps)
+        gp = [p.grad.float() for p in model.parameters()]
+        model.use_kernels(True)
+        rel = _rel_l2(gk, gp)
+        cos = [(_cos(a, b), n) for a, b, n in zip(gk, gp, names)]
+        worst = min(cos)
+        finite = all(bool(torch.isfinite(a).all()) for a in gk)
+        rel_tol, cos_tol = STEP_GRAD_TOL[tag]
+        cos_note = f", tol {cos_tol:g}" if g32 is None else ""
+        log(f"  {what} step gradients {tag}: loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
+            f"rel L2 of the gradient vector {rel:.3e} (tol {rel_tol:g}), worst per-tensor "
+            f"cosine {worst[0]:.6f} ({worst[1]}{cos_note}), all finite {finite}")
+        check(finite, f"{tag}: non-finite gradient")
+        if g32 is not None:
+            worst = min(c for c in cos if not c[1].startswith(BF16_TOWER))
+            rel_k, rel_p = _rel_l2(gk, g32), _rel_l2(gp, g32)
+            tower = [min((_cos(g, r), n) for g, r, n in zip(grads, g32, names)
+                         if n.startswith(BF16_TOWER)) for grads in (gk, gp)]
+            log(f"  {what} step gradients {tag} against float32: rel L2 kernels {rel_k:.3e}, "
+                f"plain {rel_p:.3e} (ratio {rel_k / rel_p:.3f}, tol {BF16_REL_RATIO:g}); MS1 tower "
+                f"worst per-tensor cosine kernels {tower[0][0]:.6f} ({tower[0][1]}), plain "
+                f"{tower[1][0]:.6f} ({tower[1][1]}); kernels vs plain outside the tower: "
+                f"worst cosine {worst[0]:.6f} ({worst[1]}, tol {cos_tol:g})")
+            check(rel_k <= BF16_REL_RATIO * rel_p,
+                  f"{tag}: {what} gradients on the kernels are further from float32 than the "
+                  f"plain path's")
+        check(rel <= rel_tol and worst[0] >= cos_tol,
+              f"{tag}: {what} gradients on the kernels disagree with the plain path")
+        if bf16_vs_f32 and dtype == torch.float32:
+            g32 = gk
+        del gk, gp
+        model.zero_grad(set_to_none=True)
+
+
+def timed_steps(trainer, batch, gen, kernels, lr=1e-4):
+    """TRAIN_STEPS ``train_step``s on the kernel or the plain path, each
+    timed by CUDA events: (sorted ms, launch counts, peak GiB, losses)."""
+    import torch
+
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    trainer.model.use_kernels(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    runs, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = trainer.train_step(batch, lr, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    counts = launch_counts()
+    trainer.model.use_kernels(True)
+    return sorted(runs), counts, torch.cuda.max_memory_allocated() / 2**30, losses
 
 
 def phase_train(config, seed, gen, results):
@@ -463,7 +705,6 @@ def phase_train(config, seed, gen, results):
     six steps with launch counts, ms/step and peak memory."""
     import torch
 
-    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
     from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
 
     dev = torch.device("cuda")
@@ -474,29 +715,7 @@ def phase_train(config, seed, gen, results):
     # (a) one step's gradients, kernels vs plain path, same weights and draws
     cfg = _train_config(config, compute_dtype="float32")
     model = build_model(cfg, device=dev, seed=seed, trainable=True)
-    process = build_process(cfg)
-    names = [n for n, _ in model.named_parameters()]
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = str(dtype).replace("torch.", "")
-        model.compute_dtype = dtype
-        loss_k, gk = _step_grads(model.use_kernels(True), process, batch, t, eps)
-        loss_p, gp = _step_grads(model.use_kernels(False), process, batch, t, eps)
-        model.use_kernels(True)
-        num = sum(float((a - b).square().sum()) for a, b in zip(gk, gp))
-        den = sum(float(b.square().sum()) for b in gp)
-        rel = (num / den) ** 0.5
-        cos = [(float((a * b).sum() / (a.norm() * b.norm() + 1e-30)), n)
-               for a, b, n in zip(gk, gp, names)]
-        worst = min(cos)
-        finite = all(bool(torch.isfinite(a).all()) for a in gk)
-        rel_tol, cos_tol = STEP_GRAD_TOL[tag]
-        log(f"  full-width step gradients {tag}: loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
-            f"rel L2 of the gradient vector {rel:.3e} (tol {rel_tol:g}), worst per-tensor "
-            f"cosine {worst[0]:.6f} ({worst[1]}, tol {cos_tol:g}), all finite {finite}")
-        check(finite, f"{tag}: non-finite gradient")
-        check(rel <= rel_tol and worst[0] >= cos_tol,
-              f"{tag}: full-width gradients on the kernels disagree with the plain path")
-        del gk, gp
+    compare_step_grads(model, build_process(cfg), batch, t, eps)
     del model
     torch.cuda.empty_cache()
 
@@ -507,31 +726,15 @@ def phase_train(config, seed, gen, results):
     probe = dict(trainer.model.named_parameters())["init_conv.weight"]
     idx = [i for i, p in enumerate(trainer.optimizer.params) if p is probe][0]
     p0, e0 = probe.detach().clone(), trainer.ema_params[idx].clone()
-    lr = 1e-4
-    m = trainer.train_step(batch, lr, generator=gen)  # warm-up step
+    m = trainer.train_step(batch, 1e-4, generator=gen)  # warm-up step
     torch.cuda.synchronize()
     losses = [float(m["loss"])]
-    step_ms = {}
     for path, kernels in (("kernel", True), ("plain", False)):
-        trainer.model.use_kernels(kernels)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        runs = []
-        for _ in range(TRAIN_STEPS):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            m = trainer.train_step(batch, lr, generator=gen)
-            end.record()
-            torch.cuda.synchronize()
-            runs.append(start.elapsed_time(end))
-            losses.append(float(m["loss"]))
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        runs.sort()
-        step_ms[path] = runs[len(runs) // 2]
+        runs, counts, peak, step_losses = timed_steps(trainer, batch, gen, kernels)
+        losses += step_losses
+        median = runs[len(runs) // 2]
         log(f"  train_step ({n_params / 1e9:.3f} B params, bs1, 34x40000, bf16 on float32 "
-            f"masters, AdamW + EMA), {path} path: median {step_ms[path]:.2f} ms/step of "
+            f"masters, AdamW + EMA), {path} path: median {median:.2f} ms/step of "
             f"{TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), peak device memory "
             f"{peak:.2f} GiB, launches {counts}")
         if kernels:
@@ -541,10 +744,9 @@ def phase_train(config, seed, gen, results):
                 results[name]["train_launches"] = n
             for name in ("linear_attention_backward", "fused_resnet_backward"):
                 results[name]["launches"] = counts[name]
-            results["train"] = dict(ms_per_step=step_ms[path], peak_gib=peak)
+            results["train"] = dict(ms_per_step=median, peak_gib=peak)
         else:
-            results["train"].update(plain_ms_per_step=step_ms[path], plain_peak_gib=peak)
-    trainer.model.use_kernels(True)
+            results["train"].update(plain_ms_per_step=median, plain_peak_gib=peak)
     log(f"  losses over the {len(losses)} steps: {[round(v, 6) for v in losses]}")
     check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
     moved = float((probe.detach() - p0).abs().max())
@@ -601,6 +803,77 @@ def phase_train_loop(config, seed):
     torch.cuda.empty_cache()
 
 
+def _tfer_config(config, depth=TFER_DEPTH):
+    cfg = json.loads(json.dumps(config))
+    cfg["model"]["UNet1d"].update(simple=False, tfer_depth=depth)
+    cfg["tpu"]["attn_impl"] = "pallas"
+    return cfg
+
+
+def phase_tfer(config, seed, gen, results):
+    """The simple=False model at full width: forward, serving, training."""
+    cfg = _tfer_config(config)
+    phase_forward(cfg, seed, gen, TFER_FORWARD, what=f"simple=False UNet1d (tfer_depth {TFER_DEPTH})")
+    counts, per_window = phase_sample(cfg, seed, gen, TFER_FORWARD, what="simple=False")
+    for name, n in counts.items():
+        results[name]["tfer_launches"] = n
+    results["flash_attention"]["launches"] = counts["flash_attention"]
+    results["tfer"] = dict(ms_per_window=per_window["kernel"],
+                           plain_ms_per_window=per_window["plain"])
+    phase_tfer_train(config, seed, gen, results)
+
+
+def phase_tfer_train(config, seed, gen, results):
+    """Training of the full-depth simple=False model through build_trainer:
+    one step's gradients, kernels vs plain; then 1 + TRAIN_STEPS steps per
+    path. Each sub-step builds its own model and frees it (the kernel path's
+    steps peak at about 63 GiB, the plain path's at about 66)."""
+    import torch
+
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 2).items()}
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=gen, device=dev)
+
+    cfg = _train_config(_tfer_config(config), compute_dtype="float32")
+    model = build_model(cfg, device=dev, seed=seed, trainable=True)
+    torch.cuda.reset_peak_memory_stats()
+    compare_step_grads(model, build_process(cfg), batch, t, eps,
+                       what=f"simple=False (tfer_depth {TFER_DEPTH})", bf16_vs_f32=True)
+    log(f"  peak device memory of the gradient comparison "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+
+    per_path = {}
+    cfg = _train_config(_tfer_config(config), compute_dtype="bfloat16")
+    for path, kernels in (("kernel", True), ("plain", False)):
+        trainer = build_trainer(cfg, device=dev, seed=seed)
+        n_params = trainer.num_parameters()
+        trainer.model.use_kernels(kernels)
+        trainer.train_step(batch, 1e-4, generator=gen)  # warm-up step
+        runs, counts, peak, losses = timed_steps(trainer, batch, gen, kernels)
+        median = runs[len(runs) // 2]
+        log(f"  simple=False train_step (tfer_depth {TFER_DEPTH}, {n_params / 1e9:.3f} B params, "
+            f"bs1, 34x40000, bf16 on float32 masters, AdamW + EMA), {path} path: median "
+            f"{median:.2f} ms/step of {TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), "
+            f"peak device memory {peak:.2f} GiB, launches {counts}, losses "
+            f"{[round(v, 6) for v in losses]}")
+        check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
+        if kernels:
+            expect = _expect(TFER_STEP, TRAIN_STEPS)
+            check(counts == expect, f"train launches {counts} != {expect}")
+            for name, n in counts.items():
+                results[name]["tfer_train_launches"] = n
+            results["flash_attention_backward"]["launches"] = counts["flash_attention_backward"]
+        per_path[path] = dict(ms_per_step=median, peak_gib=peak, params=n_params)
+        del trainer
+        torch.cuda.empty_cache()
+    results["tfer"].update(train=per_path)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -638,33 +911,41 @@ def main(argv=None) -> int:
             replaces="dquartic_tpu/ops/linear_attention.py:998"),
         "fused_resnet_backward": dict(source="dquartic_tpu_torch/csrc/fused_resnet_bwd.cu",
                                       replaces="dquartic_tpu/ops/fused_resnet.py:500"),
+        "flash_attention": dict(source="dquartic_tpu_torch/csrc/flash_attention.cu",
+                                replaces="dquartic_tpu/ops/flash_attention.py:99"),
+        "flash_attention_backward": dict(source="dquartic_tpu_torch/csrc/flash_attention_bwd.cu",
+                                         replaces="dquartic_tpu/ops/flash_attention.py:237"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t_start = time.perf_counter()
     try:
         log("== phase 1: card and build")
         phase_info()
         log("== phase 2: kernels vs plain versions")
         phase_kernels(gen, results)
         log("== phase 3: canonical UNet1d forward, kernels vs plain")
-        phase_forward(config, args.seed, gen)
+        phase_forward(config, args.seed, gen, SIMPLE_FORWARD)
         log("== phase 4: 50-step DDIM deconvolution through DDIMSampler.predict")
-        phase_sample(config, args.seed, gen, results)
+        counts, _ = phase_sample(config, args.seed, gen, SIMPLE_FORWARD)
+        for name, n in counts.items():
+            results[name]["launches"] = n
         log("== phase 5: backward kernels vs autograd of the plain versions")
         phase_backward_kernels(gen, results)
         log("== phase 6: full-width training through build_trainer")
         phase_train(config, args.seed, gen, results)
         log("== phase 7: Trainer.train at small depth: checkpoints, resume, EMA predict")
         phase_train_loop(config, args.seed)
+        log("== phase 8: simple=False UNet1d (transformer bottleneck, flash attention)")
+        phase_tfer(config, args.seed, gen, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - T_START:.1f} s (build included)")
     train = results.pop("train")
     log(f"train step: {json.dumps(train)}")
+    log(f"simple=False: {json.dumps(results.pop('tfer'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,28 @@
-"""Attention modules of the UNet1d: RoPE, the fused linear-attention mixer
-and cross attention over the RT axis.
+"""Attention modules of the UNet1d: RoPE, the fused linear-attention
+mixer, softmax attention over the RT axis (self and cross), the hybrid
+self-then-cross attention and the 1-D transformer stack.
 
-Ports of :mod:`dquartic_tpu.models.attention` (the forms UNet1d with
-``simple=True`` uses). Heads are channel-major ``(h c)``, as in the
-reference checkpoints.
+Ports of :mod:`dquartic_tpu.models.attention`, channel-first ``(b, C, n)``.
+Heads are channel-major ``(h c)``, as in the reference checkpoints. Every
+1x1 conv of the softmax attention and the transformer runs as a matrix
+product (:class:`~dquartic_tpu_torch.models.layers.Conv1x1`).
+
+Module names follow the reference layout: a :class:`Transformer1d` holds
+``layers.{i}.0`` (the attention) and ``layers.{i}.1`` (the
+:class:`~dquartic_tpu_torch.models.layers.FeedForward1d`), two-element
+layer lists, as the reference builds them (SURVEY.md M11).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.attention_dispatch import dot_product_attention
 from ..ops.linear_attention import linear_attention, linear_attention_nr_reference
-from .layers import Conv1d, RMSNorm
+from .layers import Conv1d, Conv1x1, FeedForward1d, RMSNorm
 
 
 def rope_rotate(x: torch.Tensor, rot_dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -91,29 +100,97 @@ class LinearAttentionBlock(nn.Module):
         return self.fn.fn(x, self.fn.norm.g)
 
 
-class Attention(nn.Module):
-    """Cross attention with RoPE: queries and values from x, keys from the
-    condition (the reference's q/v-from-x convention). x (b, dim, n),
-    cond (b, cond_dim, n)."""
+class _SoftmaxAttention(nn.Module):
+    """Heads, RoPE and the attention op shared by the attention modules;
+    ``attn_impl`` is ``dot_product_attention``'s ``impl``."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, cond_dim: int = 1):
+    def __init__(self, heads: int, dim_head: int, attn_impl: str):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
-        hidden = heads * dim_head
-        self.to_qv = Conv1d(dim, hidden * 2, 1, bias=False)
-        self.to_k = Conv1d(cond_dim, hidden, 1, bias=False)
-        self.to_out = Conv1d(hidden, dim, 1)
+        self.heads, self.dim_head, self.attn_impl = heads, dim_head, attn_impl
+        self.kernels = True
 
-    def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        b, hc, n = t.shape  # (b, h*c, n) -> (b, h, n, c)
-        return t.reshape(b, self.heads, hc // self.heads, n).transpose(2, 3)
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """(b, h·c, n) q and (b, h·c, m) k, v -> (b, h·c, n), RoPE on q, k."""
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        q, v = self.to_qv(x).chunk(2, dim=1)
-        k = self.to_k(cond)
-        q, k, v = self._heads(q), self._heads(k), self._heads(v)
+        def heads(t):  # (b, h*c, n) -> (b, h, n, c)
+            b, hc, n = t.shape
+            return t.reshape(b, self.heads, hc // self.heads, n).transpose(2, 3)
+
+        q, k, v = heads(q), heads(k), heads(v)
         q = rope_rotate(q, self.dim_head // 2)
         k = rope_rotate(k, self.dim_head // 2)
-        out = dot_product_attention(q, k, v)  # (b, h, n, c)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl, kernels=self.kernels)
         b, h, n, c = out.shape
-        return self.to_out(out.transpose(2, 3).reshape(b, h * c, n))
+        return out.transpose(2, 3).reshape(b, h * c, n)
+
+
+class Attention(_SoftmaxAttention):
+    """Softmax attention with RoPE over the length axis. Self mode
+    (``to_qkv``) without ``cond_dim``; cross mode with it: queries and
+    values from x, keys from the condition (the reference's q/v-from-x
+    convention). x (b, dim, n), cond (b, cond_dim, n)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 cond_dim: Optional[int] = None, attn_impl: str = "auto"):
+        super().__init__(heads, dim_head, attn_impl)
+        hidden = heads * dim_head
+        if cond_dim is None:
+            self.to_qkv = Conv1x1(dim, hidden * 3, bias=False)
+        else:
+            self.to_qv = Conv1x1(dim, hidden * 2, bias=False)
+            self.to_k = Conv1x1(cond_dim, hidden, bias=False)
+        self.to_out = Conv1x1(hidden, dim)
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if hasattr(self, "to_qkv"):
+            q, k, v = self.to_qkv(x).chunk(3, dim=1)
+        else:
+            q, v = self.to_qv(x).chunk(2, dim=1)
+            k = self.to_k(cond)
+        return self.to_out(self._attend(q, k, v))
+
+
+class HybridSelfAndCrossAttention(_SoftmaxAttention):
+    """Self attention, a 1x1 ``to_mid`` projection, then cross attention
+    with queries and values from the mid and keys from ``cond``."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, cond_dim: int = 1,
+                 attn_impl: str = "auto"):
+        super().__init__(heads, dim_head, attn_impl)
+        hidden = heads * dim_head
+        self.to_qkv = Conv1x1(dim, hidden * 3, bias=False)
+        self.to_mid = Conv1x1(hidden, dim)
+        self.to_qv = Conv1x1(dim, hidden * 2, bias=False)
+        self.to_k = Conv1x1(cond_dim, hidden, bias=False)
+        self.to_out = Conv1x1(hidden, dim)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        mid = self.to_mid(self._attend(*self.to_qkv(x).chunk(3, dim=1)))
+        q, v = self.to_qv(mid).chunk(2, dim=1)
+        return self.to_out(self._attend(q, self.to_k(cond), v))
+
+
+class Transformer1d(nn.Module):
+    """Depth-``depth`` stack over (b, dim, n): the first half of the layers
+    self attention, the second half hybrid self + cross attention when
+    ``use_xattn`` (else all self attention); each layer
+    ``x = attn(x[, cond]) + x; x = ff(x) + x``."""
+
+    def __init__(self, dim: int, depth: int = 4, heads: int = 4, dim_head: int = 32,
+                 mlp_mult: int = 2, use_xattn: bool = False, cond_dim: int = 1,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.layers = nn.ModuleList()
+        for i in range(depth):
+            if i < depth // 2 or not use_xattn:
+                attn = Attention(dim, heads, dim_head, attn_impl=attn_impl)
+            else:
+                attn = HybridSelfAndCrossAttention(dim, heads, dim_head, cond_dim, attn_impl)
+            self.layers.append(nn.ModuleList([attn, FeedForward1d(dim, mlp_mult)]))
+
+    def forward(self, x: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for attn, ff in self.layers:
+            hybrid = isinstance(attn, HybridSelfAndCrossAttention)
+            x = (attn(x, cond) if hybrid else attn(x)) + x
+            x = ff(x) + x
+        return x

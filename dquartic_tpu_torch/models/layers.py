@@ -33,6 +33,19 @@ class Conv1d(nn.Conv1d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class Conv1x1(Conv1d):
+    """1x1 ``Conv1d`` (same parameters and names) run as a matrix product
+    on the squeezed weight, ``W @ x`` over (b, C_in, n), not through cuDNN,
+    which transposes large weights between layouts on every call."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True):
+        super().__init__(in_channels, out_channels, 1, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(self.weight[:, :, 0].to(x.dtype), x)
+        return y if self.bias is None else y + self.bias.to(x.dtype)[:, None]
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` with its parameters cast to the input's dtype at use."""
 
@@ -72,6 +85,37 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm_reference(x, self.g.reshape(-1)).to(x.dtype)
+
+
+class LayerNorm1d(nn.Module):
+    """Channel LayerNorm over dim 1 with biased variance, eps 1e-5, float32
+    gain ``g`` and bias ``b`` (1, C, 1), float32 math, result in x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(1, dim, 1))
+        self.b = nn.Parameter(torch.zeros(1, dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=1, keepdim=True)
+        out = (x32 - mean) * torch.rsqrt(var + self.eps) * self.g.float() + self.b.float()
+        return out.to(x.dtype)
+
+
+class FeedForward1d(nn.Module):
+    """LayerNorm1d -> 1x1 conv to ``ch_mult·C`` -> exact GELU -> 1x1 conv."""
+
+    def __init__(self, dim: int, ch_mult: int = 2):
+        super().__init__()
+        self.norm = LayerNorm1d(dim)
+        self.conv1 = Conv1x1(dim, dim * ch_mult)
+        self.conv2 = Conv1x1(dim * ch_mult, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(F.gelu(self.conv1(self.norm(x))))
 
 
 class Int8Conv1d(nn.Module):

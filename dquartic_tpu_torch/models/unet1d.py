@@ -1,4 +1,4 @@
-"""Conditional 1-D U-Net denoiser (``simple=True``, conditional).
+"""Conditional 1-D U-Net denoiser, ``simple=True`` or ``simple=False``.
 
 Port of :class:`dquartic_tpu.models.unet1d.UNet1d` in its transposed-
 resident form (``fused_resnet=True``): per-RT-row activations stay
@@ -8,9 +8,24 @@ bottleneck pivot and the final head are pure reshapes. The bottleneck
 runs channel-first over the RT axis, ``(b, C·mz', rt)``, where the mid
 convs are either torch convs or int8 convs on the K3 op.
 
+``simple=True`` conditions on the MS1 trace through two convs over RT and
+mixes the bottleneck with one cross attention. ``simple=False`` runs an
+MS1 tower over the trace's m/z axis (conv7, two ResnetBlocks without time
+embedding, a linear-attention mixer on the K1 op), pivots it channel-major
+to ``(b, acid·mz_c, rt)`` and runs a self-attention ``Transformer1d`` of
+depth ``tfer_depth // 2`` over RT; the bottleneck mixer is a
+``Transformer1d`` of depth ``tfer_depth`` whose second half attends to that
+condition. Softmax attention follows ``attn_impl`` (the flash op, K7, under
+``"pallas"``).
+
 Module and parameter names are those of the reference PyTorch UNet1d, so
+for ``simple=True``
 :func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict` maps this
-module's ``state_dict()`` onto the JAX parameter tree.
+module's ``state_dict()`` onto the JAX parameter tree. ``simple=False``
+names its MS1 tower as that converter does (``attn_cond_proj.0.{0,1,2,3}``,
+then ``attn_cond_proj.1`` for the transformer) and its transformers'
+layers ``layers.{i}.0`` (attention) and ``layers.{i}.1`` (feed-forward);
+:mod:`dquartic_tpu_torch.compat.jax_params` maps both trees.
 """
 
 from __future__ import annotations
@@ -22,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import Attention, LinearAttentionBlock, PreNorm, Residual
+from .attention import Attention, LinearAttentionBlock, PreNorm, Residual, Transformer1d
 from .fused_blocks import ResnetBlockT
 from .layers import (
     ConditionalScaleShift, Conv1d, Downsample, Linear, ResnetBlock, SinusoidalPosEmb, Upsample,
@@ -60,15 +75,16 @@ class UNet1d(nn.Module):
         downsample_dim: int = 40000,
         simple: bool = True,
         pos_output_only: bool = False,
+        attn_impl: str = "auto",
         remat_blocks: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if not simple or not conditional:
-            raise NotImplementedError("the port implements UNet1d(simple=True, conditional=True)")
+        if not conditional:
+            raise NotImplementedError("the port implements the conditional UNet1d only")
         if dropout != 0.0:
             raise NotImplementedError("the port has no dropout path (dropout must be 0)")
-        del tfer_dim_mult, tfer_depth  # simple=False only
+        del tfer_dim_mult  # ignored, as in the JAX package
         self.dim_mults = tuple(dim_mults)
         stride = 2 ** (len(self.dim_mults) - 1)
         if downsample_dim % stride:
@@ -77,6 +93,7 @@ class UNet1d(nn.Module):
         self.init_dim = init_dim
         self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
         self.pos_output_only = pos_output_only
+        self.simple = simple
         self.remat_blocks = remat_blocks
         self.compute_dtype = dtype
         time_dim = dim * 4
@@ -93,14 +110,29 @@ class UNet1d(nn.Module):
         )
         self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
         self.init_conv = Conv1d(channels + ic, init_dim, 7, padding=3)
-        self.attn_cond_proj = nn.Sequential(
-            nn.Identity(),  # mz_net of the simple model
-            nn.Sequential(
-                Conv1d(attn_cond_channels or 1, acid, 7, padding=3),
-                nn.GELU(),
-                Conv1d(acid, acid, 1),
-            ),
-        )
+        attn = dict(heads=attn_heads, dim_head=attn_dim_head, attn_impl=attn_impl)
+        mz_c = attn_cond_channels or 1
+        if simple:
+            self.attn_cond_proj = nn.Sequential(
+                nn.Identity(),  # mz_net of the simple model
+                nn.Sequential(
+                    Conv1d(mz_c, acid, 7, padding=3),
+                    nn.GELU(),
+                    Conv1d(acid, acid, 1),
+                ),
+            )
+            cond_dim = acid
+        else:
+            cond_dim = acid * mz_c
+            self.attn_cond_proj = nn.Sequential(
+                nn.Sequential(  # mz_net, over the trace's m/z axis
+                    Conv1d(1, acid, 7, padding=3),
+                    ResnetBlock(acid, acid),
+                    ResnetBlock(acid, acid),
+                    LinearAttentionBlock(acid),
+                ),
+                Transformer1d(cond_dim, depth=tfer_depth // 2, **attn),
+            )
 
         self.downs = nn.ModuleList()
         for i, (d_in, d_out) in enumerate(in_out):
@@ -115,9 +147,12 @@ class UNet1d(nn.Module):
         mid_dim = dims[-1]
         self.mid_ch = mid_dim * (downsample_dim // stride)
         self.mid_block1 = ResnetBlock(self.mid_ch, self.mid_ch, time_dim)
-        self.mid_attn = Residual(PreNorm(self.mid_ch, Attention(
-            self.mid_ch, attn_heads, attn_dim_head, cond_dim=acid
-        )))
+        if simple:
+            mixer = Attention(self.mid_ch, cond_dim=cond_dim, **attn)
+        else:
+            mixer = Transformer1d(self.mid_ch, depth=tfer_depth, use_xattn=True,
+                                  cond_dim=cond_dim, **attn)
+        self.mid_attn = Residual(PreNorm(self.mid_ch, mixer))
         self.mid_block2 = ResnetBlock(self.mid_ch, self.mid_ch, time_dim)
 
         self.ups = nn.ModuleList()
@@ -134,7 +169,7 @@ class UNet1d(nn.Module):
         self.final_conv = Conv1d(init_dim, self.out_dim, 1)
 
     def use_kernels(self, enabled: bool = True) -> "UNet1d":
-        """Route the K1/K2/K3 modules through their kernels (default) or
+        """Route the K1/K2/K3/K7 modules through their kernels (default) or
         through their plain PyTorch versions, e.g. to compare the two on a
         card. On CPU tensors the kernel wrappers run the plain versions
         either way."""
@@ -184,11 +219,16 @@ class UNet1d(nn.Module):
         x = self.init_conv(torch.cat([ic, x], dim=1))  # (b*rt, init_dim, mz)
         r = x
 
-        # MS1 condition tower: pivot to (b, C, rt), channel-major over (d, mz_c)
+        # MS1 condition tower -> (b, cond_dim, rt), channel-major over (d, mz_c)
         if attn_cond is None:
             attn_cond = torch.zeros((b, rt), dtype=dtype, device=x.device)
-        cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
-        cond = self.attn_cond_proj(cond)  # (b, acid, rt)
+        if self.simple:
+            cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
+            cond = self.attn_cond_proj(cond)  # (b, acid, rt)
+        else:
+            mz_net, tfer = self.attn_cond_proj
+            ac = mz_net(attn_cond.reshape(b * rt, 1, -1).to(dtype))  # (b*rt, acid, mz_c)
+            cond = tfer(ac.reshape(b, rt, -1).transpose(1, 2))
 
         skips = []
         for block1, block2, attn, down in self.downs:

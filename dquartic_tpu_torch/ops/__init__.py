@@ -1,7 +1,8 @@
-"""Ops of the serving and training paths; K1-K5 launch hand-written CUDA
+"""Ops of the serving and training paths; K1-K5 and K7 launch hand-written CUDA
 kernels on CUDA tensors and run their plain PyTorch versions on CPU
 tensors."""
 
+from . import flash_attention as _flash_attention
 from . import fused_resnet as _fused_resnet
 from . import int8_matmul as _int8_matmul
 from . import linear_attention as _linear_attention
@@ -13,6 +14,8 @@ KERNELS = {
     "int8_matmul": _int8_matmul.int8_matmul,
     "linear_attention_backward": _linear_attention.linear_attention_backward,
     "fused_resnet_backward": _fused_resnet.fused_resnet_backward,
+    "flash_attention": _flash_attention.flash_attention,
+    "flash_attention_backward": _flash_attention.flash_attention_backward,
 }
 
 

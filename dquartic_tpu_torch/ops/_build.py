@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points in csrc/ (argtypes, restype int).
 _SIGNATURES = {
     # x, wq, wk, wv, wout, qshift, kshift, g_pre, b_out, g, part, M, y,
@@ -50,6 +51,10 @@ _SIGNATURES = {
     # x, dy, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, part, sums,
     # dx, B, C_in, C_out, N, nsplit, chunk, film, has_res, bf16, device, stream
     "dq_fused_resnet_bwd": [_P] * 15 + [_I] * 10 + [_P],
+    # q, k, v, out, out32, lse, BH, n, m, scale, bf16, device, stream
+    "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # q, k, v, o (float32), lse, dO, D, dq, dk, dv, BH, n, m, scale, bf16, device, stream
+    "dq_flash_attention_bwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

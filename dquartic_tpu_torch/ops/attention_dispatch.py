@@ -1,11 +1,18 @@
-"""Softmax attention over (b, h, n, d) tensors.
+"""Softmax attention over (b, h, n, d) tensors, and the choice of its
+implementation.
 
-Port of the plain path of :mod:`dquartic_tpu.ops.attention_dispatch`
-(``_xla_attention``). UNet1d runs it over the RT axis (34 rows), where
-the JAX package also runs plain XLA math. Scores are taken in float32
-(bf16 products are exact in float32), the softmax runs in float32, and
-the weights are cast back to v's dtype for the second product — the same
-rounding points as the JAX einsums with ``preferred_element_type=f32``.
+Port of :mod:`dquartic_tpu.ops.attention_dispatch`, with the JAX names of
+the implementations (what ``tpu.attn_impl`` in a config selects):
+
+  * ``"xla"``    — the plain version: scores in float32 (bf16 products are
+    exact in float32), softmax in float32, the weights cast back to v's
+    dtype for the second product, the rounding points of the JAX einsums
+    with ``preferred_element_type=f32``;
+  * ``"pallas"`` — the flash op (:mod:`.flash_attention`): K7a/K7b on CUDA
+    tensors, their plain versions on CPU tensors;
+  * ``"auto"``   — the flash op on CUDA tensors when both sequences are at
+    least :data:`FLASH_MIN_SEQ` long, else the plain version; with
+    ``FLASH_MIN_SEQ = None`` always the plain version.
 """
 
 from __future__ import annotations
@@ -14,8 +21,22 @@ from typing import Optional
 
 import torch
 
+from . import flash_attention as _fa
 
-def dot_product_attention(
+IMPLS = ("auto", "xla", "pallas")
+
+# Smallest n = m from which K7a beats the plain version on the card (bf16,
+# (1, 4, n, 32)), set from the sweep of chip_smoke.py phase 2, whose times
+# PERF.md section 6 lists with the card they were taken on. On the H100 no
+# such length exists: the CUDA-core K7a wins below n = 2048, where the
+# plain version's several launches cost more than its math, and loses from
+# 2048 up, where the plain version's tensor-core products win. So "auto"
+# is the plain version at every length. The JAX package's 5120 is where
+# XLA's attention spills on a TPU v5e and does not carry over.
+FLASH_MIN_SEQ: Optional[int] = None
+
+
+def xla_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
     if scale is None:
@@ -23,3 +44,26 @@ def dot_product_attention(
     sim = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
     attn = torch.softmax(sim, dim=-1)
     return torch.matmul(attn.to(v.dtype), v)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+    kernels: bool = True,
+) -> torch.Tensor:
+    """Softmax attention over (b, h, n, d) by ``impl``; ``scale=None`` is
+    1/sqrt(d). ``kernels=False`` runs the flash op's plain version where
+    ``impl`` selects the flash op (a model's ``use_kernels(False)``)."""
+    if impl not in IMPLS:
+        raise ValueError(f"Unknown attention impl: {impl!r}")
+    if impl == "auto":
+        n = min(q.shape[-2], k.shape[-2])
+        long_enough = FLASH_MIN_SEQ is not None and n >= FLASH_MIN_SEQ
+        impl = "pallas" if (q.is_cuda and long_enough) else "xla"
+    if impl == "pallas":
+        flash = _fa.flash_attention if kernels else _fa.flash_attention_plain
+        return flash(q, k, v, scale)
+    return xla_attention(q, k, v, scale)

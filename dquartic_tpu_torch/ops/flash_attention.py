@@ -1,0 +1,166 @@
+"""Flash attention over (b, h, n, d): forward (K7a) and backward (K7b).
+
+Port of :mod:`dquartic_tpu.ops.flash_attention`. The forward writes the
+output and the per-row logsumexp ``lse = m + log l`` (float32); the
+backward rebuilds ``P = exp(q·kᵀ·scale − lse)`` block by block from the
+saved ``(q, k, v, out, lse)``, as ``_flash_fwd``/``_flash_bwd`` do, so the
+(n, m) score matrix never reaches device memory in either direction. One
+difference: the saved ``out`` is the float32 output, before its rounding
+to a bf16 input's dtype, so that ``D = rowsum(dO ∘ O)`` carries no
+rounding that is shared by every key of a row (``csrc/flash_attention.cu``
+says what such an error does to the gradients).
+
+:func:`flash_attention` is a ``torch.autograd.Function`` on both devices.
+On CUDA tensors its forward launches ``csrc/flash_attention.cu`` and its
+backward ``csrc/flash_attention_bwd.cu``; on CPU tensors they run the
+plain versions :func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference`, which compute the same
+formulas with float32 scores, softmax and products and round once to the
+input dtype (the math of the JAX kernel, not of ``_xla_attention``, which
+casts the weights to v's dtype before the second product).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+HEAD_DIM = 32  # the kernels map one head row onto one warp's lanes
+
+
+def _reference_f32(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward with the output left in float32: ``(out32, lse)``."""
+    s = torch.matmul(q.to(torch.float32) * scale, k.to(torch.float32).transpose(-1, -2))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.matmul(p, v.to(torch.float32)), lse
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain forward: ``(out, lse)``; ``out`` in q's dtype, ``lse`` (b, h, n)
+    float32."""
+    out32, lse = _reference_f32(q, k, v, scale)
+    return out32.to(q.dtype), lse
+
+
+def flash_attention_plain(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """The op's plain version as one differentiable function (autograd of
+    torch ops), for the model's plain path (``use_kernels(False)``)."""
+    return flash_attention_reference(q, k, v, _scale(q, scale))[0]
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, scale: float):
+    """Plain backward: ``D = rowsum(dO ∘ O)``, ``dS = P ∘ (dO·vᵀ − D)``,
+    ``dq = dS·k·scale``, ``dk = dSᵀ·q·scale``, ``dv = Pᵀ·dO``, in float32,
+    each rounded once to its input's dtype. ``o`` is the forward's output,
+    in float32 or in the input dtype."""
+    q32, k32, v32, do32 = (t.to(torch.float32) for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(q32, k32.transpose(-1, -2)) * scale - lse[..., None])
+    d = (do32 * o.to(torch.float32)).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do32, v32.transpose(-1, -2)) - d)
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return float(q.shape[-1] ** -0.5 if scale is None else scale)
+
+
+def _check_kernel_args(op: str, q, k, v) -> None:
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{op}: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"{op}: q, k, v must all be float32 or all bfloat16")
+    if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2]:
+        raise ValueError(f"{op}: q (b, h, n, d), k and v (b, h, m, d); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{op}: the kernel takes dim_head {HEAD_DIM} (got {q.shape[-1]})")
+    if q.shape[2] < 1 or k.shape[2] < 1 or q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"{op}: needs n, m >= 1 and b*h <= 65535")
+
+
+def _launch_forward(q, k, v, scale):
+    """K7a (``csrc/flash_attention.cu``): ``(out, lse, out32)``, ``out32``
+    the float32 output (``out`` itself for float32 inputs)."""
+    _check_kernel_args("flash_attention", q, k, v)
+    b, h, n, _ = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty_like(q)
+    out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) if bf16 else out
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    code = _build.library().dq_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        out32.data_ptr() if bf16 else None, lse.data_ptr(),
+        b * h, n, k.shape[2], scale, int(bf16), q.device.index or 0, _build.stream_of(q),
+    )
+    _build.check(code, "dq_flash_attention")
+    flash_attention.launches += 1
+    return out, lse, out32
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) of :func:`flash_attention` for the output cotangent
+    ``do``, each in its input's dtype; ``o`` is the forward's output, best
+    the float32 one (``D`` is formed from it). CPU tensors run
+    :func:`flash_attention_backward_reference`; CUDA tensors launch K7b
+    (``csrc/flash_attention_bwd.cu``: D and dq over the q blocks, then dk
+    and dv over the kv blocks; no atomics, so deterministic)."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    _check_kernel_args("flash_attention_backward", q, k, v)
+    b, h, n, _ = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = o.to(torch.float32).contiguous()
+    do = do.to(q.dtype).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    d_scratch = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = (q, k, v, o, lse, do, d_scratch, dq, dk, dv)
+    code = _build.library().dq_flash_attention_bwd(
+        *[t.data_ptr() for t in ptrs], b * h, n, k.shape[2], scale,
+        int(q.dtype == torch.bfloat16), q.device.index or 0, _build.stream_of(q),
+    )
+    _build.check(code, "dq_flash_attention_bwd")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """K7a forward, K7b backward; saves ``(q, k, v, out32, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out32, lse = _reference_f32(q, k, v, scale)
+            out = out32.to(q.dtype)
+        else:
+            out, lse, out32 = _launch_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out32, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return (*flash_attention_backward(*ctx.saved_tensors, do, ctx.scale), None)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Softmax attention over (b, h, n, d) with a blockwise backward;
+    ``scale=None`` is ``d ** -0.5``. On CUDA tensors: float32 or bf16,
+    d = 32, any n and m."""
+    return _FlashFn.apply(q, k, v, _scale(q, scale))
+
+
+flash_attention.launches = 0  # kernel launches; reset by the caller
+flash_attention_backward.launches = 0

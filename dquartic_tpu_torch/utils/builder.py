@@ -17,22 +17,26 @@ from ..train import Trainer, make_optimizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 # UNet1d keys of the JAX package that choose among its implementations
-# (TPU kernels, remat, sharding); the port has one implementation.
+# (TPU kernels, remat, sharding); the port has one implementation of each.
 _JAX_IMPL_KEYS = {
-    "attn_impl", "linear_attn_impl", "fused_resnet", "quantize_mid", "remat_linear_attn",
+    "linear_attn_impl", "fused_resnet", "quantize_mid", "remat_linear_attn",
     "kernel_dp_axis", "activation_sharding",
 }
+# Parameters kept float32 in every dtype, as JAX keeps them: the gains of
+# RMSNorm and LayerNorm1d and LayerNorm1d's bias.
+_NORM_PARAMS = (".g", ".b")
 _UNET_KEYS = set(UNet1d.__init__.__code__.co_varnames[1 : UNet1d.__init__.__code__.co_argcount])
 
 
 @torch.no_grad()
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights: norm gains 1, biases 0, other weights
-    N(0, 1/fan_in) (LeCun normal, as the JAX initializers)."""
+    """Seeded random weights: norm gains 1, biases (LayerNorm1d's ``b``
+    among them) 0, other weights N(0, 1/fan_in) (LeCun normal, as the JAX
+    initializers)."""
     for name, p in model.named_parameters():
         if name.endswith(".g"):
             p.fill_(1.0)
-        elif name.endswith("bias"):
+        elif name.endswith(("bias", ".b")):
             p.zero_()
         else:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
@@ -42,22 +46,30 @@ def build_model(
     config: Dict[str, Any], device="cpu", seed: int = 0, trainable: bool = False
 ) -> UNet1d:
     """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights
-    on ``device``, computing in ``tpu.compute_dtype``; with
-    ``tpu.quantize_mid`` the mid convs are int8. ``tpu.fused_resnet`` is
-    accepted: the port's kernels are the fused path.
+    on ``device``, computing in ``tpu.compute_dtype``, its softmax
+    attention by ``tpu.attn_impl``; with ``tpu.quantize_mid`` the mid convs
+    are int8. ``tpu.fused_resnet`` is accepted: the port's kernels are the
+    fused path.
 
     ``trainable=False`` (serving) stores the parameters in the compute
-    dtype, norm gains in float32, and no parameter needs grad.
+    dtype, norm gains and biases in float32, and no parameter needs grad.
     ``trainable=True`` keeps float32 master parameters that require grad;
     they are cast to the compute dtype at use, as flax's
     ``param_dtype=float32`` does.
 
     The model is built on the meta device and materialized on ``device``,
-    so the canonical 1.2 B-parameter model is never built on the host."""
+    so the canonical models (1.2 B parameters, 2.8 B with ``simple=False``)
+    are never built on the host."""
     m = config["model"]
     if m["use_model"] != "UNet1d":
         raise NotImplementedError(f"the port builds UNet1d only (got {m['use_model']})")
     u = dict(m["UNet1d"])
+    if "attn_impl" in u:
+        raise ValueError(
+            "attn_impl belongs in the tpu section of the config, not in model.UNet1d "
+            "(the JAX build_model passes tpu.attn_impl, so a second one is a duplicate "
+            "keyword there)"
+        )
     quantize = bool(config["tpu"].get("quantize_mid") or u.get("quantize_mid"))
     unknown = set(u) - _UNET_KEYS - _JAX_IMPL_KEYS
     if unknown:
@@ -67,7 +79,7 @@ def build_model(
 
     device = torch.device(device)
     with torch.device("meta"):
-        model = UNet1d(**u, dtype=dtype)
+        model = UNet1d(**u, dtype=dtype, attn_impl=config["tpu"]["attn_impl"])
     model.to_empty(device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if trainable:
@@ -77,7 +89,7 @@ def build_model(
     if quantize:
         quantize_mid_block_params(model)
     for name, p in model.named_parameters():
-        if not name.endswith(".g"):  # norm gains stay float32, as in JAX
+        if not name.endswith(_NORM_PARAMS):
             p.data = p.data.to(dtype)
     return model.requires_grad_(False).eval()
 

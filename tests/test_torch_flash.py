@@ -1,0 +1,270 @@
+"""The port's flash-attention op (K7) and the attention dispatch against the
+JAX package.
+
+The op's plain versions — what :func:`flash_attention` runs on CPU
+tensors, forward and backward through its autograd Function — are held
+against the JAX flash kernel run in interpret mode, as ``tests/test_ops.py``
+runs it on the CPU, with the tolerances of that file. The CUDA kernels are
+held against the plain versions by the tests marked ``cuda``, which skip
+without a card. On a CUDA machine without JAX (which then cannot load
+tests/conftest.py), run them with
+
+    python -m pytest tests/test_torch_flash.py -m cuda --noconftest -q
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import dquartic_tpu_torch.ops.flash_attention as tfa
+from dquartic_tpu_torch.ops import attention_dispatch as tad
+
+try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
+    import jax
+    import jax.numpy as jnp
+
+    from dquartic_tpu.ops import dot_product_attention as jax_dot_product_attention
+    from dquartic_tpu.ops import flash_attention as jfa
+except ImportError:
+    jax = jnp = jax_dot_product_attention = jfa = None
+
+# float32: the tolerances of tests/test_ops.py for the same kernel (forward
+# 2e-5; gradients 2e-4, sums over up to 520 kv rows in another order).
+# bf16: both sides take the same bf16 values and compute in float32; the
+# outputs round once to bf16 (3e-2), the gradients are held against the
+# JAX kernel's bf16 gradients (6e-2), as tests/test_ops.py holds them.
+FWD_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRAD_TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels only run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, h, n, m, seed, d=32):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, h, x, d)).astype(np.float32) for x in (n, m, m)]
+
+
+def _t(a, dtype="float32", device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=getattr(torch, dtype))
+
+
+def _j(a, dtype="float32"):
+    return jnp.asarray(a).astype(getattr(jnp, dtype))
+
+
+def _np(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else x.astype(jnp.float32), np.float32)
+
+
+# --------------------------------------------------------------------- #
+# the op's plain versions vs the JAX kernel (interpret mode)            #
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("n,m,dtype,scale", [
+    (50, 70, "float32", None), (128, 128, "float32", None), (1, 5, "float32", None),
+    (200, 34, "float32", None), (130, 257, "float32", None), (50, 70, "float32", 0.5),
+    (50, 70, "bfloat16", None),
+])
+def test_flash_forward_matches_jax(n, m, dtype, scale):
+    """out and lse of the plain forward against JAX ``_flash_forward``."""
+    q, k, v = _qkv(2, 3, n, m, seed=n + m)
+    s = 32 ** -0.5 if scale is None else scale
+    jout, jlse = jfa._flash_forward(_j(q, dtype), _j(k, dtype), _j(v, dtype), s)
+    out, lse = tfa.flash_attention_reference(_t(q, dtype), _t(k, dtype), _t(v, dtype), s)
+    assert out.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    tol = FWD_TOL[dtype]
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=tol, atol=tol)
+    # the differentiable op returns the same output
+    op = tfa.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype), scale=scale)
+    np.testing.assert_array_equal(_np(op), _np(out))
+
+
+@pytest.mark.parametrize("n,m,dtype", [
+    (200, 34, "float32"), (130, 257, "float32"), (520, 520, "float32"), (100, 100, "bfloat16"),
+])
+def test_flash_gradients_match_jax(n, m, dtype):
+    """Gradients through the autograd Function (its backward is the plain
+    version of K7b on CPU tensors) against ``jax.grad`` of the JAX flash op
+    (its blockwise Pallas backward in interpret mode)."""
+    q, k, v = _qkv(1, 2, n, m, seed=3)
+
+    def jloss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v).astype(jnp.float32) ** 2)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(_j(q, dtype), _j(k, dtype), _j(v, dtype))
+    ts = [_t(a, dtype).requires_grad_(True) for a in (q, k, v)]
+    (tfa.flash_attention(*ts).float() ** 2).sum().backward()
+    tol = GRAD_TOL[dtype]
+    for t, g in zip(ts, jg):
+        assert t.grad.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(t.grad), _np(g), rtol=tol, atol=tol)
+
+
+def test_flash_backward_reference_is_autograd_of_forward():
+    """The backward formulas (from lse, without the softmax) equal autograd
+    of the plain forward: float32, 1e-5 (summation order)."""
+    q, k, v = (_t(a) for a in _qkv(2, 2, 40, 23, seed=7))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    out, lse = tfa.flash_attention_reference(q, k, v, 0.3)
+    got = tfa.flash_attention_backward_reference(q, k, v, out, lse, do, 0.3)
+    ref = torch.autograd.grad(
+        tfa.flash_attention_plain(*[t.requires_grad_(True) for t in (q, k, v)], 0.3), (q, k, v), do)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_backward_gets_the_float32_output(monkeypatch):
+    """For bf16 inputs the autograd Function hands its backward the float32
+    output, not the one rounded to bf16, so D = rowsum(dO ∘ O) carries no
+    rounding shared by every key of a row; its gradients are then those of
+    autograd through the plain version, up to their own rounding to bf16."""
+    seen = []
+    real = tfa.flash_attention_backward
+    monkeypatch.setattr(tfa, "flash_attention_backward",
+                        lambda q, k, v, o, *a: seen.append(o) or real(q, k, v, o, *a))
+    q, k, v = (_t(a, "bfloat16") for a in _qkv(1, 2, 30, 20, seed=13))
+    do = _t(np.random.default_rng(14).normal(size=q.shape), "bfloat16")
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*ts), ts, do)
+    (o,) = seen
+    ref32, _ = tfa.flash_attention_reference(q.float(), k.float(), v.float(), 32 ** -0.5)
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, ref32, rtol=1e-6, atol=1e-6)
+    ps = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(*ps), ps, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), r.float(), rtol=2**-7, atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# dispatch                                                              #
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla", "pallas"])
+def test_dispatch_matches_jax(impl):
+    """Each impl against the JAX dispatch with the same impl (on the CPU
+    "auto" is the plain version in both packages)."""
+    q, k, v = _qkv(2, 3, 16, 16, seed=11)
+    ref = jax_dot_product_attention(_j(q), _j(k), _j(v), impl=impl)
+    out = tad.dot_product_attention(_t(q), _t(k), _t(v), impl=impl)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+def test_dispatch_selects_implementation(monkeypatch):
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, "flash_attention", lambda *a: calls.append(1) or real(*a))
+    q, k, v = (_t(a) for a in _qkv(1, 2, 16, 16, seed=12))
+    for impl, expect in (("pallas", 1), ("xla", 0), ("auto", 0)):
+        calls.clear()
+        tad.dot_product_attention(q, k, v, impl=impl)
+        assert len(calls) == expect, impl
+    calls.clear()
+    out = tad.dot_product_attention(q, k, v, impl="pallas", kernels=False)
+    assert not calls  # the plain version of the flash op
+    np.testing.assert_allclose(out.numpy(), real(q, k, v).detach().numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="Unknown attention impl"):
+        tad.dot_product_attention(q, k, v, impl="nope")
+
+
+def _small_config(simple, attn_impl):
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    cfg = load_train_config("dquartic_train_config.json")
+    cfg["model"]["UNet1d"].update(dim_mults=[1, 2], downsample_dim=64, simple=simple)
+    cfg["tpu"]["attn_impl"] = attn_impl
+    return json.loads(json.dumps(cfg))
+
+
+@pytest.mark.parametrize("simple,attn_impl,expect", [
+    (True, "pallas", 1), (False, "pallas", 8), (True, "auto", 0), (False, "xla", 0),
+])
+def test_config_attn_impl_reaches_the_attention(monkeypatch, simple, attn_impl, expect):
+    """``tpu.attn_impl = "pallas"`` sends every softmax attention of the
+    built model through the flash op: one per forward for simple=True, 8
+    for simple=False at tfer_depth 4 (2 in the MS1 tower, 2 self and 2
+    hybrid layers of 2 in the bottleneck)."""
+    from dquartic_tpu_torch.utils.builder import build_model
+
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, "flash_attention", lambda *a: calls.append(1) or real(*a))
+    model = build_model(_small_config(simple, attn_impl), seed=0)
+    rng = np.random.default_rng(0)
+    x = _t(rng.normal(size=(1, 4, 64)).astype(np.float32))
+    with torch.no_grad():
+        out = model(x, torch.tensor([10]), x, _t(rng.uniform(size=(1, 4)).astype(np.float32)))
+    assert out.shape == (1, 4, 64) and bool(torch.isfinite(out).all())
+    assert len(calls) == expect
+
+
+def test_attn_impl_in_model_section_is_an_error():
+    from dquartic_tpu_torch.utils.builder import build_model
+
+    cfg = _small_config(True, "auto")
+    cfg["model"]["UNet1d"]["attn_impl"] = "pallas"
+    with pytest.raises(ValueError, match="tpu section"):
+        build_model(cfg)
+
+
+# --------------------------------------------------------------------- #
+# the CUDA kernels (run on the card only)                               #
+# --------------------------------------------------------------------- #
+
+# float32 on the card: the kernel sums the scores and products in another
+# order than cuBLAS and uses exp2f; values O(1): 1e-5. bf16: both take the
+# same bf16 values and compute in float32; the kernel output rounds once.
+CARD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,m", [(1, 4, 34, 34), (2, 3, 130, 257)])
+def test_flash_forward_kernel_on_card(cuda, dtype, b, h, n, m):
+    q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=20))
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v)
+    out2, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, 32 ** -0.5)
+    ref32, _ = tfa.flash_attention_reference(q.float(), k.float(), v.float(), 32 ** -0.5)
+    assert tfa.flash_attention.launches == before + 2
+    assert torch.equal(out, out2)
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(q.dtype), out)
+    tol = CARD_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out32, ref32, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,m", [(1, 4, 34, 34), (2, 3, 130, 257)])
+def test_flash_backward_kernel_on_card(cuda, dtype, b, h, n, m):
+    """K7b against autograd of the plain version run in float32 on the same
+    values, max |error| over the largest entry; deterministic."""
+    q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=21))
+    do = _t(np.random.default_rng(22).normal(size=q.shape).astype(np.float32), dtype, cuda)
+    _, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    got = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    again = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ts = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(*ts), ts, do.float())
+    for g, r in zip(got, ref):
+        assert g.dtype == q.dtype
+        err = float((g.float() - r).abs().max() / r.abs().max())
+        assert err < (1e-5 if dtype == "float32" else 1e-2), err

@@ -262,7 +262,8 @@ def _bf16_values(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C,N", [(4, 40000), (16, 625), (8, 1000)])
+# (8, 1): the MS1 tower's mixer of UNet1d(simple=False), one column per row
+@pytest.mark.parametrize("C,N", [(4, 40000), (16, 625), (8, 1000), (8, 1)])
 def test_linear_attention_kernel_on_card(cuda, dtype, C, N):
     a = _linattn_args(np.random.default_rng(9), 34, C, N)
     t = {k: _t(v, cuda) for k, v in a.items()}
