@@ -45,7 +45,29 @@ CUDA card with sm_90a). Phases, each of which must pass:
      gradients on the kernels against the plain path (in bf16 each path
      also against the float32 gradient, see BF16_TOWER), then ``train_step``
      1 + 5 times on each path with K7a/K7b 8, K1/K4 15, K2/K5 29 launches
-     per step on the kernel path, ms/step and peak memory.
+     per step on the kernel path, ms/step and peak memory;
+  9. the row-blocked linear attention and the unfused UNet1d
+     (``tpu.fused_resnet = false``, ``tpu.linear_attn_impl = "pallas"``):
+     K8 and K9 against their plain version at every mixer shape of the
+     path, a ragged N and N = 1, float32 and bf16, timed through the
+     wrapper and alone; the sweep of K1, K8 and the "xla" path, whose
+     crossover must be ``LINATTN_MIN_SEQ``; the full-width forward on the
+     kernels against the plain path; a 50-step ``predict`` (K8 700, K1 0, K2 0, K3 200 launches)
+     and ms/window; full-width training (no int8): one step's gradients
+     on the kernels against the plain path, float32 and bf16, each bf16
+     path also against the float32 gradient, then ``train_step`` 1 + 5
+     times on each path with K8 14 launches per step (its gradient is the
+     vjp of the recomputed reference, as in JAX's ``_fused`` custom_vjp),
+     ms/step and peak memory.
+
+Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
+Each kernel's entry in the JSON line carries its time, its plain
+version's, the time of one PyTorch call computing the same function where
+one exists (``library_ms``), and ``bound_ms``: the least time for the
+same work on an H100 SXM at 700 W, the larger of its bytes (each input
+read once, each output written once) at 3.35 TB/s and its operations at
+the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
+cores).
 
 It prints one JSON line of per-kernel results and, last, one JSON line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -127,6 +149,21 @@ TFER_FORWARD = {"linear_attention": 15, "fused_resnet_block_t": 29, "int8_matmul
 TFER_STEP = {"linear_attention": 15, "linear_attention_backward": 15,
              "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0,
              "flash_attention": 8, "flash_attention_backward": 8}
+# phase 9: (C, N) of the 14 mixers of the canonical model (downs at
+# dim_in, ups at dim_out), then ragged N and N = 1 (the simple=False MS1
+# tower's mixer has acid = 8 channels and one column)
+ROWS_SHAPES = ((4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
+               (16, 625), (16, 1250), (12, 5000), (8, 20000))
+ROWS_EXTRA = ((8, 700), (12, 1025), (8, 1), (16, 1))
+ROWS_FORWARD = {"fused_linear_attention": 14, "int8_matmul": 4}
+ROWS_STEP = {"fused_linear_attention": 14}  # per train step: no backward kernel
+SWEEP_C = (4, 16)
+SWEEP_N = (1, 625, 1250, 2500, 5000, 10000, 20000, 40000)
+SWEEP_REPS = 5  # the mixer is host-bound at small N: medians of 5, impls in turn
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device memory
+# bytes/s, and FLOP/s by the type of the operations.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -135,6 +172,41 @@ class SmokeFailure(RuntimeError):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """``bound_ms``: the larger of ``nbytes`` at the card's memory rate and
+    ``flops`` at the peak of ``kind``; ``bound_by`` names the larger."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return dict(bound_ms=max(t_mem, t_ops), bound_by="bytes" if t_mem >= t_ops else "operations")
+
+
+def linattn_bound(B, C, N, itemsize, tensors=2, passes=4, H=128) -> dict:
+    """Linear attention over (B, C, N) (K1, K8, K9; the backward K4 with
+    ``tensors=3``, ``passes=12``): ``tensors`` activation tensors moved
+    once (x, y; x, dy, dx), ``passes`` float32 multiply-add passes of an
+    H x C weight per column (k, A, q and M q^ forward; the backward
+    recomputes the forward and differentiates each product twice)."""
+    return bound(tensors * B * C * N * itemsize, 2 * passes * H * C * B * N, "float32")
+
+
+def resnet_bound(B, c_in, c_out, N, itemsize, backward=False) -> dict:
+    """A ResnetBlock on (B, c_in, N) (K2; K5 with ``backward``): x in and
+    y out (and dy in, dx out), two conv3s and a 1x1 conv where c_in !=
+    c_out, float32 operations (three times the forward's for the backward)."""
+    macs = 3 * c_in * c_out + 3 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
+    moved = (2 * c_in + 2 * c_out) if backward else (c_in + c_out)
+    return bound(moved * B * N * itemsize, (3 if backward else 1) * 2 * macs * B * N, "float32")
+
+
+def flash_bound(b, h, n, m, d, itemsize, backward=False) -> dict:
+    """Softmax attention (K7a; K7b with ``backward``): q, k, v in and o out
+    (and dO, lse in, dq, dk, dv out), two n x m x d products (five in the
+    backward) on bf16 tensor cores."""
+    moved = (b * h * (n + 2 * m) * d) * (2 if backward else 1) + b * h * n * d
+    return bound(moved * itemsize + (4 * b * h * n if backward else 0),
+                 (10 if backward else 4) * b * h * n * m * d, "bfloat16")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -254,6 +326,7 @@ def phase_kernels(gen, results):
                 timing["linear_attention"] = (
                     cuda_time(lambda: la.linear_attention(*a), 20),
                     cuda_time(lambda: la.linear_attention_nr_reference(*a, 4, 32), 5),
+                    linattn_bound(34, C, N, 2),
                 )
         for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
             a = rn_args(c_in, c_out, N)
@@ -269,6 +342,7 @@ def phase_kernels(gen, results):
                 timing["fused_resnet_block_t"] = (
                     cuda_time(lambda: fr.fused_resnet_block_t(*a), 20),
                     cuda_time(lambda: fr.resnet_block_t_reference(*a), 5),
+                    resnet_bound(34, c_in, c_out, N, 2),
                 )
         x = randn(34, 3 * 10000).to(dt)
         q, s = im.quantize_weight_matrix(randn(3 * 10000, 10000))
@@ -280,14 +354,22 @@ def phase_kernels(gen, results):
         errs["int8_matmul"] = max(errs["int8_matmul"], _compare(
             f"K3 int8_matmul {tag} M=34 K=30000 N=10000", out, ref, k3_tol, atol_scale=scale))
         if dt == torch.bfloat16:
+            # int8 weights and their scales, bf16 x and out; the product on
+            # bf16 tensor cores. No single PyTorch call forms the bf16 x
+            # int8 product with per-column scales on CUDA (torch._int_mm
+            # takes int8 x int8), so library_ms is null.
+            M, K, Nc = x.shape[0], x.shape[1], q.shape[1]
             timing["int8_matmul"] = (
                 cuda_time(lambda: im.int8_matmul(x, q, s), 20),
                 cuda_time(lambda: im.int8_matmul_reference(x, q, s), 5),
+                bound(K * Nc + 4 * Nc + 2 * (M * K + M * Nc), 2 * M * K * Nc, "bfloat16"),
             )
         del q, s
-    for name, (ms, plain_ms) in timing.items():
-        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+    for name, (ms, plain_ms, bnd) in timing.items():
+        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **bnd)
     phase_flash_forward(gen, results)
 
 
@@ -327,14 +409,17 @@ def phase_flash_forward(gen, results):
                     _compare(f"K7a float32 output {tag} ({b}, {h}, {n}) x m {m}", out32, ref32,
                              F32_TOL)
                 if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
+                    sdpa = torch.nn.functional.scaled_dot_product_attention
                     times[n] = (cuda_time(lambda: fa.flash_attention(q, k, v), 50),
-                                cuda_time(lambda: fa.flash_attention_plain(q, k, v), 50))
-        for n, (ms, plain_ms) in times.items():
+                                cuda_time(lambda: fa.flash_attention_plain(q, k, v), 50),
+                                cuda_time(lambda: sdpa(q, k, v), 50))
+        for n, (ms, plain_ms, lib_ms) in times.items():
             log(f"  time flash_attention bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms")
         results["flash_attention"].update(
-            max_abs_err=err, ms=times[34][0], plain_ms=times[34][1],
-            ms_340=times[340][0], plain_ms_340=times[340][1])
+            max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], library_ms=times[34][2],
+            ms_340=times[340][0], plain_ms_340=times[340][1], library_ms_340=times[340][2],
+            **flash_bound(1, 4, 34, 34, 32, 2))
 
         # the "auto" crossover: K7a against the plain ("xla") attention
         log(f"  sweep, bf16 (1, 4, n, 32), n = m; FLASH_MIN_SEQ = {ad.FLASH_MIN_SEQ}:")
@@ -513,6 +598,7 @@ def phase_backward_kernels(gen, results):
                 timing["linear_attention_backward"] = (
                     cuda_time(lambda: la.linear_attention_backward(dy, x, *w), 10),
                     cuda_time(lambda: la.linear_attention_backward_reference(dy, x, *w, 4, 32), 3),
+                    linattn_bound(34, C, N, 2, tensors=3, passes=12),
                 )
             del got, again, ref
         for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
@@ -537,11 +623,14 @@ def phase_backward_kernels(gen, results):
                 timing["fused_resnet_backward"] = (
                     cuda_time(lambda: fr.fused_resnet_backward(dy, *a), 10),
                     cuda_time(lambda: fr.resnet_block_t_backward_reference(dy, *a), 3),
+                    resnet_bound(34, c_in, c_out, N, 2, backward=True),
                 )
             del got, again, ref
-    for name, (ms, plain_ms) in timing.items():
-        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms)
+    for name, (ms, plain_ms, bnd) in timing.items():
+        log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **bnd)
     phase_flash_backward(gen, results)
 
 
@@ -574,18 +663,25 @@ def phase_flash_backward(gen, results):
                 f"K7b flash_attention_backward {tag} ({b}, {h}, {n}, 32) x m {m}", got, ref,
                 GRAD_TOL[tag]))
             if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
+                # the library call: autograd's backward of
+                # scaled_dot_product_attention from its saved forward
+                ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                lo = torch.nn.functional.scaled_dot_product_attention(*ls)
                 times[n] = (
                     cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, lse, do, scale), 50),
                     cuda_time(lambda: fa.flash_attention_backward_reference(
                         q, k, v, out, lse, do, scale), 50),
+                    cuda_time(lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), 50),
                 )
+                del ls, lo
             del got, again, ref
-    for n, (ms, plain_ms) in times.items():
+    for n, (ms, plain_ms, lib_ms) in times.items():
         log(f"  time flash_attention_backward bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms")
     results["flash_attention_backward"].update(
-        max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], ms_340=times[340][0],
-        plain_ms_340=times[340][1])
+        max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], library_ms=times[34][2],
+        ms_340=times[340][0], plain_ms_340=times[340][1], library_ms_340=times[340][2],
+        **flash_bound(1, 4, 34, 34, 32, 2, backward=True))
 
 
 def _train_config(config, **tpu):
@@ -738,7 +834,7 @@ def phase_train(config, seed, gen, results):
             f"{TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), peak device memory "
             f"{peak:.2f} GiB, launches {counts}")
         if kernels:
-            expect = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
+            expect = _expect(STEP_LAUNCHES, TRAIN_STEPS)
             check(counts == expect, f"train launches {counts} != {expect}")
             for name, n in counts.items():
                 results[name]["train_launches"] = n
@@ -874,6 +970,175 @@ def phase_tfer_train(config, seed, gen, results):
     results["tfer"].update(train=per_path)
 
 
+def _rows_config(config, **tpu):
+    """The path of phase 9: the unfused UNet1d, every mixer on K8."""
+    cfg = json.loads(json.dumps(config))
+    cfg["tpu"].update(fused_resnet=False, linear_attn_impl="pallas", **tpu)
+    return cfg
+
+
+def phase_rows_kernels(gen, results):
+    """K8 and K9 against their plain version at ROWS_SHAPES + ROWS_EXTRA,
+    float32 (TF32 off) and bf16 (against the plain version run in float32
+    on the same bf16 values), on the model's channel-first memory; bf16
+    times at every mixer shape through the wrapper and of the kernel alone
+    (the launch of prepared arguments), beside the plain version's and the
+    bound."""
+    import torch
+
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    ops = {"fused_linear_attention": (la.fused_linear_attention, False, "K8"),
+           "fused_linear_attention_two_call": (la.fused_linear_attention_two_call, True, "K9")}
+    errs = dict.fromkeys(ops, 0.0)
+    table = []
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt).replace("torch.", "")
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            for C, N in ROWS_SHAPES + ROWS_EXTRA:
+                w = [randn(C, 384, s=0.3), randn(128, C, s=0.1), randn(C, s=0.1), randn(C)]
+                x = randn(34, C, N).to(dt).transpose(1, 2)  # (B, N, C) view of (B, C, N)
+                ref = la.linear_attention_rows_reference(x.float(), *w)
+                for name, (op, _, label) in ops.items():
+                    errs[name] = max(errs[name], _compare(
+                        f"{label} {name} {tag} (34, {N}, {C})", op(x, *w), ref, tol))
+                if dt == torch.bfloat16 and (C, N) in ROWS_SHAPES:
+                    row = dict(C=C, N=N)
+                    for name, (op, two_call, label) in ops.items():
+                        launch, _ = la.rows_launcher(name, x, *w, 4, 32, two_call)
+                        row[label] = (cuda_time(lambda: op(x, *w), 20), cuda_time(launch, 20))
+                    row["plain"] = cuda_time(lambda: la.linear_attention_rows_reference(x, *w), 5)
+                    row["bound"] = linattn_bound(34, C, N, 2)
+                    table.append(row)
+                del w, x, ref
+            torch.cuda.empty_cache()
+    log("  bf16 (34, N, C) on channel-first memory, ms: K8 wrapper / kernel alone, K9 wrapper / "
+        "kernels alone, plain, bound:")
+    for r in table:
+        log(f"    C {r['C']:2d} N {r['N']:5d}: K8 {r['K8'][0]:.4f} / {r['K8'][1]:.4f}, K9 "
+            f"{r['K9'][0]:.4f} / {r['K9'][1]:.4f}, plain {r['plain']:.4f}, bound "
+            f"{r['bound']['bound_ms']:.4f} ({r['bound']['bound_by']})")
+    top = table[0]  # the level-0 shape (34, 40000, 4)
+    for name, (_, _, label) in ops.items():
+        results[name].update(max_abs_err=errs[name], ms=top[label][0], kernel_ms=top[label][1],
+                             plain_ms=top["plain"], library_ms=None, **top["bound"],
+                             per_shape={f"{r['C']}x{r['N']}": r[label] for r in table})
+
+
+def phase_rows_sweep(gen):
+    """The "auto" crossover: the whole mixer (LinearAttention, bf16 serving
+    weights, inference mode) under "pallas_t" (K1), "pallas" (K8) and
+    "xla" at B = 34, C in SWEEP_C, N in SWEEP_N. Prints the smallest swept
+    N from which K1 is faster than the "xla" path at every larger swept N
+    and C, which must be LINATTN_MIN_SEQ."""
+    import torch
+
+    from dquartic_tpu_torch.models import attention as ma
+
+    impls = ("pallas_t", "pallas", "xla")
+    k1_wins = {}
+    log(f"  sweep, bf16 mixer (34, C, N), ms by impl {impls}; LINATTN_MIN_SEQ = {ma.LINATTN_MIN_SEQ}:")
+    with torch.inference_mode():
+        for C in SWEEP_C:
+            m = ma.LinearAttention(C).cuda()
+            for p in m.parameters():
+                p.data.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+            m.to_qkv.to(torch.bfloat16)
+            m.to_out[0].to(torch.bfloat16)
+            g_pre = torch.ones(C, device="cuda")
+            for N in SWEEP_N:
+                x = torch.randn((34, C, N), generator=gen, device="cuda").to(torch.bfloat16)
+                runs = {impl: [] for impl in impls}
+                for _ in range(SWEEP_REPS):  # impls in turn; the median of each
+                    for impl in impls:
+                        m.impl = impl
+                        runs[impl].append(cuda_time(lambda: m(x, g_pre), 20 if N <= 5000 else 5))
+                t = {impl: sorted(r)[len(r) // 2] for impl, r in runs.items()}
+                k1_wins.setdefault(N, []).append(t["pallas_t"] < t["xla"])
+                best = min(t, key=t.get)
+                log(f"    C {C:2d} N {N:5d}: " + ", ".join(f"{i} {t[i]:.4f}" for i in impls)
+                    + f" -> {best} fastest")
+                del x
+            del m
+            torch.cuda.empty_cache()
+    wins = [all(k1_wins[n]) for n in SWEEP_N]
+    first = next((n for i, n in enumerate(SWEEP_N) if all(wins[i:])), None)
+    log(f"  smallest swept N from which K1 beats the xla path at every larger N and C: {first}")
+    check(first == ma.LINATTN_MIN_SEQ,
+          f"the sweep puts the crossover at {first}, LINATTN_MIN_SEQ is {ma.LINATTN_MIN_SEQ}")
+
+
+def phase_rows_train(config, seed, gen, results):
+    """Full-width training of the unfused "pallas" model (float32 masters,
+    no int8) through build_trainer: one step's gradients, kernels vs plain
+    path, float32 and bf16, and in bf16 each path against the float32
+    gradient; then 1 + TRAIN_STEPS ``train_step``s per path with K8 14
+    launches per step on the kernel path (its gradient is the recomputed
+    reference's vjp, as in JAX's ``_fused`` custom_vjp), ms/step and peak
+    memory. The plain path runs the mixers' reference under autograd."""
+    import torch
+
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 3).items()}
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=gen, device=dev)
+
+    cfg = _rows_config(config, quantize_mid=False, compute_dtype="float32")
+    model = build_model(cfg, device=dev, seed=seed, trainable=True)
+    compare_step_grads(model, build_process(cfg), batch, t, eps, what="unfused pallas",
+                       bf16_vs_f32=True)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = _rows_config(config, quantize_mid=False, compute_dtype="bfloat16")
+    trainer = build_trainer(cfg, device=dev, seed=seed)
+    n_params = trainer.num_parameters()
+    trainer.train_step(batch, 1e-4, generator=gen)  # warm-up step
+    torch.cuda.synchronize()
+    per_path = {}
+    for path, kernels in (("kernel", True), ("plain", False)):
+        runs, counts, peak, losses = timed_steps(trainer, batch, gen, kernels)
+        median = runs[len(runs) // 2]
+        log(f"  unfused pallas train_step ({n_params / 1e9:.3f} B params, bs1, 34x40000, bf16 "
+            f"on float32 masters, AdamW + EMA), {path} path: median {median:.2f} ms/step of "
+            f"{TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), peak device memory "
+            f"{peak:.2f} GiB, launches {counts}, losses {[round(v, 6) for v in losses]}")
+        check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
+        if kernels:
+            expect = _expect(ROWS_STEP, TRAIN_STEPS)
+            check(counts == expect, f"train launches {counts} != {expect}")
+            results["fused_linear_attention"]["train_launches"] = counts["fused_linear_attention"]
+        per_path[path] = dict(ms_per_step=median, peak_gib=peak)
+    results["rows"].update(train=per_path)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_rows(config, seed, gen, results):
+    """Phase 9: K8/K9 against their plain version, the sweep, then the
+    unfused "pallas" model: forward, 50-step predict (the main path of
+    this phase: counts reset just before it, read just after), training."""
+    phase_rows_kernels(gen, results)
+    phase_rows_sweep(gen)
+    cfg = _rows_config(config)
+    phase_forward(cfg, seed, gen, ROWS_FORWARD, what="unfused UNet1d (linear_attn_impl pallas)")
+    counts, per_window = phase_sample(cfg, seed, gen, ROWS_FORWARD, what="unfused pallas")
+    results["fused_linear_attention"]["launches"] = counts["fused_linear_attention"]
+    results["fused_linear_attention_two_call"]["launches"] = counts[
+        "fused_linear_attention_two_call"]
+    results["rows"] = dict(launches=counts, ms_per_window=per_window["kernel"],
+                           plain_ms_per_window=per_window["plain"])
+    phase_rows_train(config, seed, gen, results)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -898,7 +1163,8 @@ def main(argv=None) -> int:
     from dquartic_tpu_torch.utils.config import load_train_config
 
     config = load_train_config(CONFIG)
-    config["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=True)
+    config["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=True,
+                         linear_attn_impl="pallas_t")
     results = {
         "linear_attention": dict(source="dquartic_tpu_torch/csrc/linear_attention.cu",
                                  replaces="dquartic_tpu/ops/linear_attention.py:606"),
@@ -915,6 +1181,13 @@ def main(argv=None) -> int:
                                 replaces="dquartic_tpu/ops/flash_attention.py:99"),
         "flash_attention_backward": dict(source="dquartic_tpu_torch/csrc/flash_attention_bwd.cu",
                                          replaces="dquartic_tpu/ops/flash_attention.py:237"),
+        "fused_linear_attention": dict(source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
+                                       replaces="dquartic_tpu/ops/linear_attention.py:276"),
+        "fused_linear_attention_two_call": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:1139",
+            note="no model path reaches it, in JAX either; held against its plain version "
+                 "in phase 9"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     try:
@@ -936,6 +1209,8 @@ def main(argv=None) -> int:
         phase_train_loop(config, args.seed)
         log("== phase 8: simple=False UNet1d (transformer bottleneck, flash attention)")
         phase_tfer(config, args.seed, gen, results)
+        log("== phase 9: row-blocked linear attention (K8, K9) and the unfused UNet1d")
+        phase_rows(config, args.seed, gen, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -946,6 +1221,7 @@ def main(argv=None) -> int:
     train = results.pop("train")
     log(f"train step: {json.dumps(train)}")
     log(f"simple=False: {json.dumps(results.pop('tfer'))}")
+    log(f"unfused pallas: {json.dumps(results.pop('rows'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.diffusion import DDIMProcess
+from ..utils.device import resolve_device
 
 
 class DDIMSampler:
@@ -53,13 +54,14 @@ class DDIMSampler:
         mixture_weights: Tuple[float, float] = (0.5, 0.5),
         num_steps: int = 1000,
         seed: int = 0,
-        device="cpu",
+        device=None,
     ) -> List[Dict[str, np.ndarray]]:
         """Deconvolve each pair batch (``ms2_1``, ``ms1_1``, ``ms2_2``): the
         mixture ``w0·ms2_1 + w1·ms2_2`` is the condition. Each record holds
         the target, its MS1, the mixture, the prediction and the removed
-        signal, as numpy arrays."""
-        device = torch.device(device)
+        signal, as numpy arrays. ``device=None`` is the card (raises
+        without one)."""
+        device = resolve_device(device, "DDIMSampler.predict")
         generator = torch.Generator(device=device).manual_seed(seed)
         out: List[Dict[str, np.ndarray]] = []
         for batch in dataset:

@@ -1,6 +1,7 @@
-"""Attention modules of the UNet1d: RoPE, the fused linear-attention
-mixer, softmax attention over the RT axis (self and cross), the hybrid
-self-then-cross attention and the 1-D transformer stack.
+"""Attention modules of the UNet1d: RoPE, the linear-attention mixer (K1,
+K8 or plain torch, by ``impl``), softmax attention over the RT axis (self
+and cross), the hybrid self-then-cross attention and the 1-D transformer
+stack.
 
 Ports of :mod:`dquartic_tpu.models.attention`, channel-first ``(b, C, n)``.
 Heads are channel-major ``(h c)``, as in the reference checkpoints. Every
@@ -15,13 +16,17 @@ layer lists, as the reference builds them (SURVEY.md M11).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.attention_dispatch import dot_product_attention
-from ..ops.linear_attention import linear_attention, linear_attention_nr_reference
+from ..ops.linear_attention import (
+    fused_linear_attention, linear_attention, linear_attention_nr_reference,
+    linear_attention_rows_reference, rmsnorm_reference,
+)
 from .layers import Conv1d, Conv1x1, FeedForward1d, RMSNorm
 
 
@@ -41,31 +46,84 @@ def rope_rotate(x: torch.Tensor, rot_dim: int, theta: float = 10000.0) -> torch.
     return torch.cat([x_rot * cos + rotated * sin, x_pass], dim=-1)
 
 
-class LinearAttention(nn.Module):
-    """Linear attention mixer around the K1 op; ``forward(x, g_pre)``
-    returns ``x + RMSNorm(to_out(attn(RMSNorm_{g_pre}(x))))`` on (B, C, N)."""
+# Smallest sequence length N from which "auto" runs K1 rather than the
+# "xla" path, set from the sweep of chip_smoke.py phase 9 (B = 34, C = 4
+# and 16, bf16, the mixer's whole forward under each impl), whose times
+# PERF.md section 6 lists with the card they were taken on: K1 was the
+# faster at every swept N from 1 to 40000, so "auto" never picks "xla". The
+# DQUARTIC_LINATTN_MIN_SEQ environment variable overrides it, as in JAX;
+# the JAX package's 2048 is a TPU v5e's crossover and does not carry over.
+LINATTN_MIN_SEQ = 1
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+
+def resolve_linear_attn_impl(impl: str, n: int) -> str:
+    """The implementation a mixer over ``n`` positions runs, by the rule of
+    :class:`dquartic_tpu.models.attention.LinearAttention`: an explicit
+    ``impl`` wins ("pallas" and "pallas_t" as named, any other string the
+    "xla" path, as there); ``"auto"`` takes ``DQUARTIC_LINATTN_IMPL`` when
+    it names an impl, else ``"pallas_t"`` (K1, what JAX picks on its
+    accelerator), and the "xla" path where ``n`` is below
+    ``DQUARTIC_LINATTN_MIN_SEQ`` (default :data:`LINATTN_MIN_SEQ`)."""
+    if impl != "auto":
+        return impl if impl in ("pallas", "pallas_t") else "xla"
+    env = os.environ.get("DQUARTIC_LINATTN_IMPL")
+    impl = env if env in ("pallas", "pallas_t", "xla") else "pallas_t"
+    min_seq = int(os.environ.get("DQUARTIC_LINATTN_MIN_SEQ", LINATTN_MIN_SEQ))
+    return "xla" if impl != "xla" and n < min_seq else impl
+
+
+class LinearAttention(nn.Module):
+    """Linear attention mixer; ``forward(x, g_pre)`` returns
+    ``x + RMSNorm(to_out(attn(RMSNorm_{g_pre}(x))))`` on (B, C, N), by
+    ``impl`` (see :func:`resolve_linear_attn_impl`):
+
+      * ``"pallas_t"`` — the K1 op: pre-norm, attention and residual in one;
+      * ``"pallas"``   — the pre-norm in plain torch, the K8 op on the
+        transposed activations (a view, no copy), the residual add in the
+        compute dtype; the weights reach K8 as stored, as the JAX module
+        hands its float32 parameters to the kernel;
+      * ``"xla"``      — the JAX XLA path with its roundings: pre-norm in
+        float32 cast to the compute dtype, projections in the compute
+        dtype, q and k softmaxed in float32 and cast, both contractions
+        summed in float32 and cast, RMSNorm in float32, residual add.
+
+    With ``kernels`` off (a model's ``use_kernels(False)``) the two kernel
+    impls run their ops' plain versions."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, impl: str = "auto"):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.impl = heads, dim_head, impl
         self.kernels = True
         hidden = heads * dim_head
         self.to_qkv = Conv1d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(Conv1d(hidden, dim, 1), RMSNorm(dim))
 
     def forward(self, x: torch.Tensor, g_pre: torch.Tensor) -> torch.Tensor:
-        op = linear_attention if self.kernels else linear_attention_nr_reference
+        impl = resolve_linear_attn_impl(self.impl, x.shape[2])
         cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
-        return op(
-            x,
-            self.to_qkv.weight[:, :, 0].t().to(cd),  # flax layout (C, 3H)
-            self.to_out[0].weight[:, :, 0].t().to(cd),  # (H, C)
-            self.to_out[0].bias.to(cd),
-            self.to_out[1].g.reshape(-1),
-            g_pre.reshape(-1),
-            self.heads,
-            self.dim_head,
-        )
+        g_pre, g = g_pre.reshape(-1), self.to_out[1].g.reshape(-1)
+        w_qkv, w_out = self.to_qkv.weight[:, :, 0], self.to_out[0].weight[:, :, 0]
+        b_out = self.to_out[0].bias
+        if impl == "pallas_t":
+            op = linear_attention if self.kernels else linear_attention_nr_reference
+            return op(x, w_qkv.t().to(cd), w_out.t().to(cd), b_out.to(cd), g, g_pre,
+                      self.heads, self.dim_head)
+        xin = rmsnorm_reference(x, g_pre).to(cd)
+        if impl == "pallas":
+            op = fused_linear_attention if self.kernels else linear_attention_rows_reference
+            out = op(xin.transpose(1, 2), w_qkv.t(), w_out.t(), b_out, g, self.heads,
+                     self.dim_head).transpose(1, 2)
+            return (x + out).to(cd)
+        B, _, N = x.shape
+        heads, dh = self.heads, self.dim_head
+        qkv = torch.matmul(w_qkv.to(cd), xin)  # (B, 3H, N)
+        q, k, v = (t.reshape(B, heads, dh, N) for t in qkv.chunk(3, dim=1))
+        q = (torch.softmax(q.float(), dim=2) * dh**-0.5).to(cd)  # over each head's features
+        k = torch.softmax(k.float(), dim=3).to(cd)  # over the sequence
+        ctx = torch.einsum("bhdn,bhen->bhde", k.float(), v.float()).to(cd)
+        out = torch.einsum("bhde,bhdn->bhen", ctx.float(), q.float()).to(cd)
+        out = torch.matmul(w_out.to(cd), out.reshape(B, heads * dh, N)) + b_out.to(cd)[:, None]
+        return (x + rmsnorm_reference(out, g).to(cd)).to(cd)
 
 
 class PreNorm(nn.Module):
@@ -89,12 +147,13 @@ class Residual(nn.Module):
 
 class LinearAttentionBlock(nn.Module):
     """The reference's ``Residual(PreNorm(dim, LinearAttention(dim)))``
-    parameter tree (``fn.norm.g``, ``fn.fn.*``), run as one fused op: the
-    pre-norm and the residual add happen inside K1."""
+    parameter tree (``fn.norm.g``, ``fn.fn.*``), run as one mixer call:
+    the norm's gain is the mixer's ``g_pre`` (inside K1 under
+    ``"pallas_t"``)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, impl: str = "auto"):
         super().__init__()
-        self.fn = PreNorm(dim, LinearAttention(dim))
+        self.fn = PreNorm(dim, LinearAttention(dim, impl=impl))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fn.fn(x, self.fn.norm.g)

@@ -1,17 +1,22 @@
 """Conditional 1-D U-Net denoiser, ``simple=True`` or ``simple=False``.
 
-Port of :class:`dquartic_tpu.models.unet1d.UNet1d` in its transposed-
-resident form (``fused_resnet=True``): per-RT-row activations stay
-channel-first ``(b·rt, C, mz')`` from the init conv to the head, every
-down/up ResnetBlock is the K2 op and every mixer the K1 op, and the
-bottleneck pivot and the final head are pure reshapes. The bottleneck
-runs channel-first over the RT axis, ``(b, C·mz', rt)``, where the mid
-convs are either torch convs or int8 convs on the K3 op.
+Port of :class:`dquartic_tpu.models.unet1d.UNet1d`. Per-RT-row activations
+stay channel-first ``(b·rt, C, mz')`` from the init conv to the head (the
+JAX package's transposed-resident layout; torch convs are channel-first
+either way), and the bottleneck pivot and the final head are pure
+reshapes. ``fused_resnet`` chooses the down/up and final ResnetBlocks: the
+K2 op (``True``) or the plain torch ResnetBlock (``False``, the default,
+as in JAX, where these are XLA blocks). ``linear_attn_impl`` chooses every
+linear-attention mixer's implementation (the K1 op, the K8 op or the plain
+"xla" path; see
+:func:`~dquartic_tpu_torch.models.attention.resolve_linear_attn_impl`).
+The bottleneck runs channel-first over the RT axis, ``(b, C·mz', rt)``,
+where the mid convs are either torch convs or int8 convs on the K3 op.
 
 ``simple=True`` conditions on the MS1 trace through two convs over RT and
 mixes the bottleneck with one cross attention. ``simple=False`` runs an
 MS1 tower over the trace's m/z axis (conv7, two ResnetBlocks without time
-embedding, a linear-attention mixer on the K1 op), pivots it channel-major
+embedding, a linear-attention mixer), pivots it channel-major
 to ``(b, acid·mz_c, rt)`` and runs a self-attention ``Transformer1d`` of
 depth ``tfer_depth // 2`` over RT; the bottleneck mixer is a
 ``Transformer1d`` of depth ``tfer_depth`` whose second half attends to that
@@ -50,9 +55,17 @@ class UNet1d(nn.Module):
     a forward at another m/z raises. ``dtype`` is the compute dtype (flax's
     ``dtype``): inputs are cast to it and every conv, linear and kernel
     call casts its parameters to it at use, whatever dtype they are stored
-    in. ``remat_blocks`` recomputes the two mid ResnetBlocks in the
-    backward (``torch.utils.checkpoint``) instead of keeping their
-    activations; the numbers are the same."""
+    in. ``remat_blocks`` recomputes ResnetBlocks in the backward
+    (``torch.utils.checkpoint``) instead of keeping their activations: the
+    two mid blocks, and with ``fused_resnet=False`` every down/up and the
+    final block too, as JAX's ``nn.remat(ResnetBlock)`` does;
+    ``remat_linear_attn`` recomputes the mixers. The numbers are the same.
+
+    ``dropout`` is accepted with ``fused_resnet=False`` and computes the
+    deterministic model, as the JAX model does under its ``Trainer`` and
+    ``DDIMSampler``, which never pass ``deterministic=False``; with
+    ``fused_resnet=True`` or ``remat_blocks`` a nonzero dropout raises, as
+    in JAX."""
 
     def __init__(
         self,
@@ -76,14 +89,20 @@ class UNet1d(nn.Module):
         simple: bool = True,
         pos_output_only: bool = False,
         attn_impl: str = "auto",
+        linear_attn_impl: str = "auto",
+        fused_resnet: bool = False,
         remat_blocks: bool = False,
+        remat_linear_attn: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if not conditional:
             raise NotImplementedError("the port implements the conditional UNet1d only")
-        if dropout != 0.0:
-            raise NotImplementedError("the port has no dropout path (dropout must be 0)")
+        if fused_resnet and dropout > 0:
+            raise ValueError(
+                "fused_resnet requires dropout == 0 (the fused kernel has no dropout path)")
+        if remat_blocks and dropout > 0:
+            raise ValueError("remat_blocks requires dropout == 0")
         del tfer_dim_mult  # ignored, as in the JAX package
         self.dim_mults = tuple(dim_mults)
         stride = 2 ** (len(self.dim_mults) - 1)
@@ -95,6 +114,8 @@ class UNet1d(nn.Module):
         self.pos_output_only = pos_output_only
         self.simple = simple
         self.remat_blocks = remat_blocks
+        self.remat_linear_attn = remat_linear_attn
+        self.fused_resnet = fused_resnet
         self.compute_dtype = dtype
         time_dim = dim * 4
         dims = [init_dim] + [dim * m for m in self.dim_mults]
@@ -112,6 +133,7 @@ class UNet1d(nn.Module):
         self.init_conv = Conv1d(channels + ic, init_dim, 7, padding=3)
         attn = dict(heads=attn_heads, dim_head=attn_dim_head, attn_impl=attn_impl)
         mz_c = attn_cond_channels or 1
+        RowBlock = ResnetBlockT if fused_resnet else ResnetBlock
         if simple:
             self.attn_cond_proj = nn.Sequential(
                 nn.Identity(),  # mz_net of the simple model
@@ -129,7 +151,7 @@ class UNet1d(nn.Module):
                     Conv1d(1, acid, 7, padding=3),
                     ResnetBlock(acid, acid),
                     ResnetBlock(acid, acid),
-                    LinearAttentionBlock(acid),
+                    LinearAttentionBlock(acid, linear_attn_impl),
                 ),
                 Transformer1d(cond_dim, depth=tfer_depth // 2, **attn),
             )
@@ -138,9 +160,9 @@ class UNet1d(nn.Module):
         for i, (d_in, d_out) in enumerate(in_out):
             last = i == len(in_out) - 1
             self.downs.append(nn.ModuleList([
-                ResnetBlockT(d_in, d_in, time_dim),
-                ResnetBlockT(d_in, d_in, time_dim),
-                LinearAttentionBlock(d_in),
+                RowBlock(d_in, d_in, time_dim),
+                RowBlock(d_in, d_in, time_dim),
+                LinearAttentionBlock(d_in, linear_attn_impl),
                 Conv1d(d_in, d_out, 3, padding=1) if last else Downsample(d_in, d_out),
             ]))
 
@@ -159,17 +181,17 @@ class UNet1d(nn.Module):
         for i, (d_in, d_out) in enumerate(reversed(in_out)):
             last = i == len(in_out) - 1
             self.ups.append(nn.ModuleList([
-                ResnetBlockT(d_out + d_in, d_out, time_dim),
-                ResnetBlockT(d_out + d_in, d_out, time_dim),
-                LinearAttentionBlock(d_out),
+                RowBlock(d_out + d_in, d_out, time_dim),
+                RowBlock(d_out + d_in, d_out, time_dim),
+                LinearAttentionBlock(d_out, linear_attn_impl),
                 Conv1d(d_out, d_in, 3, padding=1) if last else Upsample(d_out, d_in),
             ]))
 
-        self.final_res_block = ResnetBlockT(init_dim * 2, init_dim, time_dim)
+        self.final_res_block = RowBlock(init_dim * 2, init_dim, time_dim)
         self.final_conv = Conv1d(init_dim, self.out_dim, 1)
 
     def use_kernels(self, enabled: bool = True) -> "UNet1d":
-        """Route the K1/K2/K3/K7 modules through their kernels (default) or
+        """Route the K1/K2/K3/K7/K8 modules through their kernels (default) or
         through their plain PyTorch versions, e.g. to compare the two on a
         card. On CPU tensors the kernel wrappers run the plain versions
         either way."""
@@ -178,10 +200,18 @@ class UNet1d(nn.Module):
                 m.kernels = enabled
         return self
 
-    def _mid_block(self, block: nn.Module, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        if self.remat_blocks and torch.is_grad_enabled():
+    def _block(self, block: nn.Module, x: torch.Tensor, t: torch.Tensor,
+               remat: bool = True) -> torch.Tensor:
+        """A ResnetBlock, recomputed in the backward under ``remat_blocks``
+        (``remat`` False: a fused row block, which JAX does not remat)."""
+        if remat and self.remat_blocks and torch.is_grad_enabled():
             return checkpoint(block, x, t, use_reentrant=False)
         return block(x, t)
+
+    def _mixer(self, attn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat_linear_attn and torch.is_grad_enabled():
+            return checkpoint(attn, x, use_reentrant=False)
+        return attn(x)
 
     def forward(
         self,
@@ -227,14 +257,17 @@ class UNet1d(nn.Module):
             cond = self.attn_cond_proj(cond)  # (b, acid, rt)
         else:
             mz_net, tfer = self.attn_cond_proj
-            ac = mz_net(attn_cond.reshape(b * rt, 1, -1).to(dtype))  # (b*rt, acid, mz_c)
+            conv, res1, res2, mixer = mz_net
+            ac = res2(res1(conv(attn_cond.reshape(b * rt, 1, -1).to(dtype))))
+            ac = self._mixer(mixer, ac)  # (b*rt, acid, mz_c)
             cond = tfer(ac.reshape(b, rt, -1).transpose(1, 2))
 
+        rows = not self.fused_resnet  # row blocks that remat_blocks recomputes
         skips = []
         for block1, block2, attn, down in self.downs:
-            x = block1(x, t_rows)
+            x = self._block(block1, x, t_rows, rows)
             skips.append(x)
-            x = attn(block2(x, t_rows))
+            x = self._mixer(attn, self._block(block2, x, t_rows, rows))
             skips.append(x)
             x = down(x)
 
@@ -247,17 +280,17 @@ class UNet1d(nn.Module):
                 f"{self.mid_ch} channels this model was built for"
             )
         x = x.reshape(b, rt, self.mid_ch).transpose(1, 2)
-        x = self._mid_block(self.mid_block1, x, t)
+        x = self._block(self.mid_block1, x, t)
         x = self.mid_attn(x, cond)
-        x = self._mid_block(self.mid_block2, x, t)
+        x = self._block(self.mid_block2, x, t)
         x = x.transpose(1, 2).reshape(b * rt, mid_dim, mzp)
 
         for block1, block2, attn, up in self.ups:
-            x = block1(torch.cat([x, skips.pop()], dim=1), t_rows)
-            x = block2(torch.cat([x, skips.pop()], dim=1), t_rows)
-            x = up(attn(x))
+            x = self._block(block1, torch.cat([x, skips.pop()], dim=1), t_rows, rows)
+            x = self._block(block2, torch.cat([x, skips.pop()], dim=1), t_rows, rows)
+            x = up(self._mixer(attn, x))
 
-        x = self.final_res_block(torch.cat([x, r], dim=1), t_rows)
+        x = self._block(self.final_res_block, torch.cat([x, r], dim=1), t_rows, rows)
         x = self.final_conv(x).reshape(b, rt * self.out_dim, mz)
         if self.pos_output_only:
             x = F.softplus(x)

@@ -1,6 +1,6 @@
-"""Ops of the serving and training paths; K1-K5 and K7 launch hand-written CUDA
-kernels on CUDA tensors and run their plain PyTorch versions on CPU
-tensors."""
+"""Ops of the serving and training paths; K1-K5, K7, K8 and K9 launch
+hand-written CUDA kernels on CUDA tensors and run their plain PyTorch
+versions on CPU tensors."""
 
 from . import flash_attention as _flash_attention
 from . import fused_resnet as _fused_resnet
@@ -16,6 +16,8 @@ KERNELS = {
     "fused_resnet_backward": _fused_resnet.fused_resnet_backward,
     "flash_attention": _flash_attention.flash_attention,
     "flash_attention_backward": _flash_attention.flash_attention_backward,
+    "fused_linear_attention": _linear_attention.fused_linear_attention,
+    "fused_linear_attention_two_call": _linear_attention.fused_linear_attention_two_call,
 }
 
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/ (argtypes, restype int).
 _SIGNATURES = {
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     # q, k, v, o (float32), lse, dO, D, dq, dk, dv, BH, n, m, scale, bf16, device, stream
     "dq_flash_attention_bwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # x, y, stride_b, stride_n, stride_c, wq, wk, wv, wout, b_out, g, m,
+    # B, C, N, heads, two_call, bf16, device, stream
+    "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,15 @@ and saves only ``(x, weights)``, as the JAX ``custom_vjp`` does. The op
 takes channel-first (B, C, N) activations — the layout the TPU kernel
 itself runs on — and the flax weight layouts: ``w_qkv`` (C, 3H) with
 q|k|v blocks and channel-major heads, ``w_out`` (H, C).
+
+The row-blocked ops of ``impl="pallas"`` (port of
+:func:`dquartic_tpu.ops.linear_attention.fused_linear_attention`) compute
+``RMSNorm_g(W_out · attn(x) + b_out)`` on (B, N, C), without pre-norm or
+residual and with a running max for the k-softmax:
+:func:`fused_linear_attention` (K8, one launch) and
+:func:`fused_linear_attention_two_call` (K9, two launches), both in
+``csrc/linear_attention_rows.cu``, with :func:`linear_attention_rows_reference`
+as their plain version.
 """
 
 from __future__ import annotations
@@ -252,3 +261,119 @@ def linear_attention(
 
 linear_attention.launches = 0  # kernel launches; reset by the caller
 linear_attention_backward.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# row-blocked ops (impl="pallas"): K8 single call, K9 two calls          #
+# --------------------------------------------------------------------- #
+
+
+def linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD):
+    """Plain version of K8/K9: ``linear_attention_reference`` of the JAX
+    package on (B, N, C), float32 inside, the result in x's dtype."""
+    return linear_attention_reference(
+        x.transpose(1, 2), w_qkv, w_out, b_out, g, heads, dim_head).transpose(1, 2)
+
+
+def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
+    """Check the arguments of K8 (``two_call=False``) or K9 on a (B, N, C)
+    CUDA tensor, prepare the kernel's weights and output, and return
+    ``(launch, y)``: ``launch()`` runs the kernel into ``y`` and nothing
+    else (no allocation, no count), so it can be timed alone. x's memory is
+    either layout's: row-major, or the model's channel-first (B, C, N) seen
+    through ``transpose(1, 2)``; y gets x's strides."""
+    B, N, C = x.shape
+    H = heads * dim_head
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{op}: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{op}: x must be float32 or bfloat16")
+    if not 1 <= C <= MAX_C or dim_head != DIM_HEAD or H > 256 or 256 % H or N < 1:
+        raise ValueError(
+            f"{op}: kernel takes 1 <= C <= {MAX_C}, N >= 1, dim_head {DIM_HEAD} and "
+            f"heads*dim_head dividing 256 (got C={C}, N={N}, heads={heads}, dim_head={dim_head})"
+        )
+    if w_qkv.shape != (C, 3 * H) or w_out.shape != (H, C):
+        raise ValueError(f"w_qkv must be ({C}, {3 * H}) and w_out ({H}, {C})")
+    if not (x.is_contiguous() or x.transpose(1, 2).is_contiguous()):
+        x = x.contiguous()
+    dev = x.device
+    y = torch.empty_like(x)  # dense input: the same strides
+    wt = w_qkv.to(device=dev, dtype=torch.float32).t()
+    wq, wk = ((wt[i * H : (i + 1) * H] * _LOG2E).contiguous() for i in range(2))
+    wv = wt[2 * H :].contiguous()
+    m = torch.empty((B, C, H) if two_call else (1,), dtype=torch.float32, device=dev)
+    args = (wq, wk, wv, _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C), m)
+    ptrs = [a.data_ptr() for a in args]
+    lib, stream = _build.library(), _build.stream_of(x)
+
+    def launch():
+        code = lib.dq_linear_attention_rows(
+            x.data_ptr(), y.data_ptr(), *x.stride(), *ptrs, B, C, N, heads, int(two_call),
+            int(x.dtype == torch.bfloat16), dev.index or 0, stream,
+        )
+        _build.check(code, "dq_linear_attention_rows")
+
+    launch.args = args  # keeps the prepared weights alive with the closure
+    return launch, y
+
+
+class _RowsFn(torch.autograd.Function):
+    """K8 forward; the gradient is the vjp of the recomputed reference, as
+    the JAX ``_fused`` custom_vjp's backward is. Saves only ``(x, weights)``."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out, b_out, g, heads, dim_head):
+        launch, y = rows_launcher("fused_linear_attention", x, w_qkv, w_out, b_out, g, heads,
+                                  dim_head, two_call=False)
+        launch()
+        fused_linear_attention.launches += 1
+        ctx.save_for_backward(x, w_qkv, w_out, b_out, g)
+        ctx.heads, ctx.dim_head = heads, dim_head
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        args = [t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = linear_attention_rows_reference(*args, ctx.heads, ctx.dim_head)
+        wanted = [t for t in args if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+        return (*(next(grads) if t.requires_grad else None for t in args), None, None)
+
+
+def fused_linear_attention(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD):
+    """``RMSNorm_g(W_out · attn(x) + b_out)`` on (B, N, C), in x's dtype
+    (K8; :func:`dquartic_tpu.ops.linear_attention.fused_linear_attention`).
+
+    CPU tensors run :func:`linear_attention_rows_reference`, which autograd
+    differentiates. CUDA tensors launch K8, one launch per call (C <= 16,
+    dim_head 32, heads·32 dividing 256), with or without autograd. There
+    is no K8 backward kernel, in JAX or here: the gradient recomputes the
+    reference from the saved ``(x, weights)`` and takes its vjp, as the
+    backward of JAX's ``_fused`` custom_vjp does. (JAX's ``_fused_fwd``
+    also runs the reference as the primal under differentiation, a choice
+    timed on a TPU; the port keeps the kernel, see PERF.md.)"""
+    if x.device.type == "cpu":
+        return linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads, dim_head)
+    return _RowsFn.apply(x, w_qkv, w_out, b_out, g, heads, dim_head)
+
+
+def fused_linear_attention_two_call(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD):
+    """The function of :func:`fused_linear_attention` in two launches (K9;
+    ``_fused_forward`` of the JAX package): the context of each row to
+    device memory, then the output pass. Forward only, as in JAX, where no
+    model path reaches it. CPU tensors run the plain version."""
+    if x.device.type == "cpu":
+        return linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads, dim_head)
+    _build.require_no_grad("fused_linear_attention_two_call", x, w_qkv, w_out, b_out, g)
+    launch, y = rows_launcher("fused_linear_attention_two_call", x, w_qkv, w_out, b_out, g,
+                              heads, dim_head, two_call=True)
+    launch()
+    fused_linear_attention_two_call.launches += 1
+    return y
+
+
+fused_linear_attention.launches = 0
+fused_linear_attention_two_call.launches = 0

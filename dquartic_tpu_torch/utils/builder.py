@@ -14,14 +14,13 @@ from ..core import DDIMProcess, make_schedule
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
 from ..train import Trainer, make_optimizer
+from .device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-# UNet1d keys of the JAX package that choose among its implementations
-# (TPU kernels, remat, sharding); the port has one implementation of each.
-_JAX_IMPL_KEYS = {
-    "linear_attn_impl", "fused_resnet", "quantize_mid", "remat_linear_attn",
-    "kernel_dp_axis", "activation_sharding",
-}
+# UNet1d keys of the JAX package that name mesh axes (the row-sharded
+# kernel wrappers, sequence-parallel activation sharding). The port runs
+# on one device with no mesh, so it accepts them and drops them.
+_JAX_MESH_KEYS = {"kernel_dp_axis", "activation_sharding"}
 # Parameters kept float32 in every dtype, as JAX keeps them: the gains of
 # RMSNorm and LayerNorm1d and LayerNorm1d's bias.
 _NORM_PARAMS = (".g", ".b")
@@ -43,13 +42,22 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(
-    config: Dict[str, Any], device="cpu", seed: int = 0, trainable: bool = False
+    config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False
 ) -> UNet1d:
     """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights
-    on ``device``, computing in ``tpu.compute_dtype``, its softmax
-    attention by ``tpu.attn_impl``; with ``tpu.quantize_mid`` the mid convs
-    are int8. ``tpu.fused_resnet`` is accepted: the port's kernels are the
-    fused path.
+    on ``device`` (None: the card; raises without one), computing in
+    ``tpu.compute_dtype``, its softmax attention by ``tpu.attn_impl``; with
+    ``tpu.quantize_mid`` (or the ``UNet1d`` key) the mid convs are int8.
+
+    The implementation keys resolve as the JAX package resolves them:
+    ``linear_attn_impl`` from ``tpu``, overridden by a key of the same name
+    in the ``UNet1d`` block (the JAX ``build_model``'s ``setdefault``);
+    ``fused_resnet`` true when either the ``UNet1d`` key or
+    ``tpu.fused_resnet`` is (the JAX ``build_trainer`` and ``predict``), so
+    ``fused_resnet: false`` in both builds the unfused model with plain
+    ResnetBlocks; ``remat_linear_attn`` and ``remat_blocks`` reach the
+    model. ``kernel_dp_axis`` and ``activation_sharding`` are dropped (see
+    ``_JAX_MESH_KEYS``).
 
     ``trainable=False`` (serving) stores the parameters in the compute
     dtype, norm gains and biases in float32, and no parameter needs grad.
@@ -70,16 +78,19 @@ def build_model(
             "(the JAX build_model passes tpu.attn_impl, so a second one is a duplicate "
             "keyword there)"
         )
-    quantize = bool(config["tpu"].get("quantize_mid") or u.get("quantize_mid"))
-    unknown = set(u) - _UNET_KEYS - _JAX_IMPL_KEYS
+    tpu = config["tpu"]
+    quantize = bool(tpu.get("quantize_mid") or u.pop("quantize_mid", False))
+    unknown = set(u) - _UNET_KEYS - _JAX_MESH_KEYS
     if unknown:
         raise ValueError(f"Unknown UNet1d config keys: {sorted(unknown)}")
     u = {k: v for k, v in u.items() if k in _UNET_KEYS}
-    dtype = _DTYPES[config["tpu"]["compute_dtype"]]
+    u.setdefault("linear_attn_impl", tpu.get("linear_attn_impl", "auto"))
+    u["fused_resnet"] = bool(u.get("fused_resnet") or tpu.get("fused_resnet"))
+    dtype = _DTYPES[tpu["compute_dtype"]]
 
-    device = torch.device(device)
+    device = resolve_device(device, "build_model")
     with torch.device("meta"):
-        model = UNet1d(**u, dtype=dtype, attn_impl=config["tpu"]["attn_impl"])
+        model = UNet1d(**u, dtype=dtype, attn_impl=tpu["attn_impl"])
     model.to_empty(device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if trainable:
@@ -111,16 +122,18 @@ def build_process(config: Dict[str, Any]) -> DDIMProcess:
     )
 
 
-def build_trainer(config: Dict[str, Any], device="cpu", seed: int = 0, logger=None) -> Trainer:
+def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None) -> Trainer:
     """Trainer over a trainable UNet1d (float32 master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
-    of the config, as the JAX ``build_trainer`` wires them."""
+    of the config, as the JAX ``build_trainer`` wires them, on ``device``
+    (None: the card; raises without one)."""
     if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
         raise ValueError(
             "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
             "in a training config: int8 weights are frozen post-training artifacts with "
             "no gradient. Train with float32 master weights, then quantize for predict."
         )
+    device = resolve_device(device, "build_trainer")
     model = build_model(config, device=device, seed=seed, trainable=True)
     return Trainer(
         model,

@@ -201,7 +201,7 @@ def test_config_attn_impl_reaches_the_attention(monkeypatch, simple, attn_impl, 
     calls = []
     real = tfa.flash_attention
     monkeypatch.setattr(tfa, "flash_attention", lambda *a: calls.append(1) or real(*a))
-    model = build_model(_small_config(simple, attn_impl), seed=0)
+    model = build_model(_small_config(simple, attn_impl), device="cpu", seed=0)
     rng = np.random.default_rng(0)
     x = _t(rng.normal(size=(1, 4, 64)).astype(np.float32))
     with torch.no_grad():
@@ -216,7 +216,7 @@ def test_attn_impl_in_model_section_is_an_error():
     cfg = _small_config(True, "auto")
     cfg["model"]["UNet1d"]["attn_impl"] = "pallas"
     with pytest.raises(ValueError, match="tpu section"):
-        build_model(cfg)
+        build_model(cfg, device="cpu")
 
 
 # --------------------------------------------------------------------- #

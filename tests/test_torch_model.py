@@ -78,7 +78,7 @@ def jax_model():
 
 
 def _port(params, quantized=False):
-    model = UNet1d(**SMALL)
+    model = UNet1d(**SMALL, fused_resnet=True)
     if quantized:
         quantize_mid_block_params(model)
     sd = {k: _t(v) for k, v in jax_params_to_torch(params, SMALL["dim_mults"]).items()}

@@ -107,7 +107,7 @@ def test_five_step_sample_matches_jax():
     jproc = JaxDDIMProcess(schedule=jax_make_schedule(1000, "cosine", "eps"))
     jx0, jnoise = JaxDDIMSampler(jmodel, jproc).sample(params, x_t, ms2, ms1, num_steps=5)
 
-    model = UNet1d(**SMALL)
+    model = UNet1d(**SMALL, fused_resnet=True)
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v)) for k, v in jax_params_to_torch(params, SMALL["dim_mults"]).items()}
     )
@@ -125,14 +125,16 @@ def test_predict_through_config_entry_points():
     cfg = load_train_config("dquartic_train_config.json")
     cfg["model"]["UNet1d"].update(dim_mults=[1, 2, 2], downsample_dim=128)
     cfg["tpu"].update(quantize_mid=True, fused_resnet=True)
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, device="cpu", seed=0)
     assert model.mid_block1.block1.proj.weight_q.dtype == torch.int8
     rng = np.random.default_rng(1)
     batch = {k: rng.uniform(0, 1, size=s).astype(np.float32)
              for k, s in (("ms2_1", (1, 4, 128)), ("ms1_1", (1, 4)), ("ms2_2", (1, 4, 128)))}
-    recs = DDIMSampler(model, build_process(cfg)).predict([batch], num_steps=3, seed=0)
+    recs = DDIMSampler(model, build_process(cfg)).predict([batch], num_steps=3, seed=0,
+                                                          device="cpu")
     assert recs[0]["pred"].shape == (1, 4, 128)
     assert np.isfinite(recs[0]["pred"]).all()
     np.testing.assert_allclose(recs[0]["mixture"], 0.5 * batch["ms2_1"] + 0.5 * batch["ms2_2"])
-    again = DDIMSampler(model, build_process(cfg)).predict([batch], num_steps=3, seed=0)
+    again = DDIMSampler(model, build_process(cfg)).predict([batch], num_steps=3, seed=0,
+                                                           device="cpu")
     np.testing.assert_array_equal(again[0]["pred"], recs[0]["pred"])

@@ -50,7 +50,7 @@ def _scaled_err(a, b):
 
 
 def _port_model(params, **kw):
-    cfg = {**SMALL, **kw}
+    cfg = {**SMALL, "fused_resnet": True, **kw}
     model = UNet1d(**cfg)
     sd = jax_params_to_torch(params, cfg["dim_mults"])
     model.load_state_dict({k: _t(v) for k, v in sd.items()})
@@ -285,7 +285,7 @@ class _Epochs(CallbackHandler):
 
 def _small_trainer(callbacks=None):
     torch.manual_seed(0)
-    model = UNet1d(**{**SMALL, "downsample_dim": 64})
+    model = UNet1d(**{**SMALL, "downsample_dim": 64}, fused_resnet=True)
     return Trainer(model, DDIMProcess(schedule=make_schedule(1000, "cosine", "eps")),
                    callback_handler=callbacks, seed=3)
 
@@ -312,9 +312,9 @@ def test_checkpoints_resume_after_stored_epoch(tmp_path):
     assert load_checkpoint(latest)["epoch"] == 3
 
     # the EMA weights load into a model that DDIMSampler runs
-    model = UNet1d(**{**SMALL, "downsample_dim": 64})
+    model = UNet1d(**{**SMALL, "downsample_dim": 64}, fused_resnet=True)
     model.load_state_dict(tr2.ema_state_dict())
-    recs = DDIMSampler(model.eval(), tr2.process).predict([data[0]], num_steps=3)
+    recs = DDIMSampler(model.eval(), tr2.process).predict([data[0]], num_steps=3, device="cpu")
     assert np.isfinite(recs[0]["pred"]).all() and recs[0]["pred"].shape == (1, RT, 64)
 
 
@@ -345,8 +345,8 @@ def test_trainable_model_serves_the_same_numbers():
     """float32 master weights cast to bf16 at use compute what the serving
     model with bf16-stored weights computes, bit for bit."""
     cfg = _cut_config(compute_dtype="bfloat16")
-    serve = build_model(cfg, seed=3)
-    train = build_model(cfg, seed=3, trainable=True)
+    serve = build_model(cfg, device="cpu", seed=3)
+    train = build_model(cfg, device="cpu", seed=3, trainable=True)
     assert serve.init_conv.weight.dtype == torch.bfloat16 and not serve.init_conv.weight.requires_grad
     assert all(p.dtype == torch.float32 and p.requires_grad for p in train.parameters())
     rng = np.random.default_rng(4)
@@ -359,7 +359,8 @@ def test_trainable_model_serves_the_same_numbers():
 
 
 def test_build_trainer_step_and_rejections():
-    tr = build_trainer(_cut_config(compute_dtype="bfloat16", ema_decay=0.99), seed=1)
+    tr = build_trainer(_cut_config(compute_dtype="bfloat16", ema_decay=0.99), device="cpu",
+                       seed=1)
     assert tr.ema_decay == 0.99 and tr.model.compute_dtype == torch.bfloat16
     batch = {k: v[..., :128] if v.ndim == 3 else v for k, v in _batch(30).items()}
     before = [p.detach().clone() for p in tr.optimizer.params]
@@ -368,6 +369,6 @@ def test_build_trainer_step_and_rejections():
     assert all(p.grad.dtype == torch.float32 for p in tr.optimizer.params)
     assert any(not torch.equal(a, p) for a, p in zip(before, tr.optimizer.params))
     with pytest.raises(ValueError, match="inference-only"):
-        build_trainer(_cut_config(quantize_mid=True))
+        build_trainer(_cut_config(quantize_mid=True), device="cpu")
     with pytest.raises(NotImplementedError, match="factored"):
-        build_trainer(_cut_config(optimizer="factored"))
+        build_trainer(_cut_config(optimizer="factored"), device="cpu")

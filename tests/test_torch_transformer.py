@@ -138,7 +138,7 @@ def test_transformer1d_matches_jax(attn_impl, depth, use_xattn):
 
 def test_torch_to_jax_params_equals_converter_for_simple_model():
     torch.manual_seed(0)
-    sd = {k: v.numpy() for k, v in UNet1d(**SMALL).state_dict().items()}
+    sd = {k: v.numpy() for k, v in UNet1d(**SMALL, fused_resnet=True).state_dict().items()}
     got = _flat(torch_to_jax_params(sd, SMALL["dim_mults"]))
     ref = _flat(convert_unet1d_state_dict(sd, SMALL["dim_mults"]))
     assert got.keys() == ref.keys()
@@ -153,7 +153,7 @@ def test_build_model_simple_false_norm_params(trainable):
     cfg = load_train_config("dquartic_train_config.json")
     cfg["model"]["UNet1d"].update(dim_mults=[1, 2], downsample_dim=64, simple=False)
     cfg["tpu"].update(compute_dtype="bfloat16", attn_impl="pallas")
-    model = build_model(json.loads(json.dumps(cfg)), seed=1, trainable=trainable)
+    model = build_model(json.loads(json.dumps(cfg)), device="cpu", seed=1, trainable=trainable)
     params = dict(model.named_parameters())
     biases = [n for n in params if n.endswith(".b")]
     assert len(biases) == 6  # the FeedForward1d norms: 2 tower layers + 4 mid layers

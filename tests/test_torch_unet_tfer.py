@@ -57,7 +57,7 @@ def _jax_params(mz_c, seed):
 
 
 def _port(params, mz_c, attn_impl):
-    model = UNet1d(**_cfg(mz_c), attn_impl=attn_impl)
+    model = UNet1d(**_cfg(mz_c), attn_impl=attn_impl, fused_resnet=True)
     sd = jax_params_to_torch(params, FULL["dim_mults"])
     model.load_state_dict({k: _t(v) for k, v in sd.items()}, strict=True)
     return model.eval()
@@ -123,7 +123,7 @@ def test_simple_false_params_round_trip():
     port's state_dict holds every parameter of the module."""
     params = _jax_params(8, seed=40)
     sd = jax_params_to_torch(params, FULL["dim_mults"])
-    assert sd.keys() == UNet1d(**_cfg(8)).state_dict().keys()
+    assert sd.keys() == UNet1d(**_cfg(8), fused_resnet=True).state_dict().keys()
     back = _flat(torch_to_jax_params(sd, FULL["dim_mults"]))
     ref = _flat(params)
     assert back.keys() == ref.keys()
