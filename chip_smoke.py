@@ -58,7 +58,21 @@ CUDA card with sm_90a). Phases, each of which must pass:
      path also against the float32 gradient, then ``train_step`` 1 + 5
      times on each path with K8 14 launches per step (its gradient is the
      vjp of the recomputed reference, as in JAX's ``_fused`` custom_vjp),
-     ms/step and peak memory.
+     ms/step and peak memory;
+ 10. sequence parallelism over an sp = 2 group: K6a, K6b and K6c against
+     their plain versions at the sharded widths of the mixers and a ragged
+     N, float32 and bf16, timed at (34, 4, 20000); N cut by hand into 2
+     and 4 slices (one thread each, partials summed in rank order) against
+     K1 and K4 on the whole N; then two ranks spawned in one gloo group,
+     both on this card, each running the unfused canonical model
+     (``linear_attn_impl = "auto"``, m/z split in two): the full-width
+     forward (f32, bf16), a 50-step ``predict`` (bf16 with K6a 600 and K6b
+     600 launches per rank, then f32) and ``Trainer.train_step`` (f32,
+     bf16; K6a 24, K6b 12, K6c 12 per rank), each held on rank 0 against
+     the same call in one process (whose two mixers at N = 625 take the
+     "xla" path, as at sp = 2); ms/window, ms/step and peak memory per
+     rank, which say nothing of the speed of sequence parallelism (two
+     ranks share one card).
 
 Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
@@ -78,6 +92,7 @@ any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -160,6 +175,30 @@ ROWS_STEP = {"fused_linear_attention": 14}  # per train step: no backward kernel
 SWEEP_C = (4, 16)
 SWEEP_N = (1, 625, 1250, 2500, 5000, 10000, 20000, 40000)
 SWEEP_REPS = 5  # the mixer is host-bound at small N: medians of 5, impls in turn
+# phase 10: sp ranks (processes of one gloo group) sharing the one card;
+# (C, N / sp) of the 12 mixers that run K6 (N = 625 is odd: its two mixers
+# take the "xla" path on every rank), then a ragged width
+SP = 2
+SP_SHAPES = tuple((C, N // SP) for C, N in ROWS_SHAPES if N % SP == 0) + ((8, 351),)
+# K6 launches per rank: per forward K6a 12, K6b 12; per train step the
+# forward's and, in the backward, K6a 12 more (the stats are recomputed)
+# and K6c 12. With remat_linear_attn (not set here) the backward also
+# recomputes the forward: K6a 12 x (2 + 1), K6b 12 x (1 + 1).
+SP_FORWARD = {"linear_attention_sp_stats": 12, "linear_attention_sp_apply": 12}
+SP_STEP = {"linear_attention_sp_stats": 24, "linear_attention_sp_apply": 12,
+           "linear_attention_sp_backward": 12}
+# K6a's partials are sums over up to 20000 columns: an absolute tolerance
+# of 1e-4 of the largest sum (float32, another summation order)
+SP_STATS_TOL = (1e-4, 1e-4)
+# 50-step float32 predict at sp = 2 against one process, same seed:
+# relative L2 of the prediction; summation order only (halo convs on other
+# shapes, K6 for K1, the "xla" path at N = 625), through 50 steps
+SP_PREDICT_TOL = 1e-3
+# The one-process reference of phase 10 takes the sp path's dispatch: the
+# two mixers at N = 625 (40000 / 2**6), which sp = 2 cannot split, on the
+# "xla" path there too, and K1 (the arithmetic of K6) at every other one,
+# so that the comparison sees the split alone.
+SP_REF_MIN_SEQ = MZ // 2**6 + 1
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device memory
 # bytes/s, and FLOP/s by the type of the operations.
 HBM_BYTES_PER_S = 3.35e12
@@ -1139,6 +1178,401 @@ def phase_rows(config, seed, gen, results):
     phase_rows_train(config, seed, gen, results)
 
 
+# --------------------------------------------------------------------- #
+# phase 10: sequence parallel (K6a-c) over an sp = 2 group on one card  #
+# --------------------------------------------------------------------- #
+
+
+class _ThreadSum:
+    """The ``reduce`` of a hand split: S threads on one card each hold a
+    slice of N and sum their partials in rank order (no collective)."""
+
+    def __init__(self, size):
+        import threading
+
+        self.barrier, self.slots = threading.Barrier(size, timeout=120), [None] * size
+
+    def reduce_of(self, rank):
+        def reduce(t):
+            self.slots[rank] = t
+            self.barrier.wait()
+            total = self.slots[0].clone()
+            for other in self.slots[1:]:
+                total += other
+            self.barrier.wait()
+            t.copy_(total)
+        return reduce
+
+
+def _hand_split(x, dy, w, size):
+    """K6 on ``size`` slices of N: K6a on each slice, the partials summed in
+    rank order, K6b on each; then the backward's K6a (float32 operands),
+    summed, and K6c on each slice in its own thread, the threads summing Z
+    and T between the launches. No autograd: the engine runs the backward
+    of all CUDA graphs on one device thread, which one waiting slice would
+    block. Returns (y, [dx, summed weight gradients])."""
+    import threading
+
+    import torch
+
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    n = x.shape[2] // size
+    xs = [x[:, :, r * n:(r + 1) * n].contiguous() for r in range(size)]
+    dys = [dy[:, :, r * n:(r + 1) * n].contiguous() for r in range(size)]
+    w_qkv, w_out, b_out, g, g_pre = w
+
+    def summed(parts):
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return total
+
+    with torch.no_grad():
+        st = summed([la.linear_attention_sp_stats(xr, w_qkv, g_pre) for xr in xs])
+        _, _, m = la.sp_context(st, w_qkv, w_out, round_m=x.dtype == torch.bfloat16)
+        y = torch.cat([la.linear_attention_sp_apply(xr, m, w_qkv, b_out, g, g_pre)
+                       for xr in xs], 2)
+        st32 = summed([la.linear_attention_sp_stats(xr, w_qkv, g_pre, round_operands=False)
+                       for xr in xs])
+        sums, grads, errors = _ThreadSum(size), [None] * size, []
+
+        def run(r):
+            try:
+                grads[r] = la.linear_attention_sp_backward(dys[r], xs[r], *w, st32,
+                                                           sums.reduce_of(r))
+            except Exception as e:  # raised in the calling thread below
+                errors.append(e)
+                sums.barrier.abort()
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors:
+            raise errors[0]
+        torch.cuda.synchronize()
+    return y, [torch.cat([gr[0] for gr in grads], 2)] + [summed([gr[i] for gr in grads])
+                                                         for i in range(1, 6)]
+
+
+def phase_sp_kernels(gen, results):
+    """K6a, K6b, K6c against their plain versions at the sharded widths of
+    the 12 K6 mixers and a ragged N, float32 (TF32 off) and bf16; their
+    times at (34, 4, 20000) bf16; then the hand split of N into 2 and 4
+    slices against K1 and K4 on the whole N."""
+    import torch
+
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+
+    def weights(C):
+        return [randn(C, 384, s=0.3), randn(128, C, s=0.1), randn(C, s=0.1), randn(C),
+                1.0 + randn(C, s=0.2)]
+
+    names = ("linear_attention_sp_stats", "linear_attention_sp_apply",
+             "linear_attention_sp_backward")
+    errs = dict.fromkeys(names, 0.0)
+    timing = {}
+    no_sum = lambda t: None  # noqa: E731  (one slice: its partials are the sums)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for C, n in SP_SHAPES:
+            w = weights(C)
+            x, dy = randn(34, C, n).to(dt), randn(34, C, n).to(dt)
+            with torch.no_grad():
+                st = la.linear_attention_sp_stats(x, w[0], w[4])
+                ref = la.sp_stats_reference(x, w[0], w[4])
+                scale = float(ref.abs().max())
+                errs[names[0]] = max(errs[names[0]], _compare(
+                    f"K6a sp_stats {tag} (34, {C}, {n})", st, ref, SP_STATS_TOL, scale))
+                _, _, m = la.sp_context(ref, w[0], w[1], round_m=dt == torch.bfloat16)
+                y = la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4])
+                ref_y = la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4])
+                errs[names[1]] = max(errs[names[1]], _compare(
+                    f"K6b sp_apply {tag} (34, {C}, {n})", y, ref_y, tol))
+                st32 = la.sp_stats_reference(x, w[0], w[4], round_operands=False)
+                got = la.linear_attention_sp_backward(dy, x, *w, st32, no_sum)
+                ref_g = la.sp_backward_reference(dy, x, *w, st32, no_sum)
+            errs[names[2]] = max(errs[names[2]], _compare_grads(
+                f"K6c sp_backward {tag} (34, {C}, {n})", got, ref_g, GRAD_TOL[tag]))
+            if dt == torch.bfloat16 and (C, n) == SP_SHAPES[0]:
+                timing[names[0]] = (
+                    cuda_time(lambda: la.linear_attention_sp_stats(x, w[0], w[4]), 20),
+                    cuda_time(lambda: la.sp_stats_reference(x, w[0], w[4]), 5),
+                    linattn_bound(34, C, n, 2, tensors=1, passes=2))
+                timing[names[1]] = (
+                    cuda_time(lambda: la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4]),
+                              20),
+                    cuda_time(lambda: la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4]), 5),
+                    linattn_bound(34, C, n, 2, tensors=2, passes=2))
+                timing[names[2]] = (
+                    cuda_time(lambda: la.linear_attention_sp_backward(dy, x, *w, st32, no_sum), 10),
+                    cuda_time(lambda: la.sp_backward_reference(dy, x, *w, st32, no_sum), 3),
+                    linattn_bound(34, C, n, 2, tensors=3, passes=10))
+            del w, x, dy, got, ref_g
+        torch.cuda.empty_cache()
+    for name, (ms, plain_ms, bnd) in timing.items():
+        log(f"  time {name} bf16 (34, 4, {SP_SHAPES[0][1]}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **bnd)
+
+    # the hand split: K1 / K4 on the whole N against K6 over 2 and 4 slices
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).replace("torch.", "")
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        w = weights(4)
+        x, dy = randn(34, 4, MZ).to(dt), randn(34, 4, MZ).to(dt)
+        with torch.no_grad():
+            ref_y = la.linear_attention(x, *w)
+        ref_g = la.linear_attention_backward(dy, x, *w)
+        for size in (2, 4):
+            y, got = _hand_split(x, dy, w, size)
+            _compare(f"hand split {size} x K6a/K6b vs K1 {tag} (34, 4, {MZ})", y, ref_y, tol)
+            _compare_grads(f"hand split {size} x K6c vs K4 {tag} (34, 4, {MZ})", got, ref_g,
+                           GRAD_TOL[tag])
+        del w, x, dy, ref_g
+    torch.cuda.empty_cache()
+
+
+def _sp_config(config, dtype, sp):
+    """The path of phase 10: the unfused canonical model, "auto" mixers, no
+    int8, on a (1, sp, 1) mesh."""
+    cfg = json.loads(json.dumps(config))
+    cfg["tpu"].update(compute_dtype=dtype, quantize_mid=False, fused_resnet=False,
+                      linear_attn_impl="auto", mesh={"dp": 1, "sp": sp, "tp": 1})
+    return cfg
+
+
+@contextlib.contextmanager
+def _sp_dispatch():
+    """The one-process reference with the sp path's mixer dispatch."""
+    old = os.environ.get("DQUARTIC_LINATTN_MIN_SEQ")
+    os.environ["DQUARTIC_LINATTN_MIN_SEQ"] = str(SP_REF_MIN_SEQ)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DQUARTIC_LINATTN_MIN_SEQ"]
+        else:
+            os.environ["DQUARTIC_LINATTN_MIN_SEQ"] = old
+
+
+def _rank_log(rank, msg):
+    log(f"  [rank {rank}] {msg}")
+
+
+def _sp_rank(rank, init_method, config, seed, out_dir):
+    """One of the SP ranks on cuda:0: the forward, a 50-step predict and a
+    train step at sp = SP, each then held on rank 0 against the same call
+    in one process (sp = 1) while the other ranks wait."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.parallel import initialize_runtime, make_mesh
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_runtime("gloo", rank, SP, init_method, timeout_s=900)
+    mesh = make_mesh(sp=SP)
+    dev = torch.device("cuda")
+    out = {"rank": rank}
+    lead = rank == 0
+
+    def inputs():
+        g = torch.Generator(device=dev).manual_seed(seed + 10)
+        return (torch.randn((1, RT, MZ), generator=g, device=dev),
+                torch.full((1,), 500, dtype=torch.long, device=dev),
+                torch.rand((1, RT, MZ), generator=g, device=dev) * 2 - 1,
+                torch.rand((1, RT), generator=g, device=dev) * 2 - 1)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # (a) the full-width forward, sp = SP against one process
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(_sp_config(config, dtype, SP), device=dev, seed=seed, mesh=mesh)
+        with torch.inference_mode():
+            reset_launch_counts()
+            y = model(*inputs())
+            counts = launch_counts()
+        check(counts == _expect(SP_FORWARD), f"sp forward launches {counts}")
+        y = y.float().cpu()
+        del model
+        free()
+        if lead:
+            ref_model = build_model(_sp_config(config, dtype, 1), device=dev, seed=seed)
+            with torch.inference_mode(), _sp_dispatch():
+                ref = ref_model(*inputs()).float().cpu()
+            rel = float((y - ref).norm() / ref.norm())
+            _rank_log(rank, f"forward {dtype} at sp={SP} vs one process: rel L2 {rel:.3e} (tol "
+                      f"{MODEL_REL_TOL[dtype]:g}), K6 launches {counts['linear_attention_sp_stats']}"
+                      f" / {counts['linear_attention_sp_apply']}")
+            check(rel <= MODEL_REL_TOL[dtype] and bool(torch.isfinite(y).all()),
+                  f"sp forward {dtype} disagrees with one process")
+            out[f"forward_rel_l2_{dtype}"] = rel
+            del ref_model
+        free()
+
+    # (b) 50-step predict: bf16 (the main path: counts and ms/window), then
+    # float32 against one process with the same seed
+    batch = _pair_batch(seed + 5)
+    for dtype in ("bfloat16", "float32"):
+        cfg = _sp_config(config, dtype, SP)
+        model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
+        sampler = DDIMSampler(model, build_process(cfg), mesh=mesh)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = sampler.predict([batch], num_steps=STEPS, seed=seed, device=dev)[0]["pred"]
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(bool(np.isfinite(pred).all()) and pred.shape == (1, RT, MZ), "bad sp prediction")
+        check(counts == _expect(SP_FORWARD, STEPS), f"sp predict launches {counts}")
+        if dtype == "bfloat16":
+            x_t, t, ms2, ms1 = inputs()
+            ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
+            out.update(predict_launches=counts, ms_per_window=ms)
+            _rank_log(rank, f"predict {STEPS} steps bf16 at sp={SP}: first call {wall:.2f} s "
+                      f"wall, launches K6a {counts['linear_attention_sp_stats']} K6b "
+                      f"{counts['linear_attention_sp_apply']} (expected {SP_FORWARD} x "
+                      f"{STEPS}); ms/window {ms:.2f} (2 ranks sharing one card)")
+        del model, sampler
+        free()
+        if lead and dtype == "float32":
+            ref_model = build_model(_sp_config(config, dtype, 1), device=dev, seed=seed)
+            with _sp_dispatch():
+                ref = DDIMSampler(ref_model, build_process(cfg)).predict(
+                    [batch], num_steps=STEPS, seed=seed, device=dev)[0]["pred"]
+            rel = float(np.linalg.norm(pred - ref) / np.linalg.norm(ref))
+            _rank_log(rank, f"predict {STEPS} steps float32 at sp={SP} vs one process, same "
+                      f"seed: rel L2 {rel:.3e} (tol {SP_PREDICT_TOL:g})")
+            check(rel <= SP_PREDICT_TOL, "sp predict disagrees with one process")
+            out["predict_rel_l2_float32"] = rel
+            del ref_model
+        free()
+
+    # (c) one Trainer.train_step at sp = SP against one process, then one
+    # timed step; float32 and bf16 (the path's dtype)
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 6).items()}
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    t = torch.randint(0, 1000, (1,), generator=g, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=g, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        cfg = _sp_config(config, dtype, SP)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
+        reset_launch_counts()
+        m = trainer.train_step(tbatch, 1e-4, t=t, eps=eps)
+        counts = launch_counts()
+        check(counts == _expect(SP_STEP), f"sp train launches {counts}")
+        loss = float(m["loss"])
+        names = [n for n, _ in trainer.model.named_parameters()]
+        grads = [p.grad.float().cpu() for p in trainer.optimizer.params] if lead else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(tbatch, 1e-4, t=t, eps=eps)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[f"train_{dtype}"] = dict(ms_per_step=start.elapsed_time(end), peak_gib=peak,
+                                     launches=counts, loss=loss)
+        _rank_log(rank, f"train_step {dtype} at sp={SP}: loss {loss:.6f}, launches K6a "
+                  f"{counts['linear_attention_sp_stats']} K6b {counts['linear_attention_sp_apply']}"
+                  f" K6c {counts['linear_attention_sp_backward']} (expected {SP_STEP}), ms/step "
+                  f"{start.elapsed_time(end):.2f} (2 ranks sharing one card), peak device memory "
+                  f"{peak:.2f} GiB")
+        del trainer
+        free()
+        if lead:
+            ref_tr = build_trainer(_sp_config(config, dtype, 1), device=dev, seed=seed)
+            with _sp_dispatch():
+                ref_loss = float(ref_tr.train_step(tbatch, 1e-4, t=t, eps=eps)["loss"])
+            ref_g = [p.grad.float().cpu() for p in ref_tr.optimizer.params]
+            del ref_tr
+            rel = _rel_l2(grads, ref_g)
+            worst = min((_cos(a, b), n) for a, b, n in zip(grads, ref_g, names))
+            rel_tol, cos_tol = STEP_GRAD_TOL[dtype]
+            _rank_log(rank, f"train_step {dtype} at sp={SP} vs one process: loss {loss:.6f} vs "
+                      f"{ref_loss:.6f}; gradient rel L2 {rel:.3e} (tol {rel_tol:g}), worst "
+                      f"per-tensor cosine {worst[0]:.6f} ({worst[1]})")
+            check(abs(loss - ref_loss) <= MODEL_REL_TOL[dtype] * abs(ref_loss),
+                  f"sp train loss {dtype} disagrees with one process")
+            check(rel <= rel_tol, f"sp train gradients {dtype} disagree with one process")
+            out[f"train_{dtype}"].update(grad_rel_l2=rel, worst_cos=worst[0])
+            if dtype == "float32":
+                check(worst[0] >= cos_tol, "sp train gradients float32: a tensor's cosine is "
+                      f"below {cos_tol}")
+                g32 = ref_g
+            else:
+                # bf16: the two paths round at other places (K6 for K1, the
+                # "xla" mixers at N = 625, halo convs on other shapes), so
+                # as in phases 8 and 9 each is held against the float32
+                # gradient: the sp path may be at most BF16_REL_RATIO
+                # times further from it than one process
+                rel_sp, rel_one = _rel_l2(grads, g32), _rel_l2(ref_g, g32)
+                _rank_log(rank, f"train_step bf16 against the float32 gradient: rel L2 sp={SP} "
+                          f"{rel_sp:.3e}, one process {rel_one:.3e} (ratio {rel_sp / rel_one:.3f}, "
+                          f"tol {BF16_REL_RATIO:g})")
+                check(rel_sp <= BF16_REL_RATIO * rel_one,
+                      "sp train gradients bf16 are further from float32 than one process's")
+                out["train_bfloat16"].update(rel_vs_f32=rel_sp, one_process_rel_vs_f32=rel_one)
+                del g32
+            del ref_g, grads
+        free()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_sp(config, seed, gen, results):
+    """Phase 10: K6 against its plain versions and the hand split in this
+    process, then SP ranks spawned on the one card in a gloo group."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    phase_sp_kernels(gen, results)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        # a failed rank fails the phase with its traceback; the others are stopped
+        tmp.spawn(_sp_rank, args=(f"tcp://127.0.0.1:{port}", config, seed, out_dir), nprocs=SP,
+                  join=True)
+        ranks = []
+        for r in range(SP):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    log(f"  {SP} ranks done in {time.perf_counter() - t0:.1f} s")
+    lead = ranks[0]
+    for name in ("linear_attention_sp_stats", "linear_attention_sp_apply"):
+        results[name]["launches"] = lead["predict_launches"][name]
+        results[name]["train_launches"] = lead["train_bfloat16"]["launches"][name]
+    results["linear_attention_sp_backward"]["launches"] = (
+        lead["train_bfloat16"]["launches"]["linear_attention_sp_backward"])
+    results["sp"] = dict(
+        note=f"{SP} ranks (processes in one gloo group) sharing one card: says nothing of the "
+             "speed of sequence parallelism",
+        forward_rel_l2={d: lead[f"forward_rel_l2_{d}"] for d in ("float32", "bfloat16")},
+        predict_rel_l2_float32=lead["predict_rel_l2_float32"],
+        ms_per_window=[r["ms_per_window"] for r in ranks],
+        train={d: [r[f"train_{d}"] for r in ranks] for d in ("float32", "bfloat16")})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -1188,6 +1622,18 @@ def main(argv=None) -> int:
             replaces="dquartic_tpu/ops/linear_attention.py:1139",
             note="no model path reaches it, in JAX either; held against its plain version "
                  "in phase 9"),
+        "linear_attention_sp_stats": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:1555",
+            note="K6a; launches per rank of the sp=2 predict (phase 10)"),
+        "linear_attention_sp_apply": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:1589",
+            note="K6b; launches per rank of the sp=2 predict (phase 10)"),
+        "linear_attention_sp_backward": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:1797",
+            note="K6c (three launches a call); calls per rank of the sp=2 train step"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     try:
@@ -1211,6 +1657,8 @@ def main(argv=None) -> int:
         phase_tfer(config, args.seed, gen, results)
         log("== phase 9: row-blocked linear attention (K8, K9) and the unfused UNet1d")
         phase_rows(config, args.seed, gen, results)
+        log(f"== phase 10: sequence parallel (K6a-c) over an sp = {SP} group on one card")
+        phase_sp(config, args.seed, gen, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -1222,6 +1670,7 @@ def main(argv=None) -> int:
     log(f"train step: {json.dumps(train)}")
     log(f"simple=False: {json.dumps(results.pop('tfer'))}")
     log(f"unfused pallas: {json.dumps(results.pop('rows'))}")
+    log(f"sequence parallel: {json.dumps(results.pop('sp'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

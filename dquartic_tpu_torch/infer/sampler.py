@@ -4,6 +4,13 @@ Port of :class:`dquartic_tpu.infer.sampler.DDIMSampler` (``sample``,
 ``predict_batch``, ``predict``). The model holds its own weights, so no
 parameter tree is passed; noise comes from an explicit
 :class:`torch.Generator`. Everything runs under ``torch.inference_mode``.
+
+With a ``mesh`` whose ``sp > 1`` every rank of the group calls the same
+methods on the same data with the same seed: each draws the whole
+window's noise alike, the model computes the rank's slice of m/z and
+returns the whole prediction (``activation_sharding``), and the DDIM steps,
+which are per element, run alike on every rank, so every rank gets the
+unsharded result for that seed.
 """
 
 from __future__ import annotations
@@ -18,9 +25,15 @@ from ..utils.device import resolve_device
 
 
 class DDIMSampler:
-    def __init__(self, model: torch.nn.Module, process: DDIMProcess):
+    def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None):
         self.model = model
         self.process = process
+        if mesh is not None and mesh.sp > 1:
+            if getattr(model, "activation_sharding", None) is None:
+                raise ValueError(
+                    f"a mesh with sp={mesh.sp} needs a model whose activation_sharding splits "
+                    "m/z over it (build_model sets it from the mesh)")
+            model.mesh = mesh
 
     @torch.inference_mode()
     def sample(

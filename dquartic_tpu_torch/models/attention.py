@@ -1,5 +1,5 @@
 """Attention modules of the UNet1d: RoPE, the linear-attention mixer (K1,
-K8 or plain torch, by ``impl``), softmax attention over the RT axis (self
+K6 under sequence parallelism, K8 or plain torch, by ``impl``), softmax attention over the RT axis (self
 and cross), the hybrid self-then-cross attention and the 1-D transformer
 stack.
 
@@ -20,13 +20,15 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.attention_dispatch import dot_product_attention
 from ..ops.linear_attention import (
     fused_linear_attention, linear_attention, linear_attention_nr_reference,
-    linear_attention_rows_reference, rmsnorm_reference,
+    linear_attention_rows_reference, linear_attention_sp, rmsnorm_reference,
 )
+from ..parallel.sequence import sp_gather, sp_slice
 from .layers import Conv1d, Conv1x1, FeedForward1d, RMSNorm
 
 
@@ -56,20 +58,34 @@ def rope_rotate(x: torch.Tensor, rot_dim: int, theta: float = 10000.0) -> torch.
 LINATTN_MIN_SEQ = 1
 
 
-def resolve_linear_attn_impl(impl: str, n: int) -> str:
+def _min_seq() -> int:
+    return int(os.environ.get("DQUARTIC_LINATTN_MIN_SEQ", LINATTN_MIN_SEQ))
+
+
+def resolve_linear_attn_impl(impl: str, n: int, sp: int = 1) -> str:
     """The implementation a mixer over ``n`` positions runs, by the rule of
     :class:`dquartic_tpu.models.attention.LinearAttention`: an explicit
     ``impl`` wins ("pallas" and "pallas_t" as named, any other string the
     "xla" path, as there); ``"auto"`` takes ``DQUARTIC_LINATTN_IMPL`` when
     it names an impl, else ``"pallas_t"`` (K1, what JAX picks on its
     accelerator), and the "xla" path where ``n`` is below
-    ``DQUARTIC_LINATTN_MIN_SEQ`` (default :data:`LINATTN_MIN_SEQ`)."""
-    if impl != "auto":
-        return impl if impl in ("pallas", "pallas_t") else "xla"
-    env = os.environ.get("DQUARTIC_LINATTN_IMPL")
-    impl = env if env in ("pallas", "pallas_t", "xla") else "pallas_t"
-    min_seq = int(os.environ.get("DQUARTIC_LINATTN_MIN_SEQ", LINATTN_MIN_SEQ))
-    return "xla" if impl != "xla" and n < min_seq else impl
+    ``DQUARTIC_LINATTN_MIN_SEQ`` (default :data:`LINATTN_MIN_SEQ`).
+
+    With the sequence split over ``sp > 1`` ranks, ``"pallas_t"`` means the
+    sequence-parallel kernels (K6) and holds only where ``sp`` divides
+    ``n`` and, under ``"auto"``, each rank's ``n // sp`` clears the same
+    floor; otherwise the mixer takes the "xla" path, as in JAX."""
+    auto = impl == "auto"
+    if not auto:
+        impl = impl if impl in ("pallas", "pallas_t") else "xla"
+    else:
+        env = os.environ.get("DQUARTIC_LINATTN_IMPL")
+        impl = env if env in ("pallas", "pallas_t", "xla") else "pallas_t"
+        if impl != "xla" and n < _min_seq():
+            impl = "xla"
+    if impl == "pallas_t" and sp > 1 and (n % sp or (auto and n // sp < _min_seq())):
+        impl = "xla"
+    return impl
 
 
 class LinearAttention(nn.Module):
@@ -88,7 +104,14 @@ class LinearAttention(nn.Module):
         summed in float32 and cast, RMSNorm in float32, residual add.
 
     With ``kernels`` off (a model's ``use_kernels(False)``) the two kernel
-    impls run their ops' plain versions."""
+    impls run their ops' plain versions.
+
+    Under sequence parallelism ``group`` is the ``sp`` process group and
+    ``sharded`` says whether x is this rank's slice of N (else every rank
+    holds the whole x): ``"pallas_t"`` then runs the K6 op on the slice
+    (slicing a whole x first and gathering the result), and the other
+    impls run on the sequence gathered over the group and keep their
+    slice, as XLA's partitioner does around them in JAX."""
 
     def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, impl: str = "auto"):
         super().__init__()
@@ -98,8 +121,27 @@ class LinearAttention(nn.Module):
         self.to_qkv = Conv1d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(Conv1d(hidden, dim, 1), RMSNorm(dim))
 
-    def forward(self, x: torch.Tensor, g_pre: torch.Tensor) -> torch.Tensor:
-        impl = resolve_linear_attn_impl(self.impl, x.shape[2])
+    def forward(self, x: torch.Tensor, g_pre: torch.Tensor, group=None,
+                sharded: bool = False) -> torch.Tensor:
+        size = dist.get_world_size(group) if group is not None else 1
+        n = x.shape[2] * (size if sharded else 1)
+        impl = resolve_linear_attn_impl(self.impl, n, sp=size)
+        if size == 1:
+            return self._mix(x, g_pre, impl)
+        if impl == "pallas_t" and self.kernels:
+            xs = x if sharded else sp_slice(x, group)
+            cd = x.dtype
+            w_qkv, w_out = self.to_qkv.weight[:, :, 0], self.to_out[0].weight[:, :, 0]
+            y = linear_attention_sp(xs, w_qkv.t().to(cd), w_out.t().to(cd),
+                                    self.to_out[0].bias.to(cd), self.to_out[1].g.reshape(-1),
+                                    g_pre.reshape(-1), self.heads, self.dim_head, group)
+            return y if sharded else sp_gather(y, group)
+        if sharded:
+            return sp_slice(self._mix(sp_gather(x, group), g_pre, impl), group)
+        return self._mix(x, g_pre, impl)
+
+    def _mix(self, x: torch.Tensor, g_pre: torch.Tensor, impl: str) -> torch.Tensor:
+        """The mixer over the whole sequence by ``impl``."""
         cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
         g_pre, g = g_pre.reshape(-1), self.to_out[1].g.reshape(-1)
         w_qkv, w_out = self.to_qkv.weight[:, :, 0], self.to_out[0].weight[:, :, 0]
@@ -155,8 +197,8 @@ class LinearAttentionBlock(nn.Module):
         super().__init__()
         self.fn = PreNorm(dim, LinearAttention(dim, impl=impl))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn.fn(x, self.fn.norm.g)
+    def forward(self, x: torch.Tensor, group=None, sharded: bool = False) -> torch.Tensor:
+        return self.fn.fn(x, self.fn.norm.g, group, sharded)
 
 
 class _SoftmaxAttention(nn.Module):

@@ -23,14 +23,26 @@ from torch import nn
 
 from ..ops.int8_matmul import int8_conv1d, int8_matmul, int8_matmul_reference, quantize_conv_kernel
 from ..ops.linear_attention import rmsnorm_reference
+from ..parallel.sequence import halo_exchange
 
 
 class Conv1d(nn.Conv1d):
-    """``nn.Conv1d`` with its parameters cast to the input's dtype at use."""
+    """``nn.Conv1d`` with its parameters cast to the input's dtype at use.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    With ``group`` (the ``sp`` process group of a sequence-parallel model)
+    x is this rank's slice of the length axis: the conv takes its padding's
+    width of columns from each neighbour (zeros at the global ends) and
+    returns its own slice of the output (a stride-2 conv on an even slice
+    too)."""
+
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if group is None:
+            return self._conv_forward(x, weight, bias)
+        pad = self.padding[0]
+        return F.conv1d(halo_exchange(x, pad, pad, group), weight, bias, self.stride, 0,
+                        self.dilation, self.groups)
 
 
 class Conv1x1(Conv1d):
@@ -157,9 +169,10 @@ class Block(nn.Module):
         self.norm = RMSNorm(dim_out)
 
     def forward(
-        self, x: torch.Tensor, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self, x: torch.Tensor, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        group=None,
     ) -> torch.Tensor:
-        x = self.norm(self.proj(x))
+        x = self.norm(self.proj(x) if group is None else self.proj(x, group))
         if scale_shift is not None:
             scale, shift = scale_shift
             x = x * (scale + 1.0) + shift
@@ -168,7 +181,9 @@ class Block(nn.Module):
 
 class ResnetBlock(nn.Module):
     """Two conv Blocks + residual, FiLM on block1 from ``time_emb``
-    (one row of ``time_emb`` per batch row of x)."""
+    (one row of ``time_emb`` per batch row of x). With ``group`` x is a
+    rank's slice of the length axis and both convs take halos (see
+    :class:`Conv1d`); the norms, FiLM and the 1x1 residual are per column."""
 
     def __init__(self, dim_in: int, dim_out: int, time_emb_dim: Optional[int] = None):
         super().__init__()
@@ -187,11 +202,12 @@ class ResnetBlock(nn.Module):
             return None
         return tuple(self.mlp(time_emb).chunk(2, dim=-1))
 
-    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         ss = self.film(time_emb)
         if ss is not None:
             ss = (ss[0][:, :, None], ss[1][:, :, None])
-        h = self.block2(self.block1(x, ss))
+        h = self.block2(self.block1(x, ss, group), group=group)
         return h + (self.res_conv(x) if self.res_conv is not None else x)
 
 

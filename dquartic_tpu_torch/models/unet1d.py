@@ -13,6 +13,17 @@ linear-attention mixer's implementation (the K1 op, the K8 op or the plain
 The bottleneck runs channel-first over the RT axis, ``(b, C·mz', rt)``,
 where the mid convs are either torch convs or int8 convs on the K3 op.
 
+``activation_sharding=("dp", "sp")`` splits the m/z axis over the ``sp``
+process group of the model's ``mesh`` (JAX's sharding constraint on
+``(b·rt, mz', C)`` per level, with XLA's partitioning written out; see
+:mod:`dquartic_tpu_torch.parallel.sequence`). Every rank calls ``forward``
+with the same global inputs and gets the same global output; it computes
+its slice of m/z at the levels of :func:`sharded_levels` (convs with
+halos, the mixers on the K6 op), and the deeper levels and the bottleneck
+in full. After the backward of a loss every rank computes alike, each
+parameter's ``.grad`` is the rank's partial, and their sum over the group
+is the gradient.
+
 ``simple=True`` conditions on the MS1 trace through two convs over RT and
 mixes the bottleneck with one cross attention. ``simple=False`` runs an
 MS1 tower over the trace's m/z axis (conv7, two ResnetBlocks without time
@@ -44,6 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, LinearAttentionBlock, PreNorm, Residual, Transformer1d
 from .fused_blocks import ResnetBlockT
+from ..parallel.sequence import sharded_levels, sp_gather, sp_slice
+from ..parallel.sharding import shard_batch
 from .layers import (
     ConditionalScaleShift, Conv1d, Downsample, Linear, ResnetBlock, SinusoidalPosEmb, Upsample,
 )
@@ -65,7 +78,14 @@ class UNet1d(nn.Module):
     deterministic model, as the JAX model does under its ``Trainer`` and
     ``DDIMSampler``, which never pass ``deterministic=False``; with
     ``fused_resnet=True`` or ``remat_blocks`` a nonzero dropout raises, as
-    in JAX."""
+    in JAX.
+
+    ``activation_sharding`` (the JAX mesh axis names ``("dp", "sp")``)
+    shards m/z over ``self.mesh``'s ``sp`` group, which the builder, the
+    sampler or the trainer sets (``mesh=``); a forward without a mesh
+    raises. It excludes ``fused_resnet``, as in JAX. ``kernel_dp_axis``
+    (the row-sharded kernels of data parallelism) is not ported yet and
+    raises."""
 
     def __init__(
         self,
@@ -93,9 +113,27 @@ class UNet1d(nn.Module):
         fused_resnet: bool = False,
         remat_blocks: bool = False,
         remat_linear_attn: bool = False,
+        activation_sharding: Optional[Sequence[str]] = None,
+        kernel_dp_axis: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if activation_sharding is not None:
+            if fused_resnet:
+                raise ValueError("fused_resnet is incompatible with activation_sharding")
+            if kernel_dp_axis is not None:
+                raise ValueError(
+                    "kernel_dp_axis is incompatible with activation_sharding (sp partitions "
+                    "the m/z axis the kernels own)")
+            activation_sharding = tuple(activation_sharding)
+            if len(activation_sharding) != 2:
+                raise ValueError(f"activation_sharding names (dp, sp) axes, got {activation_sharding}")
+        if kernel_dp_axis is not None:
+            raise ValueError(
+                f"kernel_dp_axis={kernel_dp_axis!r}: the row-sharded (dp) kernel path is not "
+                "ported yet; data parallelism is to come as DDP")
+        self.activation_sharding = activation_sharding
+        self.mesh = None  # set by build_model, DDIMSampler or Trainer (mesh=)
         if not conditional:
             raise NotImplementedError("the port implements the conditional UNet1d only")
         if fused_resnet and dropout > 0:
@@ -201,17 +239,30 @@ class UNet1d(nn.Module):
         return self
 
     def _block(self, block: nn.Module, x: torch.Tensor, t: torch.Tensor,
-               remat: bool = True) -> torch.Tensor:
+               remat: bool = True, group=None) -> torch.Tensor:
         """A ResnetBlock, recomputed in the backward under ``remat_blocks``
-        (``remat`` False: a fused row block, which JAX does not remat)."""
+        (``remat`` False: a fused row block, which JAX does not remat);
+        ``group``: x is a rank's slice of m/z."""
+        args = (x, t) if group is None else (x, t, group)
         if remat and self.remat_blocks and torch.is_grad_enabled():
-            return checkpoint(block, x, t, use_reentrant=False)
-        return block(x, t)
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
-    def _mixer(self, attn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def _mixer(self, attn: nn.Module, x: torch.Tensor, group=None,
+               sharded: bool = False) -> torch.Tensor:
         if self.remat_linear_attn and torch.is_grad_enabled():
-            return checkpoint(attn, x, use_reentrant=False)
-        return attn(x)
+            return checkpoint(attn, x, group, sharded, use_reentrant=False)
+        return attn(x, group, sharded)
+
+    def _sp_group(self):
+        """The ``sp`` group the m/z axis splits over, or None."""
+        if self.activation_sharding is None:
+            return None
+        if self.mesh is None:
+            raise ValueError(
+                "UNet1d(activation_sharding=...) runs on a mesh: pass mesh= to build_model, "
+                "DDIMSampler or Trainer (or set model.mesh)")
+        return self.mesh.sp_group if self.mesh.sp > 1 else None
 
     def forward(
         self,
@@ -237,6 +288,9 @@ class UNet1d(nn.Module):
         dtype = self.compute_dtype
         if time.dim() == 0:
             time = time[None]
+        group = self._sp_group()
+        # levels [0, k) run on this rank's slice of m/z, the rest in full
+        k = sharded_levels(mz, n_levels, self.mesh.sp) if group is not None else 0
 
         t = self.time_mlp[1:](self.time_mlp[0](time).to(dtype))
         t_rows = torch.repeat_interleave(t, rt, dim=0)  # (b*rt, time_dim): per-row FiLM
@@ -245,8 +299,9 @@ class UNet1d(nn.Module):
         if init_cond is None:
             init_cond = torch.zeros((b, rt, mz), dtype=dtype, device=x.device)
         ic = init_cond.reshape(b * rt, -1, mz).to(dtype)
+        x, ic = shard_batch((x, ic), self.mesh if group is not None else None)
         ic = self.init_cond_proj(ic, t_rows)
-        x = self.init_conv(torch.cat([ic, x], dim=1))  # (b*rt, init_dim, mz)
+        x = self.init_conv(torch.cat([ic, x], dim=1), group)  # (b*rt, init_dim, mz)
         r = x
 
         # MS1 condition tower -> (b, cond_dim, rt), channel-major over (d, mz_c)
@@ -259,17 +314,23 @@ class UNet1d(nn.Module):
             mz_net, tfer = self.attn_cond_proj
             conv, res1, res2, mixer = mz_net
             ac = res2(res1(conv(attn_cond.reshape(b * rt, 1, -1).to(dtype))))
-            ac = self._mixer(mixer, ac)  # (b*rt, acid, mz_c)
+            ac = self._mixer(mixer, ac, group)  # (b*rt, acid, mz_c), on every rank
             cond = tfer(ac.reshape(b, rt, -1).transpose(1, 2))
 
         rows = not self.fused_resnet  # row blocks that remat_blocks recomputes
         skips = []
-        for block1, block2, attn, down in self.downs:
-            x = self._block(block1, x, t_rows, rows)
+        for i, (block1, block2, attn, down) in enumerate(self.downs):
+            g = group if i < k else None  # None: every rank holds the whole level
+            x = self._block(block1, x, t_rows, rows, g)
             skips.append(x)
-            x = self._mixer(attn, self._block(block2, x, t_rows, rows))
+            x = self._mixer(attn, self._block(block2, x, t_rows, rows, g), group, g is not None)
             skips.append(x)
-            x = down(x)
+            if g is not None and i + 1 == k < n_levels:
+                x = down(sp_gather(x, group))  # into the first whole level
+            else:
+                x = down(x, g)
+        if group is not None and k == n_levels:
+            x = sp_gather(x, group)  # the bottleneck pivots the whole m/z axis
 
         # bottleneck: (b*rt, mid_dim, mz') -> (b, mid_dim*mz', rt); the
         # channel-major flattening is a reshape
@@ -284,14 +345,26 @@ class UNet1d(nn.Module):
         x = self.mid_attn(x, cond)
         x = self._block(self.mid_block2, x, t)
         x = x.transpose(1, 2).reshape(b * rt, mid_dim, mzp)
+        if group is not None and k == n_levels:
+            x = sp_slice(x, group)
 
-        for block1, block2, attn, up in self.ups:
-            x = self._block(block1, torch.cat([x, skips.pop()], dim=1), t_rows, rows)
-            x = self._block(block2, torch.cat([x, skips.pop()], dim=1), t_rows, rows)
-            x = up(self._mixer(attn, x))
+        for j, (block1, block2, attn, up) in enumerate(self.ups):
+            i = n_levels - 1 - j  # the level
+            g = group if i < k else None
+            x = self._block(block1, torch.cat([x, skips.pop()], dim=1), t_rows, rows, g)
+            x = self._block(block2, torch.cat([x, skips.pop()], dim=1), t_rows, rows, g)
+            x = self._mixer(attn, x, group, g is not None)
+            if isinstance(up, nn.Sequential):  # Upsample: nearest x2, local to a slice; conv3
+                x = up[0](x)
+                x = sp_slice(up[1](x), group) if group is not None and i == k else up[1](x, g)
+            else:
+                x = up(x, g)
 
-        x = self._block(self.final_res_block, torch.cat([x, r], dim=1), t_rows, rows)
-        x = self.final_conv(x).reshape(b, rt * self.out_dim, mz)
+        x = self._block(self.final_res_block, torch.cat([x, r], dim=1), t_rows, rows, group)
+        x = self.final_conv(x)
+        if group is not None:
+            x = sp_gather(x, group, grad="slice")  # every rank's loss sees the whole output
+        x = x.reshape(b, rt * self.out_dim, mz)
         if self.pos_output_only:
             x = F.softplus(x)
         return x

@@ -1,4 +1,4 @@
-"""Ops of the serving and training paths; K1-K5, K7, K8 and K9 launch
+"""Ops of the serving and training paths; K1-K9 launch
 hand-written CUDA kernels on CUDA tensors and run their plain PyTorch
 versions on CPU tensors."""
 
@@ -18,6 +18,9 @@ KERNELS = {
     "flash_attention_backward": _flash_attention.flash_attention_backward,
     "fused_linear_attention": _linear_attention.fused_linear_attention,
     "fused_linear_attention_two_call": _linear_attention.fused_linear_attention_two_call,
+    "linear_attention_sp_stats": _linear_attention.linear_attention_sp_stats,
+    "linear_attention_sp_apply": _linear_attention.linear_attention_sp_apply,
+    "linear_attention_sp_backward": _linear_attention.linear_attention_sp_backward,
 }
 
 

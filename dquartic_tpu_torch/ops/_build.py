@@ -59,6 +59,20 @@ _SIGNATURES = {
     # x, y, stride_b, stride_n, stride_c, wq, wk, wv, wout, b_out, g, m,
     # B, C, N, heads, two_call, bf16, device, stream
     "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_P],
+    # x, wk2, kshift2, g_pre, part, stats, B, C, N, heads, nsplit, chunk, round,
+    # bf16, device, stream
+    "dq_linear_attention_sp_stats": [_P] * 6 + [_I] * 9 + [_P],
+    # x, wq2, qshift2, g_pre, m, b_out, g, y, B, C, N, heads, bf16, device, stream
+    "dq_linear_attention_sp_apply": [_P] * 8 + [_I] * 6 + [_P],
+    # x, dy, wq, m, qshift, b_out, g, g_pre, dxq, part_q, sum_q,
+    # B, C, N, heads, nsplit, chunk, bf16, device, stream
+    "dq_linear_attention_sp_bwd_a": [_P] * 11 + [_I] * 8 + [_P],
+    # x, sum_q, ctx, wout, wv, wk, kshift, inv_s, g_pre, dctx, d2, dwo, part_k,
+    # sum_k, B, C, N, heads, nsplit, chunk, bf16, device, stream
+    "dq_linear_attention_sp_bwd_b": [_P] * 14 + [_I] * 8 + [_P],
+    # x, dy, dxq, wk, kshift, inv_s, d2, sum_k, g_pre, dx, part_x, dgpre,
+    # B, C, N, heads, nsplit, chunk, bf16, device, stream
+    "dq_linear_attention_sp_bwd_c": [_P] * 12 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -29,10 +29,12 @@ as their plain version.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from ..parallel.sequence import sp_all_reduce
 from . import _build
 
 _LOG2E = 1.4426950408889634
@@ -109,7 +111,7 @@ def _check_kernel_args(op, x, w_qkv, w_out, heads, dim_head):
             f"{op}: kernel takes C <= {MAX_C}, dim_head {DIM_HEAD}, "
             f"heads*dim_head <= 256 (got C={C}, heads={heads}, dim_head={dim_head})"
         )
-    if w_qkv.shape != (C, 3 * H) or w_out.shape != (H, C):
+    if w_qkv.shape != (C, 3 * H) or (w_out is not None and w_out.shape != (H, C)):
         raise ValueError(f"w_qkv must be ({C}, {3 * H}) and w_out ({H}, {C})")
 
 
@@ -377,3 +379,307 @@ def fused_linear_attention_two_call(x, w_qkv, w_out, b_out, g, heads=4, dim_head
 
 fused_linear_attention.launches = 0
 fused_linear_attention_two_call.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# sequence parallel (K6a-c): N split over the ranks of a process group  #
+# --------------------------------------------------------------------- #
+#
+# Each rank holds a slice of the columns of every row. The only couplings
+# across columns are the k-softmax statistics (A, s), Z and T, all plain
+# sums thanks to the static shift, so each is a per-rank partial summed by
+# ``reduce`` (an all_reduce over the group) between launches, where
+# ``_fused_forward_sp_local`` / ``_fused_backward_sp_local`` of the JAX
+# package psum. ``reduce(t)`` sums ``t`` in place over the ranks.
+
+
+def _round_cd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to the matmul operand type of ``dtype`` (bf16 or float32)."""
+    return t.to(torch.bfloat16).to(torch.float32) if dtype == torch.bfloat16 else t
+
+
+def sp_stats_reference(x, w_qkv, g_pre, heads=4, dim_head=DIM_HEAD, round_operands=True):
+    """Plain K6a: this rank's phase-0 partials ``[A | s]`` (B, H, C + 1),
+    float32, over the columns of x (B, C, N_local): A = Σ_n p x̂ᵀ, s = Σ_n p,
+    p = exp(W_k x̂ - kshift). ``round_operands`` rounds p and x̂ to x's dtype
+    before the product, as the forward kernels do (K1, JAX ``_kernel_sp0_t``);
+    the backward's recompute keeps them float32, as K4 does."""
+    _, wk, _, gp, kshift, _, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    xh = rmsnorm_reference(x, gp)
+    p = torch.exp(torch.einsum("hc,bcn->bhn", wk, xh) - kshift[:, None])
+    s = p.sum(2)
+    if round_operands:
+        p, xh = _round_cd(p, x.dtype), _round_cd(xh, x.dtype)
+    return torch.cat([torch.einsum("bhn,bcn->bhc", p, xh), s[..., None]], dim=2)
+
+
+def sp_context(stats, w_qkv, w_out, heads=4, round_m=False):
+    """From the all-reduced stats (B, H, C + 1): ``(ctx, inv_s, M)`` with
+    ctx (B, H, 32) = per head (A W_vᵀ) / s, inv_s (B, H) = 1 / s and the
+    folded context M = W_outᵀ ctxᵀ (B, C, H), float32 (torch ops on a few
+    (H, C) tensors, as the JAX package's XLA einsums; ``round_m`` rounds M
+    to bf16, as K1 does for a bf16 forward)."""
+    B, H, C = stats.shape[0], stats.shape[1], stats.shape[2] - 1
+    dev = stats.device
+    a, s = stats[..., :C], stats[..., C]
+    inv_s = 1.0 / torch.clamp(s, min=1e-30)
+    wv = w_qkv.to(device=dev, dtype=torch.float32).t()[2 * H :].reshape(heads, DIM_HEAD, C)
+    wo = w_out.to(device=dev, dtype=torch.float32).reshape(heads, DIM_HEAD, C)
+    ctx = torch.einsum("bhic,hjc->bhij", a.reshape(B, heads, DIM_HEAD, C), wv)
+    ctx = ctx * inv_s.reshape(B, heads, DIM_HEAD, 1)
+    m = torch.einsum("hjc,bhij->bchi", wo, ctx).reshape(B, C, H)
+    if round_m:
+        m = m.to(torch.bfloat16).to(torch.float32)
+    return ctx.reshape(B, H, DIM_HEAD).contiguous(), inv_s.contiguous(), m.contiguous()
+
+
+def sp_apply_reference(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD):
+    """Plain K6b: ``y = RMSNorm_g(M q̂ + b_out) + x`` per local column, q̂ the
+    per-head softmax of W_q x̂ times dh^-½ (rounded to x's dtype, as K1 and
+    JAX ``_kernel_sp1_t`` round the operand); y in x's dtype."""
+    B, C, N = x.shape
+    wq, _, _, gp, _, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    xh = rmsnorm_reference(x, gp)
+    q = torch.einsum("hc,bcn->bhn", wq, xh) - qshift[:, None]
+    qn = torch.softmax(q.reshape(B, heads, DIM_HEAD, N), dim=2).reshape(B, -1, N)
+    qn = _round_cd(qn * DIM_HEAD**-0.5, x.dtype)
+    y = torch.einsum("bch,bhn->bcn", m.float(), qn) + b_out.to(torch.float32).reshape(1, -1, 1)
+    return (rmsnorm_reference(y, g) + x.float()).to(x.dtype)
+
+
+def _finish_sp_grads(params, dwq, dwka, bmat, t, dctx, dwo, db, dg, dgpre, heads):
+    """This rank's weight gradients from its partials and the global T:
+    dW_k = Σ_b (dW_k' - bmat T), dW_v = Σ_b dctx_bᵀ bmat_b per head (the
+    finish of K4 and of JAX ``_fused_backward_sp_local``)."""
+    B, H, C = bmat.shape
+    dwk = (dwka - bmat * t[:, :, None]).sum(0)
+    dwv = torch.einsum("bhdi,bhdc->hic", dctx.reshape(B, heads, DIM_HEAD, DIM_HEAD),
+                       bmat.reshape(B, heads, DIM_HEAD, C)).reshape(H, C)
+    grads = (torch.cat([dwq, dwk, dwv], dim=0).t(), dwo, db, dg, dgpre)
+    return tuple(d.reshape(p.shape).to(p.dtype) for d, p in zip(grads, params))
+
+
+def _dwo_partial(ctx, z, heads):
+    """dW_out[e, c] = Σ_b Σ_{d in head(e)} ctx[b, d, e] Z[b, d, c] of this
+    rank's Z partial (linear in Z: the partials sum to the gradient)."""
+    B, H, C = z.shape
+    return torch.einsum("bhij,bhic->hjc", ctx.reshape(B, heads, DIM_HEAD, DIM_HEAD),
+                        z.reshape(B, heads, DIM_HEAD, C)).reshape(H, C)
+
+
+def sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce, heads=4,
+                          dim_head=DIM_HEAD):
+    """Plain K6c: the three per-shard bodies of the backward in float32 (K4's
+    arithmetic) with ``reduce`` at the two barriers (Z, then T). ``stats``
+    are the all-reduced float32 phase-0 sums. Returns dx (in x's dtype) and
+    this rank's partial weight gradients (dw_qkv, dw_out, db_out, dg,
+    dg_pre): their sum over the ranks is the gradient."""
+    B, C, N = x.shape
+    H = heads * dim_head
+    rc = C**0.5
+    wq, wk, wv, gp, kshift, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    ctx, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
+    x32, dy32 = x.float(), dy.float()
+    r0 = torch.clamp(x32.norm(dim=1, keepdim=True), min=1e-12)
+    u0 = x32 / r0
+    gpc = (gp * rc).reshape(1, C, 1)
+    xh = u0 * gpc
+    # bwd_a: everything downstream of q; partials of Z, dW_q, db, dg
+    q = torch.einsum("hc,bcn->bhn", wq, xh) - qshift[:, None]
+    qn = torch.softmax(q.reshape(B, heads, DIM_HEAD, N), dim=2).reshape(B, H, N) * DIM_HEAD**-0.5
+    u = torch.einsum("bch,bhn->bcn", m, qn) + b_out.float().reshape(1, C, 1)
+    r = torch.clamp(u.norm(dim=1, keepdim=True), min=1e-12)
+    yh = u / r
+    dyh = dy32 * (g.float().reshape(1, C, 1) * rc)
+    du = (dyh - yh * (dyh * yh).sum(1, keepdim=True)) / r
+    db, dg = du.sum((0, 2)), (dy32 * yh).sum((0, 2)) * rc
+    z_part = torch.einsum("bdn,bcn->bdc", qn, du)
+    dqn = torch.einsum("bcd,bcn->bdn", m, du)
+    tq = (qn * dqn).reshape(B, heads, DIM_HEAD, N).sum(2, keepdim=True)
+    dq = qn * (dqn - (tq / DIM_HEAD**-0.5).expand(-1, -1, DIM_HEAD, -1).reshape(B, H, N))
+    dwq = torch.einsum("bdn,bcn->dc", dq, xh)
+    dxq = torch.einsum("dc,bdn->bcn", wq, dq)
+    z = z_part.clone()
+    reduce(z)
+    # bwd_b: the dctx side; partials of T, dW_k', bmat
+    dctx = torch.einsum("bhic,hjc->bhij", z.reshape(B, heads, DIM_HEAD, C),
+                        w_out.float().reshape(heads, DIM_HEAD, C))
+    d2 = torch.einsum("bhij,hjc->bhic", dctx, wv.reshape(heads, DIM_HEAD, C)).reshape(B, H, C)
+    kn = torch.exp(torch.einsum("hc,bcn->bhn", wk, xh) - kshift[:, None]) * inv_s[:, :, None]
+    dkn = torch.einsum("bdc,bcn->bdn", d2, xh)
+    t = (kn * dkn).sum(2)
+    dwka = torch.einsum("bdn,bcn->bdc", kn * dkn, xh)
+    bmat = torch.einsum("bdn,bcn->bdc", kn, xh)
+    reduce(t)
+    # bwd_c: T correction, pre-norm backward, residual; partials of dg_pre
+    dxn = (dxq + torch.einsum("bdc,bdn->bcn", d2, kn)
+           + torch.einsum("dc,bdn->bcn", wk, kn * (dkn - t[:, :, None])))
+    dgpre = (dxn * u0).sum((0, 2)) * rc
+    dx = (dxn * gpc - u0 * (dxn * gpc * u0).sum(1, keepdim=True)) / r0 + dy32
+    grads = _finish_sp_grads((w_qkv, w_out, b_out, g, g_pre), dwq, dwka, bmat, t,
+                             dctx.reshape(B, H, DIM_HEAD), _dwo_partial(ctx, z_part, heads),
+                             db, dg, dgpre, heads)
+    return (dx.to(x.dtype), *grads)
+
+
+def linear_attention_sp_stats(x, w_qkv, g_pre, heads=4, dim_head=DIM_HEAD, round_operands=True):
+    """K6a: this rank's partials ``[A | s]`` (B, H, C + 1) over the columns of
+    x (B, C, N_local). CPU tensors run :func:`sp_stats_reference`; CUDA
+    tensors launch ``dq_linear_attention_sp_stats``
+    (``csrc/linear_attention_sp.cu``)."""
+    if x.device.type == "cpu":
+        return sp_stats_reference(x, w_qkv, g_pre, heads, dim_head, round_operands)
+    _check_kernel_args("linear_attention_sp_stats", x, w_qkv, None, heads, dim_head)
+    B, C, N = x.shape
+    H = heads * dim_head
+    dev = x.device
+    _, _, _, gp, _, _, (_, wk2, kshift2, _) = _kernel_weights(x, w_qkv, g_pre, heads)
+    nsplit, chunk = _split(N)
+    part = torch.empty((B, nsplit, H, C + 1), dtype=torch.float32, device=dev)
+    stats = torch.empty((B, H, C + 1), dtype=torch.float32, device=dev)
+    code = _build.library().dq_linear_attention_sp_stats(
+        x.data_ptr(), wk2.data_ptr(), kshift2.data_ptr(), gp.data_ptr(), part.data_ptr(),
+        stats.data_ptr(), B, C, N, heads, nsplit, chunk, int(round_operands),
+        int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
+    )
+    _build.check(code, "dq_linear_attention_sp_stats")
+    linear_attention_sp_stats.launches += 1
+    return stats
+
+
+def linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD):
+    """K6b: ``RMSNorm_g(M q̂ + b_out) + x`` per local column of x (B, C,
+    N_local), given the folded context M (B, C, H) of the all-reduced stats
+    (:func:`sp_context`). CPU tensors run :func:`sp_apply_reference`; CUDA
+    tensors launch ``dq_linear_attention_sp_apply``."""
+    if x.device.type == "cpu":
+        return sp_apply_reference(x, m, w_qkv, b_out, g, g_pre, heads, dim_head)
+    _check_kernel_args("linear_attention_sp_apply", x, w_qkv, None, heads, dim_head)
+    B, C, N = x.shape
+    dev = x.device
+    if m.shape != (B, C, heads * dim_head):
+        raise ValueError(f"linear_attention_sp_apply: M must be {(B, C, heads * dim_head)}")
+    _, _, _, gp, _, _, (wq2, _, _, qshift2) = _kernel_weights(x, w_qkv, g_pre, heads)
+    y = torch.empty_like(x)
+    args = (wq2, qshift2, gp, _f32(m, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C))
+    code = _build.library().dq_linear_attention_sp_apply(
+        x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), B, C, N, heads,
+        int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
+    )
+    _build.check(code, "dq_linear_attention_sp_apply")
+    linear_attention_sp_apply.launches += 1
+    return y
+
+
+def linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce, heads=4,
+                                 dim_head=DIM_HEAD):
+    """K6c: dx and this rank's partial weight gradients (see
+    :func:`sp_backward_reference`) for the cotangent ``dy`` of the local
+    columns, given the all-reduced float32 ``stats`` of the backward's
+    recompute; ``reduce`` sums Z and then T over the ranks between the
+    three launches. JAX ``_fused_backward_sp_local`` also psums the weight
+    gradients; here they stay partials, as every other parameter's
+    gradient of a sequence-parallel model does, and the trainer sums them
+    all over the group once. CPU tensors run :func:`sp_backward_reference`."""
+    if x.device.type == "cpu":
+        return sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce,
+                                     heads, dim_head)
+    _check_kernel_args("linear_attention_sp_backward", x, w_qkv, w_out, heads, dim_head)
+    B, C, N = x.shape
+    H, HC = heads * dim_head, heads * dim_head * C
+    dev = x.device
+    dy = dy.to(x.dtype).contiguous()
+    wq, wk, wv, gp, kshift, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    wout, bo, gg = _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C)
+    ctx, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
+    nsplit, chunk = _split(N)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.library()
+    sizes = (B, C, N, heads, nsplit, chunk, int(x.dtype == torch.bfloat16), dev.index or 0,
+             _build.stream_of(x))
+
+    dxq = torch.empty((B, C, N), **f32)
+    part_q = torch.empty((B, nsplit, 2 * HC + 2 * C), **f32)
+    sum_q = torch.empty((B, 2 * HC + 2 * C), **f32)
+    ptrs = [x, dy, wq, m, qshift, bo, gg, gp, dxq, part_q, sum_q]
+    _build.check(lib.dq_linear_attention_sp_bwd_a(*[p.data_ptr() for p in ptrs], *sizes),
+                 "dq_linear_attention_sp_bwd_a")
+    z_part = sum_q[:, :HC].reshape(B, H, C).clone()
+    z = z_part.clone()
+    reduce(z)
+    sum_q[:, :HC] = z.reshape(B, HC)
+
+    dctx = torch.empty((B, H, DIM_HEAD), **f32)
+    d2 = torch.empty((B, H, C), **f32)
+    dwo_global = torch.empty((B, H, C), **f32)  # the kernel's, from the global Z: unused
+    part_k = torch.empty((B, nsplit, H + 2 * HC), **f32)
+    sum_k = torch.empty((B, H + 2 * HC), **f32)
+    ptrs = [x, sum_q, ctx, wout, wv, wk, kshift, inv_s, gp, dctx, d2, dwo_global, part_k, sum_k]
+    _build.check(lib.dq_linear_attention_sp_bwd_b(*[p.data_ptr() for p in ptrs], *sizes),
+                 "dq_linear_attention_sp_bwd_b")
+    t = sum_k[:, :H].clone()
+    reduce(t)
+    sum_k[:, :H] = t
+
+    dx = torch.empty_like(x)
+    part_x = torch.empty((B, nsplit, C), **f32)
+    dgpre = torch.empty((B, C), **f32)
+    ptrs = [x, dy, dxq, wk, kshift, inv_s, d2, sum_k, gp, dx, part_x, dgpre]
+    _build.check(lib.dq_linear_attention_sp_bwd_c(*[p.data_ptr() for p in ptrs], *sizes),
+                 "dq_linear_attention_sp_bwd_c")
+    linear_attention_sp_backward.launches += 1
+
+    dwq = sum_q[:, HC : 2 * HC].sum(0).reshape(H, C)
+    db, dg = sum_q[:, 2 * HC : 2 * HC + C].sum(0), sum_q[:, 2 * HC + C :].sum(0)
+    dwka, bmat = sum_k[:, H : H + HC].reshape(B, H, C), sum_k[:, H + HC :].reshape(B, H, C)
+    grads = _finish_sp_grads((w_qkv, w_out, b_out, g, g_pre), dwq, dwka, bmat, t, dctx,
+                             _dwo_partial(ctx, z_part, heads), db, dg, dgpre.sum(0), heads)
+    return (dx, *grads)
+
+
+class _LinearAttentionSpFn(torch.autograd.Function):
+    """K6a -> reduce(A, s) -> context -> K6b; the backward recomputes the
+    stats (K6a, float32 operands) -> reduce -> K6c. Saves only ``(x,
+    weights)``."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head, reduce):
+        ctx.save_for_backward(x, w_qkv, w_out, b_out, g, g_pre)
+        ctx.heads, ctx.dim_head, ctx.reduce = heads, dim_head, reduce
+        stats = linear_attention_sp_stats(x, w_qkv, g_pre, heads, dim_head)
+        reduce(stats)
+        _, _, m = sp_context(stats, w_qkv, w_out, heads, round_m=x.dtype == torch.bfloat16)
+        return linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre, heads, dim_head)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_qkv, w_out, b_out, g, g_pre = ctx.saved_tensors
+        stats = linear_attention_sp_stats(x, w_qkv, g_pre, ctx.heads, ctx.dim_head,
+                                          round_operands=False)
+        ctx.reduce(stats)
+        grads = linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats,
+                                             ctx.reduce, ctx.heads, ctx.dim_head)
+        return (*grads, None, None, None)
+
+
+def linear_attention_sp(x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD,
+                        group=None):
+    """The function of :func:`linear_attention` on the columns this rank
+    holds of a sequence split over the ranks of ``group`` (a
+    ``torch.distributed`` process group; every rank calls it together):
+    ``x`` (B, C, N_local) is the rank's slice, and so is the result
+    (:func:`dquartic_tpu.ops.linear_attention.fused_linear_attention_t`
+    with ``sp_axis``).
+
+    The forward is K6a, the sum of (A, s) over the ranks, the context, K6b;
+    the backward is K6a again, the sum, and K6c, with the sums of Z and T
+    between its launches. The weight gradients are this rank's partials
+    (:func:`linear_attention_sp_backward`). On CPU tensors the three
+    bodies run their plain versions; the sums are the same collectives."""
+    reduce = functools.partial(sp_all_reduce, group=group)
+    return _LinearAttentionSpFn.apply(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head, reduce)
+
+
+linear_attention_sp_stats.launches = 0
+linear_attention_sp_apply.launches = 0
+linear_attention_sp_backward.launches = 0

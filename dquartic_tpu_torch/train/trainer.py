@@ -1,5 +1,6 @@
-"""The training runtime on one device (port of
-:class:`dquartic_tpu.train.trainer.Trainer` without a mesh).
+"""The training runtime (port of :class:`dquartic_tpu.train.trainer.Trainer`),
+on one device or on a mesh whose ``sp`` axis splits m/z over a process
+group.
 
 One train step: on-device multiplexing ``ms2_cond = w0·ms2_1 + w1·ms2_2``,
 the diffusion loss, backward (through the K4/K5 kernels on a card),
@@ -12,6 +13,14 @@ with auto-resume after the stored epoch, and a callback can stop training.
 The train state is the model's float32 parameters, the optimizer state,
 the EMA tensors and the step count; it lives in this object and its model
 and is updated in place.
+
+With a ``mesh`` whose ``sp > 1`` every rank of the group runs the same
+step on the same batch and draws (seed the generators alike): the model
+computes its slice of m/z and the loss on the whole prediction, each
+rank's backward leaves its partial gradients, and the step sums them over
+the group before clipping, so clipping, AdamW and the EMA run alike on the
+whole gradient on every rank. The loss and the metrics are the global
+ones; only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.diffusion import DDIMProcess
+from ..parallel.sequence import sp_all_reduce
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
 from .optim import ClippedAdamW, WarmupCosineSchedule, make_optimizer
@@ -42,8 +52,18 @@ class Trainer:
         callback_handler: Optional[CallbackHandler] = None,
         seed: int = 0,
         sync_every_batch: bool = False,
+        mesh=None,
     ):
         self.model = model
+        self.mesh = mesh
+        self.sp_group = None
+        if mesh is not None and mesh.sp > 1:
+            if getattr(model, "activation_sharding", None) is None:
+                raise ValueError(
+                    f"a mesh with sp={mesh.sp} needs a model whose activation_sharding splits "
+                    "m/z over it (build_trainer sets it from tpu.mesh)")
+            model.mesh = mesh
+            self.sp_group = mesh.sp_group
         self.process = process
         self.optimizer = optimizer if optimizer is not None else make_optimizer(model.parameters())
         self.ema_decay = ema_decay
@@ -115,6 +135,10 @@ class Trainer:
             self.model, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps, generator=generator
         )
         loss.backward()
+        if self.sp_group is not None:  # each rank holds its partial gradients
+            for p in self.optimizer.params:
+                if p.grad is not None:
+                    sp_all_reduce(p.grad, self.sp_group)
         grad_norm = self.optimizer.step(lr)
         if self.ema_params is not None:
             d = self.ema_decay
@@ -217,6 +241,8 @@ class Trainer:
         return self
 
     def _save(self, path: str, epoch: int, loss: float) -> None:
+        if self.mesh is not None and self.mesh.sp_rank != 0:
+            return  # every rank holds the same state; rank 0 writes it
         save_checkpoint(path, {
             "epoch": epoch,
             "best_loss": loss,

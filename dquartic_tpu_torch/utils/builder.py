@@ -1,30 +1,54 @@
-"""Build the port's model, DDIM process and trainer from a config dict.
+"""Build the port's mesh, model, DDIM process and trainer from a config dict.
 
-Port of ``build_model`` / ``build_process`` / ``build_trainer`` of
-:mod:`dquartic_tpu.utils.builder` for the UNet1d.
+Port of ``build_mesh`` / ``apply_mesh_model_flags`` / ``build_model`` /
+``build_process`` / ``build_trainer`` of :mod:`dquartic_tpu.utils.builder`
+for the UNet1d.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core import DDIMProcess, make_schedule
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
+from ..parallel.mesh import Mesh, make_mesh
 from ..train import Trainer, make_optimizer
 from .device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-# UNet1d keys of the JAX package that name mesh axes (the row-sharded
-# kernel wrappers, sequence-parallel activation sharding). The port runs
-# on one device with no mesh, so it accepts them and drops them.
-_JAX_MESH_KEYS = {"kernel_dp_axis", "activation_sharding"}
 # Parameters kept float32 in every dtype, as JAX keeps them: the gains of
 # RMSNorm and LayerNorm1d and LayerNorm1d's bias.
 _NORM_PARAMS = (".g", ".b")
 _UNET_KEYS = set(UNet1d.__init__.__code__.co_varnames[1 : UNet1d.__init__.__code__.co_argcount])
+
+
+def build_mesh(config: Dict[str, Any]) -> Optional[Mesh]:
+    """The mesh of ``tpu.mesh`` (JAX ``build_mesh``): None for one device.
+    A None ``dp`` takes the processes that ``sp·tp`` leave (one process:
+    dp = 1). ``sp > 1`` needs a running process group of ``sp`` ranks
+    (:func:`~dquartic_tpu_torch.parallel.initialize_runtime`); ``dp > 1``
+    and ``tp > 1`` are not ported yet: each raises, and none is dropped."""
+    m = config["tpu"]["mesh"]
+    sp, tp, dp = m.get("sp") or 1, m.get("tp") or 1, m.get("dp")
+    if dp is None:
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        dp = max(1, world // (sp * tp))
+    if dp * sp * tp == 1:
+        return None
+    return make_mesh(dp=dp, sp=sp, tp=tp)
+
+
+def apply_mesh_model_flags(unet: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
+    """The mesh-dependent UNet1d keys (JAX ``apply_mesh_model_flags``): a
+    mesh with ``sp > 1`` shards m/z, ``activation_sharding=("dp", "sp")``,
+    unless the ``UNet1d`` block names it already."""
+    if mesh is not None and mesh.sp > 1 and unet.get("activation_sharding") is None:
+        unet = dict(unet, activation_sharding=("dp", "sp"))
+    return unet
 
 
 @torch.no_grad()
@@ -42,7 +66,7 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(
-    config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False
+    config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None
 ) -> UNet1d:
     """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights
     on ``device`` (None: the card; raises without one), computing in
@@ -56,8 +80,15 @@ def build_model(
     ``tpu.fused_resnet`` is (the JAX ``build_trainer`` and ``predict``), so
     ``fused_resnet: false`` in both builds the unfused model with plain
     ResnetBlocks; ``remat_linear_attn`` and ``remat_blocks`` reach the
-    model. ``kernel_dp_axis`` and ``activation_sharding`` are dropped (see
-    ``_JAX_MESH_KEYS``).
+    model.
+
+    ``mesh`` (None: :func:`build_mesh` of ``tpu.mesh``) with ``sp > 1``
+    builds the model with ``activation_sharding`` (or the ``UNet1d`` key of
+    that name) on that mesh; every rank builds the same weights from the
+    same seed. Under ``activation_sharding`` a trainable model leaves
+    ``tpu.fused_resnet`` aside, as the JAX ``build_trainer`` does, and a
+    serving model with it raises, as JAX ``predict`` does.
+    ``kernel_dp_axis`` raises (no dp kernel path yet).
 
     ``trainable=False`` (serving) stores the parameters in the compute
     dtype, norm gains and biases in float32, and no parameter needs grad.
@@ -80,17 +111,21 @@ def build_model(
         )
     tpu = config["tpu"]
     quantize = bool(tpu.get("quantize_mid") or u.pop("quantize_mid", False))
-    unknown = set(u) - _UNET_KEYS - _JAX_MESH_KEYS
+    unknown = set(u) - _UNET_KEYS
     if unknown:
         raise ValueError(f"Unknown UNet1d config keys: {sorted(unknown)}")
-    u = {k: v for k, v in u.items() if k in _UNET_KEYS}
+    if mesh is None:
+        mesh = build_mesh(config)
+    u = apply_mesh_model_flags(u, mesh)
     u.setdefault("linear_attn_impl", tpu.get("linear_attn_impl", "auto"))
-    u["fused_resnet"] = bool(u.get("fused_resnet") or tpu.get("fused_resnet"))
+    tpu_fused = tpu.get("fused_resnet") and not (trainable and u.get("activation_sharding"))
+    u["fused_resnet"] = bool(u.get("fused_resnet") or tpu_fused)
     dtype = _DTYPES[tpu["compute_dtype"]]
 
     device = resolve_device(device, "build_model")
     with torch.device("meta"):
         model = UNet1d(**u, dtype=dtype, attn_impl=tpu["attn_impl"])
+    model.mesh = mesh
     model.to_empty(device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     if trainable:
@@ -122,11 +157,13 @@ def build_process(config: Dict[str, Any]) -> DDIMProcess:
     )
 
 
-def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None) -> Trainer:
+def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None,
+                  mesh=None) -> Trainer:
     """Trainer over a trainable UNet1d (float32 master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
     of the config, as the JAX ``build_trainer`` wires them, on ``device``
-    (None: the card; raises without one)."""
+    (None: the card; raises without one), on ``mesh`` (None:
+    :func:`build_mesh` of ``tpu.mesh``)."""
     if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
         raise ValueError(
             "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
@@ -134,7 +171,9 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
             "no gradient. Train with float32 master weights, then quantize for predict."
         )
     device = resolve_device(device, "build_trainer")
-    model = build_model(config, device=device, seed=seed, trainable=True)
+    if mesh is None:
+        mesh = build_mesh(config)
+    model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh)
     return Trainer(
         model,
         build_process(config),
@@ -142,4 +181,5 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
         ema_decay=config["tpu"]["ema_decay"],
         logger=logger,
         seed=seed,
+        mesh=mesh,
     )

@@ -1,0 +1,580 @@
+"""Sequence parallelism of the port: the K6 op (``linear_attention_sp``),
+the halo and gather collectives, ``UNet1d(activation_sharding)``, the
+Trainer and the sampler on a mesh, against the JAX package.
+
+The ranks are processes of one gloo group on the CPU (one pool of four for
+the module; the sp = 2 cases run on a group of ranks 0 and 1), where the
+port's kernel wrappers run their plain versions and the collectives are
+the real ``all_reduce``. Inputs and weights are made with numpy from a
+seed in this process, which also runs the JAX side, on one device or on a
+virtual CPU mesh with the Pallas sp kernels in interpret mode, as
+``tests/test_parallel.py`` does. The CUDA kernels K6a-c are held against
+their plain versions, and a hand split of N against K1/K4, by the tests
+marked ``cuda``, which skip without a card; on a CUDA machine without JAX:
+
+    python -m pytest tests/test_torch_sp.py -m cuda --noconftest -q
+"""
+
+import multiprocessing as mp
+import os
+import queue
+import socket
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import dquartic_tpu_torch.ops.linear_attention as tla
+from dquartic_tpu_torch.core import DDIMProcess, make_schedule
+from dquartic_tpu_torch.infer import DDIMSampler
+from dquartic_tpu_torch.models import UNet1d
+from dquartic_tpu_torch.parallel import (
+    halo_exchange, initialize_runtime, make_mesh, mesh_axis_sizes, sharded_levels, sp_gather,
+    sp_slice,
+)
+from dquartic_tpu_torch.train import Trainer
+from dquartic_tpu_torch.utils.builder import build_mesh, build_model, build_trainer
+from dquartic_tpu_torch.utils.config import load_train_config
+from chip_smoke import _hand_split
+
+try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
+    import jax
+    import jax.numpy as jnp
+
+    from dquartic_tpu.compat.torch_ckpt import convert_unet1d_state_dict
+    from dquartic_tpu.core import DDIMProcess as JaxDDIMProcess
+    from dquartic_tpu.core import make_schedule as jax_make_schedule
+    from dquartic_tpu.models import UNet1d as JaxUNet1d
+    from dquartic_tpu.ops import linear_attention as jla
+    from dquartic_tpu.parallel import make_mesh as jax_make_mesh
+    from dquartic_tpu.train import Trainer as JaxTrainer
+    from dquartic_tpu_torch.compat.jax_params import jax_params_to_torch
+    from test_torch_model import random_params
+    from test_torch_trainer import _flat, _jax_draws
+except ImportError:
+    jax = None
+
+WORLD = 4
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "dquartic_train_config.json")
+# JAX's own tolerances for the sp kernels (tests/test_parallel.py): the
+# forward at rtol 3e-4 / atol 3e-5, the six gradients at 2e-3 / 2e-3. Here
+# both sides sum the same float32 terms in another order, and the
+# tolerances hold an order of magnitude tighter.
+OP_TOL = dict(rtol=3e-5, atol=3e-6)
+OP_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+# Whole models: the sharded forward against the unsharded JAX forward at
+# JAX's own rtol 1e-4 / atol 1e-5 (test_parallel.py:321-323).
+MODEL_TOL = dict(rtol=1e-4, atol=1e-5)
+TINY = dict(dim=4, channels=1, conditional=True, init_cond_channels=1, attn_cond_channels=1,
+            simple=True)
+RT = 4
+
+
+# --------------------------------------------------------------------- #
+# the pool of ranks                                                     #
+# --------------------------------------------------------------------- #
+
+
+def _rank_main(rank, init_method, inq, outq):
+    torch.set_num_threads(1)
+    initialize_runtime("gloo", rank, WORLD, init_method, timeout_s=120)
+    groups = {WORLD: dist.group.WORLD, 2: dist.new_group([0, 1])}
+    while True:
+        task = inq.get()
+        if task is None:
+            break
+        name, sp, args = task
+        try:
+            res = globals()[name](make_mesh(sp=sp, group=groups[sp]), *args) if rank < sp else None
+            outq.put((rank, True, res))
+        except Exception:  # reported to the test, which fails with it
+            outq.put((rank, False, traceback.format_exc()))
+    dist.destroy_process_group()
+
+
+class _Ranks:
+    """WORLD processes in one gloo group; ``run(name, sp, *args)`` calls
+    ``name(mesh, *args)`` on ranks 0 .. sp-1 and returns their results."""
+
+    def __init__(self):
+        ctx = mp.get_context("spawn")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.inqs = [ctx.Queue() for _ in range(WORLD)]
+        self.outq = ctx.Queue()
+        self.procs = [ctx.Process(target=_rank_main, daemon=True,
+                                  args=(r, f"tcp://127.0.0.1:{port}", self.inqs[r], self.outq))
+                      for r in range(WORLD)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, name, sp, *args):
+        for q in self.inqs:
+            q.put((name, sp, args))
+        got = {}
+        for _ in range(WORLD):
+            try:
+                rank, ok, res = self.outq.get(timeout=300)
+            except queue.Empty:
+                pytest.fail(f"{name}: a rank did not answer")
+            if not ok:
+                pytest.fail(f"{name} failed on rank {rank}:\n{res}")
+            got[rank] = res
+        return [got[r] for r in range(sp)]
+
+    def close(self):
+        for q in self.inqs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    pool = _Ranks()
+    yield pool
+    pool.close()
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# --------------------------------------------------------------------- #
+# the plan and the collectives                                          #
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("mz,levels,sp,k", [
+    (40000, 7, 2, 6), (40000, 7, 4, 5), (40000, 7, 1, 7), (16, 2, 2, 2), (20, 3, 2, 2),
+    (24, 3, 4, 2), (30016, 7, 2, 6), (64, 3, 4, 3),
+])
+def test_level_plan(mz, levels, sp, k):
+    """The canonical window at sp = 2 shards levels 40000 .. 1250 (12 of
+    the 14 mixers on K6) and runs 625 in full on every rank."""
+    assert sharded_levels(mz, levels, sp) == k
+
+
+def test_level_plan_rejects_an_unsplittable_window():
+    with pytest.raises(ValueError, match="does not split"):
+        sharded_levels(40001, 1, 2)
+
+
+def _collectives(mesh, x, r_halo, r_gather):
+    """Each rank's slice through halo_exchange (1 left, 2 right) and
+    sp_gather, with a loss weighted by per-rank random arrays; returns the
+    outputs and the input cotangent."""
+    rank = mesh.sp_rank
+    leaf = sp_slice(_t(x), mesh.sp_group).requires_grad_(True)
+    h = halo_exchange(leaf, 1, 2, mesh.sp_group)
+    g = sp_gather(leaf * 2.0, mesh.sp_group)
+    loss = (h * _t(r_halo[rank])).sum() + (g * _t(r_gather[rank])).sum()
+    loss.backward()
+    return h.detach().numpy(), g.detach().numpy(), leaf.grad.numpy()
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_halo_and_gather_are_adjoint(ranks, sp):
+    """halo_exchange is the window of the zero-padded global sequence, the
+    gather the whole sequence; their backwards give every rank the
+    cotangent of its slice under the sum of the ranks' losses."""
+    rng = np.random.default_rng(sp)
+    x = rng.normal(size=(2, 3, 8 * sp)).astype(np.float32)
+    n = 8
+    r_halo = rng.normal(size=(sp, 2, 3, n + 3)).astype(np.float32)
+    r_gather = rng.normal(size=(sp, 2, 3, 8 * sp)).astype(np.float32)
+    out = ranks.run("_collectives", sp, x, r_halo, r_gather)
+    xt = _t(x).requires_grad_(True)
+    padded = torch.nn.functional.pad(xt, (1, 2))
+    loss = sum((padded[..., r * n:r * n + n + 3] * _t(r_halo[r])).sum()
+               + (2.0 * xt * _t(r_gather[r])).sum() for r in range(sp))
+    loss.backward()
+    for r, (h, g, dx) in enumerate(out):
+        np.testing.assert_array_equal(h, padded[..., r * n:r * n + n + 3].detach().numpy())
+        np.testing.assert_array_equal(g, 2.0 * x)
+        np.testing.assert_allclose(dx, xt.grad[..., r * n:(r + 1) * n].numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# the K6 op against the JAX sp kernels                                  #
+# --------------------------------------------------------------------- #
+
+
+def _op_weights(C, seed, heads=4):
+    rng = np.random.default_rng(seed)
+    H = heads * 32
+    return [(rng.normal(size=s) * sc).astype(np.float32) for s, sc in
+            (((C, 3 * H), 0.1), ((H, C), 0.1), ((C,), 0.1), ((C,), 1.0), ((C,), 1.0))]
+
+
+def _sp_op(mesh, x, w, dy):
+    """linear_attention_sp on this rank's slice of x (B, C, N): y, dx of
+    the loss Σ y·dy over the ranks, and the rank's weight partials."""
+    rank, size = mesh.sp_rank, mesh.sp
+    n = x.shape[2] // size
+    xs = _t(x[:, :, rank * n:(rank + 1) * n]).requires_grad_(True)
+    ws = [_t(a).requires_grad_(True) for a in w]
+    y = tla.linear_attention_sp(xs, *ws, group=mesh.sp_group)
+    (y * _t(dy[:, :, rank * n:(rank + 1) * n])).sum().backward()
+    return y.detach().numpy(), xs.grad.numpy(), [t.grad.numpy() for t in ws]
+
+
+@pytest.mark.parametrize("N", [256, 600])
+def test_sp_op_matches_jax(ranks, N):
+    """``linear_attention_sp`` at sp = 2 (f32; N = 600 leaves 300 columns a
+    rank, ragged against the JAX kernel's 512-column block) against JAX
+    ``fused_linear_attention_t(..., sp_axis="sp")`` on a 2-device mesh:
+    the output and all six gradients (the weights' as the sum of the
+    ranks' partials)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    C = 4
+    w = _op_weights(C, seed=N)
+    rng = np.random.default_rng(N + 1)
+    x = rng.normal(size=(2, C, N)).astype(np.float32)
+    dy = rng.normal(size=(2, C, N)).astype(np.float32)
+    out = ranks.run("_sp_op", 2, x, w, dy)
+    y = np.concatenate([o[0] for o in out], axis=2)
+    dx = np.concatenate([o[1] for o in out], axis=2)
+    dws = [sum(o[2][i] for o in out) for i in range(5)]
+
+    mesh = jax_make_mesh(dp=1, sp=2, tp=1, devices=jax.devices()[:2])
+    jw = [jnp.asarray(a) for a in w]
+
+    def f(xx, wq, wo, bo, gg, gp):
+        return jla.fused_linear_attention_t(xx, wq, wo, bo, gg, 4, 32, g_pre=gp, residual=True,
+                                            sp_axis="sp")
+
+    xj = jnp.asarray(x.transpose(0, 2, 1))
+    with jax.set_mesh(mesh):
+        xs = jax.device_put(xj, NamedSharding(mesh, P(None, "sp", None)))
+        yj, vjp = jax.vjp(jax.jit(f), xs, *jw)
+        grads = vjp(jnp.asarray(dy.transpose(0, 2, 1)))
+    np.testing.assert_allclose(y, np.asarray(yj).transpose(0, 2, 1), **OP_TOL)
+    np.testing.assert_allclose(dx, np.asarray(grads[0]).transpose(0, 2, 1), **OP_GRAD_TOL)
+    for got, ref in zip(dws, grads[1:]):
+        np.testing.assert_allclose(got, np.asarray(ref), **OP_GRAD_TOL)
+
+
+# --------------------------------------------------------------------- #
+# UNet1d(activation_sharding)                                           #
+# --------------------------------------------------------------------- #
+
+
+def _jax_unet(kw, seed):
+    model = JaxUNet1d(**TINY, **kw)
+    mz = kw["downsample_dim"]
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros((1, RT, mz), np.float32),
+                            np.zeros((1,), np.int32), np.zeros((1, RT, mz), np.float32),
+                            np.zeros((1, RT), np.float32))
+    return model, random_params(shapes, seed)
+
+
+def _inputs(b, mz, seed):
+    rng = np.random.default_rng(seed)
+    return dict(x=rng.normal(size=(b, RT, mz)).astype(np.float32),
+                t=rng.integers(0, 1000, size=(b,)).astype(np.int32),
+                ic=rng.uniform(-1, 1, size=(b, RT, mz)).astype(np.float32),
+                ac=rng.uniform(-1, 1, size=(b, RT)).astype(np.float32))
+
+
+def _port_unet(mesh, kw, sd, impl):
+    model = UNet1d(**TINY, **kw, linear_attn_impl=impl, activation_sharding=("dp", "sp"))
+    model.load_state_dict({k: _t(v) for k, v in sd.items()})
+    model.mesh = mesh
+    return model.eval()
+
+
+def _sp_forward(mesh, kw, sd, impl, i):
+    """The sharded forward and how many mixers ran the K6 op."""
+    model = _port_unet(mesh, kw, sd, impl)
+    calls = []
+    real = tla.linear_attention_sp_stats
+    tla.linear_attention_sp_stats = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        with torch.no_grad():
+            out = model(_t(i["x"]), _t(i["t"]).long(), _t(i["ic"]), _t(i["ac"]))
+    finally:
+        tla.linear_attention_sp_stats = real
+    return out.numpy(), len(calls)
+
+
+@pytest.mark.parametrize("sp,dim_mults,mz,impl,k6", [
+    (2, (1, 2), 16, "pallas_t", 4),     # every level sharded: the bottleneck gathers
+    (4, (1, 2), 16, "pallas_t", 4),
+    (2, (1, 2, 2), 20, "pallas_t", 4),  # level 2 (N = 5) runs in full on every rank
+    (4, (1, 2, 2), 24, "pallas_t", 4),  # level 2 (N = 6) in full
+    (2, (1, 2, 2), 20, "xla", 0),       # the "xla" mixers on the gathered sequence
+    (2, (1, 2, 2), 20, "pallas", 0),    # the "pallas" (K8) mixers gathered likewise
+])
+def test_sp_unet_forward_matches_jax(ranks, sp, dim_mults, mz, impl, k6):
+    """UNet1d(activation_sharding) at sp ranks against JAX UNet1d.apply on
+    one device with the same weights; every rank returns the whole output.
+    Under "pallas_t" the mixers of sharded levels run K6 (``k6`` of them),
+    the others the "xla" path, as the JAX dispatch picks."""
+    kw = dict(dim_mults=dim_mults, downsample_dim=mz)
+    jmodel, params = _jax_unet(kw, seed=mz)
+    i = _inputs(2, mz, seed=mz + sp)
+    ref = np.asarray(jax.jit(jmodel.apply)(params, i["x"], i["t"], i["ic"], i["ac"]))
+    sd = jax_params_to_torch(params, dim_mults)
+    out = ranks.run("_sp_forward", sp, kw, sd, impl, i)
+    for got, n_k6 in out:
+        assert n_k6 == k6
+        np.testing.assert_allclose(got, ref, **MODEL_TOL)
+
+
+def test_sp_unet_needs_a_mesh():
+    """activation_sharding without a mesh raises, as a JAX sharding
+    constraint does outside a mesh: the model never runs unsharded in
+    silence. fused_resnet and kernel_dp_axis are refused as in JAX."""
+    kw = dict(TINY, dim_mults=(1, 2), downsample_dim=16)
+    model = UNet1d(**kw, activation_sharding=("dp", "sp"))
+    i = _inputs(1, 16, seed=0)
+    with pytest.raises(ValueError, match="runs on a mesh"):
+        model(_t(i["x"]), _t(i["t"]).long(), _t(i["ic"]), _t(i["ac"]))
+    with pytest.raises(ValueError, match="fused_resnet"):
+        UNet1d(**kw, activation_sharding=("dp", "sp"), fused_resnet=True)
+    with pytest.raises(ValueError, match="kernel_dp_axis"):
+        UNet1d(**kw, kernel_dp_axis="dp")
+
+
+# --------------------------------------------------------------------- #
+# Trainer and sampler on the mesh                                       #
+# --------------------------------------------------------------------- #
+
+
+def _sp_train_step(mesh, kw, sd, batch, t, eps, lr):
+    model = _port_unet(mesh, kw, sd, "pallas_t").train()
+    tr = Trainer(model, DDIMProcess(schedule=make_schedule(1000, "cosine", "eps")), mesh=mesh)
+    m = tr.train_step(batch, lr, t=_t(t), eps=_t(eps))
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {k: v.detach().numpy() for k, v in model.state_dict().items()},
+            {k: v.numpy() for k, v in tr.ema_state_dict().items()})
+
+
+def test_sp_trainer_step_matches_jax(ranks):
+    """One Trainer step at sp = 2 (K6 mixers, halo convs, gradients summed
+    over the group) against the single-device JAX step from the same
+    weights, batch and draws: loss and gradient norm to 1e-5; parameters
+    within 2·lr (Adam's first update is about lr·sign(g)) + 1e-5
+    relative, the EMA within 2·lr·1e-3 (tests/test_torch_trainer.py),
+    well inside JAX's own 5e-3 for its sp step; both ranks hold the same
+    state."""
+    lr = 1e-3
+    kw = dict(dim_mults=(1, 2), downsample_dim=64)
+    rng = np.random.default_rng(11)
+    batch = {"ms2_1": rng.uniform(0, 1, (2, RT, 64)).astype(np.float32),
+             "ms1_1": rng.uniform(0, 1, (2, RT)).astype(np.float32),
+             "ms2_2": rng.uniform(0, 1, (2, RT, 64)).astype(np.float32)}
+    jmodel = JaxUNet1d(**TINY, **kw)
+    jtr = JaxTrainer(jmodel, JaxDDIMProcess(schedule=jax_make_schedule(1000, "cosine", "eps")),
+                     seed=0)
+    params = random_params(jax.eval_shape(lambda: jtr.init_params(batch)), seed=12)
+    key = jax.random.PRNGKey(13)
+    t, eps = _jax_draws(key, 2, batch["ms2_1"].shape)
+    jstate, jm = jtr.train_step(jtr._fresh_state(params),
+                                {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(lr), key)
+    sd = jax_params_to_torch(params, kw["dim_mults"])
+    out = ranks.run("_sp_train_step", 2, kw, sd, batch, np.asarray(t), np.asarray(eps), lr)
+    for loss, gn, got_sd, ema_sd in out:
+        np.testing.assert_allclose(loss, float(jm["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(gn, float(jm["grad_norm"]), rtol=1e-5)
+        got = _flat(convert_unet1d_state_dict(got_sd, kw["dim_mults"]))
+        ema = _flat(convert_unet1d_state_dict(ema_sd, kw["dim_mults"]))
+        ref, ref_ema = _flat(jstate.params), _flat(jstate.ema_params)
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=2 * lr, err_msg=k)
+            np.testing.assert_allclose(ema[k], ref_ema[k], rtol=1e-5, atol=2 * lr * 1e-3,
+                                       err_msg=k)
+    for k in out[0][2]:
+        np.testing.assert_array_equal(out[0][2][k], out[1][2][k], err_msg=k)
+
+
+def _small_config(sp):
+    config = load_train_config(CONFIG)
+    config["model"]["UNet1d"].update(dim_mults=[1, 2, 2], downsample_dim=64)
+    config["tpu"].update(linear_attn_impl="pallas_t", mesh={"dp": 1, "sp": sp, "tp": 1})
+    return config
+
+
+def _batch(seed, mz=64):
+    rng = np.random.default_rng(seed)
+    return {"ms2_1": rng.uniform(0, 1, (1, RT, mz)).astype(np.float32),
+            "ms1_1": rng.uniform(0, 1, (1, RT)).astype(np.float32),
+            "ms2_2": rng.uniform(0, 1, (1, RT, mz)).astype(np.float32)}
+
+
+def _sp_predict(mesh, batch):
+    """build_model from tpu.mesh (the running group of WORLD ranks) ->
+    DDIMSampler.predict, 3 steps."""
+    config = _small_config(mesh.sp)
+    model = build_model(config, device="cpu", seed=5)
+    assert model.activation_sharding == ("dp", "sp")
+    assert mesh_axis_sizes(model.mesh) == {"dp": 1, "sp": mesh.sp, "tp": 1}
+    sampler = DDIMSampler(model, DDIMProcess(schedule=make_schedule(1000, "cosine", "eps")),
+                          mesh=model.mesh)
+    return sampler.predict([batch], num_steps=3, seed=7, device="cpu")[0]["pred"]
+
+
+def test_sp_predict_matches_sp1(ranks):
+    """predict at sp = 4 (the model built from ``tpu.mesh``) against the
+    single-process model of the same seed: the same noise, the same
+    prediction on every rank (float32 summation order only)."""
+    batch = _batch(3)
+    out = ranks.run("_sp_predict", WORLD, batch)
+    model = build_model(_small_config(1), device="cpu", seed=5)
+    ref = DDIMSampler(model, DDIMProcess(schedule=make_schedule(1000, "cosine", "eps"))).predict(
+        [batch], num_steps=3, seed=7, device="cpu")[0]["pred"]
+    for pred in out:
+        np.testing.assert_allclose(pred, ref, rtol=1e-5, atol=1e-5)
+
+
+def _sp_build_trainer(mesh, batch):
+    config = _small_config(mesh.sp)
+    tr = build_trainer(config, device="cpu", seed=5)
+    gen = torch.Generator().manual_seed(3)
+    m = tr.train_step(batch, 1e-3, generator=gen)
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def test_build_trainer_on_the_mesh_matches_sp1(ranks):
+    """build_trainer from ``tpu.mesh`` with sp = 4 draws t and eps alike on
+    every rank and takes the single-process step's loss and gradient
+    norm."""
+    batch = _batch(4)
+    out = ranks.run("_sp_build_trainer", WORLD, batch)
+    tr = build_trainer(_small_config(1), device="cpu", seed=5)
+    m = tr.train_step(batch, 1e-3, generator=torch.Generator().manual_seed(3))
+    for loss, gn in out:
+        np.testing.assert_allclose(loss, float(m["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(gn, float(m["grad_norm"]), rtol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# tpu.mesh and activation_sharding reach the model, or raise            #
+# --------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("mesh,match", [
+    ({"dp": 1, "sp": 2, "tp": 1}, "needs a running torch.distributed"),
+    ({"dp": 2, "sp": 1, "tp": 1}, "DDP"),
+    ({"dp": 1, "sp": 1, "tp": 2}, "tensor-parallel"),
+])
+def test_config_mesh_reaches_the_model(mesh, match):
+    """A mesh the port cannot build raises, naming the missing piece; it is
+    never dropped (the model with sp = 2 is built on the ranks by
+    test_sp_predict_matches_sp1, which checks its activation_sharding)."""
+    config = _small_config(1)
+    config["tpu"]["mesh"] = mesh
+    with pytest.raises(ValueError, match=match):
+        build_model(config, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        build_trainer(config, device="cpu")
+
+
+def test_config_unet_mesh_keys_reach_the_model():
+    """``activation_sharding`` in the UNet1d block reaches UNet1d (which then
+    needs a mesh to run); ``kernel_dp_axis`` raises; one process builds no
+    mesh from the default ``tpu.mesh``."""
+    config = _small_config(1)
+    assert build_mesh(config) is None
+    config["model"]["UNet1d"]["activation_sharding"] = ["dp", "sp"]
+    model = build_model(config, device="cpu")
+    assert model.activation_sharding == ("dp", "sp") and model.mesh is None
+    config["tpu"]["fused_resnet"] = True
+    with pytest.raises(ValueError, match="fused_resnet"):
+        build_model(config, device="cpu")  # serving: JAX predict raises too
+    assert not build_model(config, device="cpu", trainable=True).fused_resnet
+    del config["model"]["UNet1d"]["activation_sharding"]
+    config["model"]["UNet1d"]["kernel_dp_axis"] = "dp"
+    with pytest.raises(ValueError, match="kernel_dp_axis"):
+        build_model(config, device="cpu")
+
+
+def test_trainer_and_sampler_refuse_an_unsharded_model():
+    """A mesh with sp > 1 around a model that would compute the whole
+    window on every rank raises (its gradients would count sp times)."""
+    from dquartic_tpu_torch.parallel import Mesh
+
+    mesh = Mesh(sp=2)
+    model = UNet1d(**TINY, dim_mults=(1, 2), downsample_dim=16)
+    process = DDIMProcess(schedule=make_schedule(1000, "cosine", "eps"))
+    with pytest.raises(ValueError, match="activation_sharding"):
+        Trainer(model, process, mesh=mesh)
+    with pytest.raises(ValueError, match="activation_sharding"):
+        DDIMSampler(model, process, mesh=mesh)
+
+
+# --------------------------------------------------------------------- #
+# on the card: K6a-c against their plain versions, the hand split       #
+# --------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels only run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cuda_inputs(B, C, N, dev, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H = 128
+    x = torch.randn((B, C, N), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, C, N), generator=g, device=dev).to(dtype)
+    w = [torch.randn(s, generator=g, device=dev) * sc for s, sc in
+         (((C, 3 * H), 0.3), ((H, C), 0.1), ((C,), 0.1), ((C,), 1.0))]
+    w.append(1.0 + 0.2 * torch.randn((C,), generator=g, device=dev))
+    return x, dy, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,N", [(4, 20000), (16, 313), (8, 700)])
+def test_k6_kernels_match_plain(cuda, dtype, C, N):
+    """K6a, K6b and K6c on one slice against their plain versions (bf16: on
+    the same bf16 values). float32 sums in another order; bf16 outputs
+    round once."""
+    dt = getattr(torch, dtype)
+    x, dy, w = _cuda_inputs(34, C, N, cuda, dt, seed=C * N)
+    w_qkv, w_out, b_out, g, g_pre = w
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)
+    for rnd in (True, False):
+        st = tla.linear_attention_sp_stats(x, w_qkv, g_pre, round_operands=rnd)
+        ref = tla.sp_stats_reference(x, w_qkv, g_pre, round_operands=rnd)
+        torch.testing.assert_close(st, ref, rtol=1e-4, atol=1e-3 * float(ref.abs().max()))
+    _, _, m = tla.sp_context(st, w_qkv, w_out, round_m=dt == torch.bfloat16)
+    y = tla.linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre)
+    torch.testing.assert_close(y.float(), tla.sp_apply_reference(x, m, w_qkv, b_out, g, g_pre)
+                               .float(), **tol)
+    got = tla.linear_attention_sp_backward(dy, x, *w, st, lambda t: None)
+    ref = tla.sp_backward_reference(dy, x, *w, st, lambda t: None)
+    # max |error| over the largest entry (chip_smoke's GRAD_TOL): float32
+    # sums in another order; in bf16 dx rounds once, one ulp is 2^-8 of it
+    grad_tol = 1e-3 if dtype == "float32" else 1e-2
+    for a, b in zip(got, ref):
+        scale = float(b.float().abs().max()) + 1e-12
+        assert float((a.float() - b.float()).abs().max()) / scale < grad_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2, 4])
+def test_k6_hand_split_matches_k1_k4(cuda, size):
+    """N cut into ``size`` slices, K6a partials summed in a fixed order, K6b
+    per slice, concatenated: K1 on the whole N; the backward (K6c, one
+    thread a slice, Z and T summed over the slices) against K4."""
+    x, dy, w = _cuda_inputs(34, 4, 40000, cuda, torch.float32, seed=size)
+    ref_y = tla.linear_attention(x, *w)
+    ref_g = tla.linear_attention_backward(dy, x, *w)
+    y, got = _hand_split(x, dy, w, size)
+    torch.testing.assert_close(y, ref_y, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got, ref_g):
+        assert float((a - b).abs().max()) / float(b.abs().max()) < 1e-3
