@@ -11,16 +11,19 @@ CUDA card with sm_90a). Phases, each of which must pass:
   2. hold each CUDA kernel (K1 linear attention, K2 fused ResnetBlock, K3
      int8 matmul, K7a flash attention) against its plain PyTorch version at
      the main path's shapes, in float32 (TF32 off) and bfloat16, and time
-     both; sweep K7a against the plain attention over n = m from 34 to 16384
-     (the crossover behind ``attn_impl="auto"``);
+     both; K1 and K7a also alone on the device (``torch.profiler``) and
+     beside the floor of their exponentials at the SFU's rate; sweep K7a
+     against the plain attention and ``scaled_dot_product_attention`` over
+     n = m from 34 to 16384 (the crossover behind ``attn_impl="auto"``);
   3. build the canonical UNet1d (``dquartic_train_config.json``, 1.2 B
      parameters, int8 mid convs, seeded random weights) through
      ``build_model`` and hold one forward on the kernels against one
      through the plain versions, in float32 and bfloat16;
   4. run ``DDIMSampler.predict`` for 50 steps on one synthetic
      (34 x 40000) pair batch in bf16, check the result and that every
-     kernel was launched (K1 700, K2 1450, K3 200 times), then time
-     ms/window on the kernel path and on the plain path (median of 3);
+     kernel was launched (K1 700, K2 1450, K3 200, K7a 50 times), then time
+     ms/window on the kernel path and on the plain path (median of 3), and
+     profile one serving forward: K1's device time and every kernel's;
   5. hold each backward kernel (K4 linear attention, K5 fused ResnetBlock,
      K7b flash attention) against autograd of its plain version at the
      training path's shapes,
@@ -31,11 +34,12 @@ CUDA card with sm_90a). Phases, each of which must pass:
      (a) one step's gradients on the kernels against the plain path on the
      same weights and draws, float32 and bf16; (b) ``train_step`` 1 + 5
      times with a finite loss, moving parameters and EMA, and K1/K4 14,
-     K2/K5 29 launches per step; (c) median ms/step of 5 on the kernel and
+     K2/K5 29, K7a/K7b 1 launches per step; (c) median ms/step of 5 on the kernel and
      the plain path, and the peak device memory;
   7. ``Trainer.train`` for 2 epochs of a 3-level model (m/z 256) writing
-     latest and best checkpoints to a temporary directory, a resumed run
-     from them, and a 10-step ``predict`` from the EMA weights;
+     latest and best checkpoints and ``build_trainer``'s ``metrics.jsonl``
+     to a temporary directory, a resumed run from them, and a 10-step
+     ``predict`` from the EMA weights;
   8. the ``simple=False`` UNet1d (the MS1 tower and the transformer
      bottleneck, ``tfer_depth`` 4, ``tpu.attn_impl = "pallas"``, full
      width, 2.8 B parameters): one forward with int8 mid convs on the
@@ -52,7 +56,7 @@ CUDA card with sm_90a). Phases, each of which must pass:
      path, a ragged N and N = 1, float32 and bf16, timed through the
      wrapper and alone; the sweep of K1, K8 and the "xla" path, whose
      crossover must be ``LINATTN_MIN_SEQ``; the full-width forward on the
-     kernels against the plain path; a 50-step ``predict`` (K8 700, K1 0, K2 0, K3 200 launches)
+     kernels against the plain path; a 50-step ``predict`` (K8 700, K1 0, K2 0, K3 200, K7a 50 launches)
      and ms/window; full-width training (no int8): one step's gradients
      on the kernels against the plain path, float32 and bf16, each bf16
      path also against the float32 gradient, then ``train_step`` 1 + 5
@@ -81,7 +85,10 @@ one exists (``library_ms``), and ``bound_ms``: the least time for the
 same work on an H100 SXM at 700 W, the larger of its bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
-cores).
+cores); K1 and K7a also carry ``device_ms`` (``torch.profiler``). The
+log also gives K1's and K7a's exp floor, their exponentials at 16 a clock
+per SM, beside the bound; the JSON line holds only measured times and
+``bound_ms``.
 
 It prints one JSON line of per-kernel results and, last, one JSON line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -93,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -144,17 +152,20 @@ STEP_GRAD_TOL = {"float32": (1e-3, 0.999), "bfloat16": (1e-1, 0.9)}
 BF16_TOWER = "attn_cond_proj."
 BF16_REL_RATIO = 1.5
 TRAIN_STEPS = 5
-# launches per full-width train step (29 ResnetBlocks, 14 mixers)
+# launches per full-width train step (29 ResnetBlocks, 14 mixers, the mid attention)
 STEP_LAUNCHES = {"linear_attention": 14, "linear_attention_backward": 14,
                  "fused_resnet_block_t": 29, "fused_resnet_backward": 29, "int8_matmul": 0,
-                 "flash_attention": 0, "flash_attention_backward": 0}
+                 "flash_attention": 1, "flash_attention_backward": 1}
 # K7 (flash attention) shapes (b, h, n, m) of phases 2 and 5: the UNet's RT
 # axis at the canonical (34) and production (340) lengths, batch 8, and a
 # ragged case; d = 32.
 FLASH_SHAPES = ((1, 4, 34, 34), (1, 4, 340, 340), (8, 4, 34, 34), (1, 4, 130, 257))
 FLASH_SWEEP = (34, 340, 1024, 2048, 5120, 8192, 16384)
-# launches per forward of the canonical (simple=True) model
-SIMPLE_FORWARD = {"linear_attention": 14, "fused_resnet_block_t": 29, "int8_matmul": 4}
+# launches per forward of the canonical (simple=True) model; its one softmax
+# attention (the mid attention over the RT axis, n = 34) is K7a under
+# attn_impl "auto" (FLASH_MIN_SEQ = 34)
+SIMPLE_FORWARD = {"linear_attention": 14, "fused_resnet_block_t": 29, "int8_matmul": 4,
+                  "flash_attention": 1}
 # simple=False (phase 8): tfer_depth 4 gives 8 softmax attentions per
 # forward (2 in the MS1 tower, 2 self + 2 hybrid x 2 in the bottleneck) and
 # 15 linear-attention mixers (the 14 of the U-Net + the MS1 tower's).
@@ -170,8 +181,9 @@ TFER_STEP = {"linear_attention": 15, "linear_attention_backward": 15,
 ROWS_SHAPES = ((4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
                (16, 625), (16, 1250), (12, 5000), (8, 20000))
 ROWS_EXTRA = ((8, 700), (12, 1025), (8, 1), (16, 1))
-ROWS_FORWARD = {"fused_linear_attention": 14, "int8_matmul": 4}
-ROWS_STEP = {"fused_linear_attention": 14}  # per train step: no backward kernel
+ROWS_FORWARD = {"fused_linear_attention": 14, "int8_matmul": 4, "flash_attention": 1}
+# per train step: no K8 backward kernel
+ROWS_STEP = {"fused_linear_attention": 14, "flash_attention": 1, "flash_attention_backward": 1}
 SWEEP_C = (4, 16)
 SWEEP_N = (1, 625, 1250, 2500, 5000, 10000, 20000, 40000)
 SWEEP_REPS = 5  # the mixer is host-bound at small N: medians of 5, impls in turn
@@ -184,9 +196,12 @@ SP_SHAPES = tuple((C, N // SP) for C, N in ROWS_SHAPES if N % SP == 0) + ((8, 35
 # forward's and, in the backward, K6a 12 more (the stats are recomputed)
 # and K6c 12. With remat_linear_attn (not set here) the backward also
 # recomputes the forward: K6a 12 x (2 + 1), K6b 12 x (1 + 1).
-SP_FORWARD = {"linear_attention_sp_stats": 12, "linear_attention_sp_apply": 12}
+# (the mid attention runs whole on every rank: K7a 1, K7b 1)
+SP_FORWARD = {"linear_attention_sp_stats": 12, "linear_attention_sp_apply": 12,
+              "flash_attention": 1}
 SP_STEP = {"linear_attention_sp_stats": 24, "linear_attention_sp_apply": 12,
-           "linear_attention_sp_backward": 12}
+           "linear_attention_sp_backward": 12, "flash_attention": 1,
+           "flash_attention_backward": 1}
 # K6a's partials are sums over up to 20000 columns: an absolute tolerance
 # of 1e-4 of the largest sum (float32, another summation order)
 SP_STATS_TOL = (1e-4, 1e-4)
@@ -248,6 +263,28 @@ def flash_bound(b, h, n, m, d, itemsize, backward=False) -> dict:
                  (10 if backward else 4) * b * h * n * m * d, "bfloat16")
 
 
+def exp_floor(exps: float) -> float:
+    """ms of ``exps`` exponentials at the SFU's 16 a clock on each of the
+    card's SMs at its highest SM clock (nvidia-smi ``clocks.max.sm``), a
+    floor logged beside ``bound_ms`` for the kernels whose exponentials
+    outnumber what the table's rates count."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    return exps / (props.multi_processor_count * 16 * sm_clock_hz()) * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's highest SM clock in Hz (nvidia-smi ``clocks.max.sm``)."""
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr}")
+    return float(clk.stdout.strip().splitlines()[0]) * 1e6
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
@@ -269,6 +306,36 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / max(reps, 1)
 
 
+def device_ms(fn, reps, *names, warmup=1):
+    """Device time from ``torch.profiler`` over ``reps`` calls of ``fn``
+    (after ``warmup``): {name: (ms per call, kernels per call)} summed over
+    the kernels whose names contain ``name``, and under ``"all"`` over every
+    kernel. Fails where a named kernel never ran on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sums = {name: [0.0, 0] for name in names + ("all",)}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        for name in names + ("all",):
+            if name == "all" or name in e.key:
+                sums[name][0] += us
+                sums[name][1] += e.count
+    for name in names:
+        check(sums[name][1] > 0, f"the profiler saw no device time of {name}")
+    return {k: (us / 1e3 / reps, n / reps) for k, (us, n) in sums.items()}
+
+
 def phase_info():
     import torch
 
@@ -281,6 +348,7 @@ def phase_info():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log("card (nvidia-smi name, power.limit):")
     log(smi.stdout.strip())
+    log(f"highest SM clock (nvidia-smi clocks.max.sm): {sm_clock_hz() / 1e6:.0f} MHz")
     log(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
@@ -295,9 +363,25 @@ def phase_info():
         f"{time.perf_counter() - t0:.1f} s")
     ptxas = _build.BUILD_DIR / "ptxas.log"
     if ptxas.exists():
+        name = ""
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+            if "Compiling entry function" in line:
+                name = _kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: " + line.replace("ptxas info    :", "").strip())
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled kernel name: the last
+    length-prefixed name of the ``_ZN...`` path and what follows it."""
+    i, last = 3 if mangled.startswith("_ZN") else 2, ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        last, i = mangled[j:j + n], j + n
+    return last + mangled[i:i + 24]
 
 
 def _err(out, ref):
@@ -367,6 +451,14 @@ def phase_kernels(gen, results):
                     cuda_time(lambda: la.linear_attention_nr_reference(*a, 4, 32), 5),
                     linattn_bound(34, C, N, 2),
                 )
+                k1_dev = device_ms(lambda: la.linear_attention(*a), 20, "linattn_cluster")
+                check(k1_dev["linattn_cluster"][1] == 1 and k1_dev["all"][1] == 1,
+                      f"K1 is not one launch a call: {k1_dev}")
+                plan = la.linear_attention_plan(C, N)
+                log(f"  K1 at (34, {C}, {N}) bf16: {plan['cluster']} CTAs per cluster, slice "
+                    f"staged {plan['staged']}, {plan['smem_bytes']} B of shared memory a CTA; "
+                    f"{k1_dev['all'][1]:g} kernel(s) a call, device "
+                    f"{k1_dev['linattn_cluster'][0]:.4f} ms (torch.profiler)")
         for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
             a = rn_args(c_in, c_out, N)
             a[0] = a[0].to(dt)
@@ -409,6 +501,28 @@ def phase_kernels(gen, results):
             f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
                              **bnd)
+    # two exponentials per feature and column: p of phase 0, q of the apply pass
+    results["linear_attention"]["device_ms"] = k1_dev["linattn_cluster"][0]
+    log(f"  K1 exp floor {exp_floor(2 * 128 * 34 * MZ):.4f} ms")
+    # K1 at every mixer shape, bf16, with the weights as the module passes
+    # them (bf16 views of the conv weights): around the wrapper and alone
+    log("  K1 bf16 at the mixer shapes (34, C, N):")
+    total = 0.0
+    with torch.no_grad():
+        for C, N in ROWS_SHAPES:
+            a = la_args(C, N)
+            a[0], a[3] = a[0].to(torch.bfloat16), a[3].to(torch.bfloat16)
+            a[1], a[2] = (w.t().contiguous().to(torch.bfloat16).t() for w in a[1:3])
+            ms = cuda_time(lambda: la.linear_attention(*a), 20)
+            dev_ms = device_ms(lambda: la.linear_attention(*a), 20,
+                               "linattn_cluster")["linattn_cluster"][0]
+            total += dev_ms
+            plan = la.linear_attention_plan(C, N)
+            log(f"    ({C}, {N}): wrapper {ms:.4f} ms, device {dev_ms:.4f} ms, bound "
+                f"{linattn_bound(34, C, N, 2)['bound_ms']:.4f} ms, exp floor "
+                f"{exp_floor(2 * 128 * 34 * N):.4f} ms; {plan['cluster']} CTAs "
+                f"a cluster")
+    log(f"  K1 device ms summed over the {len(ROWS_SHAPES)} mixer shapes: {total:.4f}")
     phase_flash_forward(gen, results)
 
 
@@ -429,6 +543,7 @@ def phase_flash_forward(gen, results):
     from dquartic_tpu_torch.ops import attention_dispatch as ad
     from dquartic_tpu_torch.ops import flash_attention as fa
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     err, times = 0.0, {}
     with torch.no_grad():
         for dt in (torch.float32, torch.bfloat16):
@@ -448,33 +563,45 @@ def phase_flash_forward(gen, results):
                     _compare(f"K7a float32 output {tag} ({b}, {h}, {n}) x m {m}", out32, ref32,
                              F32_TOL)
                 if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
-                    sdpa = torch.nn.functional.scaled_dot_product_attention
                     times[n] = (cuda_time(lambda: fa.flash_attention(q, k, v), 50),
                                 cuda_time(lambda: fa.flash_attention_plain(q, k, v), 50),
-                                cuda_time(lambda: sdpa(q, k, v), 50))
-        for n, (ms, plain_ms, lib_ms) in times.items():
-            log(f"  time flash_attention bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms")
+                                cuda_time(lambda: sdpa(q, k, v), 50),
+                                device_ms(lambda: fa.flash_attention(q, k, v), 50,
+                                          "flash_fwd_mma")["flash_fwd_mma"][0])
+        for n, (ms, plain_ms, lib_ms, dev_ms) in times.items():
+            log(f"  time flash_attention bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms (device "
+                f"{dev_ms:.4f} ms, torch.profiler), plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms")
         results["flash_attention"].update(
             max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], library_ms=times[34][2],
-            ms_340=times[340][0], plain_ms_340=times[340][1], library_ms_340=times[340][2],
+            device_ms=times[34][3], ms_340=times[340][0], plain_ms_340=times[340][1],
+            library_ms_340=times[340][2], device_ms_340=times[340][3],
             **flash_bound(1, 4, 34, 34, 32, 2))
+        log(f"  K7a exp floor at (1, 4, 34, 32): {exp_floor(4 * 34 * 34):.3e} ms")
 
-        # the "auto" crossover: K7a against the plain ("xla") attention
+        # the "auto" crossover: K7a against the plain ("xla") attention, with
+        # scaled_dot_product_attention timed beside them
         log(f"  sweep, bf16 (1, 4, n, 32), n = m; FLASH_MIN_SEQ = {ad.FLASH_MIN_SEQ}:")
-        wins = []
+        wins, sweep = [], []
         for n in FLASH_SWEEP:
             q, k, v = _flash_inputs(gen, 1, 4, n, n, torch.bfloat16)
             reps = 20 if n <= 2048 else 5
             ms = cuda_time(lambda: fa.flash_attention(q, k, v), reps)
             plain = cuda_time(lambda: ad.xla_attention(q, k, v), reps)
+            lib = cuda_time(lambda: sdpa(q, k, v), reps)
             wins.append(ms < plain)
-            log(f"    n {n}: kernel {ms:.4f} ms, plain {plain:.4f} ms -> "
-                f"{'kernel' if ms < plain else 'plain'} faster")
+            floor = exp_floor(4 * n * n)
+            sweep.append(dict(n=n, ms=ms, plain_ms=plain, library_ms=lib))
+            log(f"    n {n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"scaled_dot_product_attention {lib:.4f} ms, exp floor {floor:.4f} ms -> "
+                f"{'kernel' if ms < plain else 'plain'} faster than plain")
             del q, k, v
             torch.cuda.empty_cache()
         first = next((n for i, n in enumerate(FLASH_SWEEP) if all(wins[i:])), None)
         log(f"  smallest swept n from which K7a wins: {first}")
+        results["flash_attention"]["sweep"] = sweep
+        check(first == ad.FLASH_MIN_SEQ,
+              f"the sweep puts the crossover at {first}, FLASH_MIN_SEQ is {ad.FLASH_MIN_SEQ}")
 
 
 def _model_inputs(gen, b=1):
@@ -487,11 +614,17 @@ def _model_inputs(gen, b=1):
     return x, ms2, ms1
 
 
-def _expect(per_call, calls=1):
-    """Launch counts of every kernel: ``per_call`` times ``calls``, others 0."""
+def _expect(per_call, calls=1, cfg=None):
+    """Launch counts of every kernel: ``per_call`` times ``calls``, others 0.
+    A float32 ``cfg`` under ``attn_impl = "auto"`` runs the plain attention
+    (``flash_suits``: K7a's tensor-core body is bf16), so no K7a or K7b."""
     from dquartic_tpu_torch.ops import KERNELS
 
-    return {name: per_call.get(name, 0) * calls for name in KERNELS}
+    counts = {name: per_call.get(name, 0) * calls for name in KERNELS}
+    if cfg is not None and cfg["tpu"]["compute_dtype"] == "float32" and cfg["tpu"].get(
+            "attn_impl", "auto") == "auto":
+        counts["flash_attention"] = counts["flash_attention_backward"] = 0
+    return counts
 
 
 def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
@@ -515,7 +648,7 @@ def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
             ref = model.use_kernels(False)(x, t, ms2 * 2 - 1, ms1 * 2 - 1)
         model.use_kernels(True)
         torch.cuda.synchronize()
-        check(counts == _expect(per_forward), f"forward launches {counts}")
+        check(counts == _expect(per_forward, cfg=cfg), f"forward launches {counts}")
         check(out.shape == (1, RT, MZ), f"forward shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out.float()).all()), "non-finite forward output")
         rel = float((out.float() - ref.float()).norm() / ref.float().norm())
@@ -529,9 +662,11 @@ def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
         torch.cuda.empty_cache()
 
 
-def phase_sample(config, seed, gen, per_forward, what="canonical"):
+def phase_sample(config, seed, gen, per_forward, what="canonical", results=None):
     """One 50-step predict with its launch counts, then ms/window on the
-    kernel and the plain path. Returns (launch counts, ms/window by path)."""
+    kernel and the plain path. Returns (launch counts, ms/window by path).
+    With ``results``, also the device time of one serving forward from
+    ``torch.profiler``: K1's and every kernel's."""
     import numpy as np
     import torch
 
@@ -557,7 +692,7 @@ def phase_sample(config, seed, gen, per_forward, what="canonical"):
     check(pred.shape == (1, RT, MZ), f"pred shape {pred.shape}")
     check(bool(np.isfinite(pred).all()), "non-finite prediction")
     check(bool(np.isfinite(recs[0]["pred_noise"]).all()), "non-finite pred_noise")
-    expect = _expect(per_forward, STEPS)
+    expect = _expect(per_forward, STEPS, config)
     check(counts == expect, f"launch counts {counts} != {expect}")
 
     # ms/window: one warm-up sample, then SAMPLE_REPS timed samples per path;
@@ -573,6 +708,18 @@ def phase_sample(config, seed, gen, per_forward, what="canonical"):
         log(f"  {STEPS}-step DDIM ms/window ({what}, bs1, 34x40000, bf16, int8 mid convs), {path} "
             f"path: median {per_window[path]:.2f} ms of {SAMPLE_REPS} "
             f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
+    if results is not None:
+        model.use_kernels(True)
+        t = torch.full((1,), 500, dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            dev = device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5, "linattn_cluster")
+        k1_ms, k1_n = dev["linattn_cluster"]
+        log(f"  one serving forward (torch.profiler, mean of 5): K1 {k1_n:g} launches, "
+            f"{k1_ms:.4f} ms of device time; all kernels {dev['all'][1]:g} launches, "
+            f"{dev['all'][0]:.4f} ms")
+        check(k1_n == per_forward["linear_attention"], f"K1 launches a forward {k1_n}")
+        results["linear_attention"].update(device_ms_per_forward=k1_ms,
+                                           forward_device_ms=dev["all"][0])
     del model, sampler
     torch.cuda.empty_cache()
     return counts, per_window
@@ -877,7 +1024,8 @@ def phase_train(config, seed, gen, results):
             check(counts == expect, f"train launches {counts} != {expect}")
             for name, n in counts.items():
                 results[name]["train_launches"] = n
-            for name in ("linear_attention_backward", "fused_resnet_backward"):
+            for name in ("linear_attention_backward", "fused_resnet_backward",
+                         "flash_attention_backward"):
                 results[name]["launches"] = counts[name]
             results["train"] = dict(ms_per_step=median, peak_gib=peak)
         else:
@@ -909,6 +1057,7 @@ def phase_train_loop(config, seed):
     data = [_pair_batch(seed + 10 + i, mz=mz) for i in range(2)]
     with tempfile.TemporaryDirectory() as tmp:
         best = os.path.join(tmp, "best_model.ckpt")
+        cfg["model"]["checkpoint_path"] = best
         reset_launch_counts()
         trainer = build_trainer(cfg, device="cuda", seed=seed)
         trainer.train(data, epochs=2, warmup_epochs=1, learning_rate=1e-3, checkpoint_path=best)
@@ -923,6 +1072,15 @@ def phase_train_loop(config, seed):
         resumed = build_trainer(cfg, device="cuda", seed=seed)
         resumed.train(data, epochs=3, warmup_epochs=1, learning_rate=1e-3, checkpoint_path=best)
         check(resumed.step == 6, f"resumed run took {resumed.step - 4} steps after step 4, not 2")
+        for tr in (trainer, resumed):
+            tr.logger.finish()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            epochs = [json.loads(line) for line in f]
+        check([r["epoch"] for r in epochs] == [0, 1, 2] and all(
+            {"train/loss", "learning_rate", "epoch_seconds", "steps_per_second"} <= set(r)
+            for r in epochs), f"metrics.jsonl holds {epochs}")
+        log(f"  metrics.jsonl: epochs {[r['epoch'] for r in epochs]}, losses "
+            f"{[round(r['train/loss'], 6) for r in epochs]}")
         log(f"  2 epochs of 2 steps, checkpoints {sorted(os.listdir(tmp))} "
             f"({os.path.getsize(latest) / 2**20:.1f} MiB each), launches {counts}; resumed "
             f"after epoch {ck['epoch']} and ran epoch 2 (step {resumed.step})")
@@ -952,7 +1110,6 @@ def phase_tfer(config, seed, gen, results):
     counts, per_window = phase_sample(cfg, seed, gen, TFER_FORWARD, what="simple=False")
     for name, n in counts.items():
         results[name]["tfer_launches"] = n
-    results["flash_attention"]["launches"] = counts["flash_attention"]
     results["tfer"] = dict(ms_per_window=per_window["kernel"],
                            plain_ms_per_window=per_window["plain"])
     phase_tfer_train(config, seed, gen, results)
@@ -1002,7 +1159,6 @@ def phase_tfer_train(config, seed, gen, results):
             check(counts == expect, f"train launches {counts} != {expect}")
             for name, n in counts.items():
                 results[name]["tfer_train_launches"] = n
-            results["flash_attention_backward"]["launches"] = counts["flash_attention_backward"]
         per_path[path] = dict(ms_per_step=median, peak_gib=peak, params=n_params)
         del trainer
         torch.cuda.empty_cache()
@@ -1404,12 +1560,13 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
 
     # (a) the full-width forward, sp = SP against one process
     for dtype in ("float32", "bfloat16"):
-        model = build_model(_sp_config(config, dtype, SP), device=dev, seed=seed, mesh=mesh)
+        cfg = _sp_config(config, dtype, SP)
+        model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
         with torch.inference_mode():
             reset_launch_counts()
             y = model(*inputs())
             counts = launch_counts()
-        check(counts == _expect(SP_FORWARD), f"sp forward launches {counts}")
+        check(counts == _expect(SP_FORWARD, cfg=cfg), f"sp forward launches {counts}")
         y = y.float().cpu()
         del model
         free()
@@ -1440,7 +1597,7 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         check(bool(np.isfinite(pred).all()) and pred.shape == (1, RT, MZ), "bad sp prediction")
-        check(counts == _expect(SP_FORWARD, STEPS), f"sp predict launches {counts}")
+        check(counts == _expect(SP_FORWARD, STEPS, cfg), f"sp predict launches {counts}")
         if dtype == "bfloat16":
             x_t, t, ms2, ms1 = inputs()
             ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
@@ -1477,7 +1634,7 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
         reset_launch_counts()
         m = trainer.train_step(tbatch, 1e-4, t=t, eps=eps)
         counts = launch_counts()
-        check(counts == _expect(SP_STEP), f"sp train launches {counts}")
+        check(counts == _expect(SP_STEP, cfg=cfg), f"sp train launches {counts}")
         loss = float(m["loss"])
         names = [n for n, _ in trainer.model.named_parameters()]
         grads = [p.grad.float().cpu() for p in trainer.optimizer.params] if lead else None
@@ -1599,6 +1756,8 @@ def main(argv=None) -> int:
     config = load_train_config(CONFIG)
     config["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=True,
                          linear_attn_impl="pallas_t")
+    # build_trainer's metrics log: JSONL, never a wandb run, even where wandb is installed
+    config["wandb"]["use_wandb"] = False
     results = {
         "linear_attention": dict(source="dquartic_tpu_torch/csrc/linear_attention.cu",
                                  replaces="dquartic_tpu/ops/linear_attention.py:606"),
@@ -1644,7 +1803,7 @@ def main(argv=None) -> int:
         log("== phase 3: canonical UNet1d forward, kernels vs plain")
         phase_forward(config, args.seed, gen, SIMPLE_FORWARD)
         log("== phase 4: 50-step DDIM deconvolution through DDIMSampler.predict")
-        counts, _ = phase_sample(config, args.seed, gen, SIMPLE_FORWARD)
+        counts, _ = phase_sample(config, args.seed, gen, SIMPLE_FORWARD, results=results)
         for name, n in counts.items():
             results[name]["launches"] = n
         log("== phase 5: backward kernels vs autograd of the plain versions")

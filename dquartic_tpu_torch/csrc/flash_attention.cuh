@@ -1,9 +1,10 @@
-// Tile shapes and helpers shared by K7a (flash_attention.cu) and K7b
-// (flash_attention_bwd.cu). Both map one head row (d = 32) onto the 32
-// lanes of a warp: a score is computed by the lane that owns a kv (or q)
-// row of the tile, and a 32-wide output row by the warp, one feature per
-// lane, with the weights broadcast by warp shuffles. Operands are float32
-// in shared memory whatever the input dtype; padded rows are zero.
+// Tile shapes and helpers shared by the float32 K7a (flash_attention.cu;
+// its bf16 body runs on tensor cores) and K7b (flash_attention_bwd.cu).
+// Both map one head row (d = 32) onto the 32 lanes of a warp: a score is
+// computed by the lane that owns a kv (or q) row of the tile, and a
+// 32-wide output row by the warp, one feature per lane, with the weights
+// broadcast by warp shuffles. Operands are float32 in shared memory
+// whatever the input dtype; padded rows are zero.
 #pragma once
 
 #include "common.cuh"

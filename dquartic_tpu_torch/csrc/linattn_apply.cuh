@@ -1,5 +1,6 @@
-// The per-column apply pass of the fused pre-norm linear attention, shared
-// by K1 (linear_attention.cu) and K6b (linear_attention_sp.cu): given the
+// The per-column apply pass of the fused pre-norm linear attention as a
+// launch of its own, for K6b (linear_attention_sp.cu; K1 runs its own in
+// its single cluster launch, linear_attention.cu): given the
 // folded context M = W_out^T ctx^T (C x H) of each row, one thread per
 // column computes q, the per-head softmax with the static shift and
 // y = RMSNorm_g(M q + b_out) + x (see linear_attention.cu).

@@ -1,5 +1,7 @@
-// Phase 0 of the fused pre-norm linear attention, shared by the forward
-// (K1, linear_attention.cu) and the backward (K4, linear_attention_bwd.cu):
+// Phase 0 of the fused pre-norm linear attention as launches of their own,
+// for the backward (K4, linear_attention_bwd.cu) and the sequence-parallel
+// kernels (K6, linear_attention_sp.cu); K1 (linear_attention.cu) runs its
+// own in its single cluster launch:
 //   linattn_partials: per-CTA sums A = sum_n p xh^T (H, C) and s = sum_n p
 //     over a chunk of N, p = exp2(W_k' xh - kshift') with log2(e)-scaled
 //     weights and static shifts (see linear_attention.cu);

@@ -18,8 +18,8 @@
 // (A, s), Z and T across sequential grid steps; Hopper blocks run in no
 // order, so each coupling is a pass of per-CTA partial sums over a chunk of
 // N followed by a fixed-order reduce (deterministic, no float atomics):
-//   1. linattn_partials / linattn_context (linattn_phase0.cuh, K1's own
-//      phase 0, operands in float32): ctx, 1/s and M = W_out^T ctx^T;
+//   1. linattn_partials / linattn_context (linattn_phase0.cuh, the
+//      forward's phase 0 in launches of its own, operands in float32): ctx, 1/s and M = W_out^T ctx^T;
 //   2. la_bwd_q, per column: q, qn, u, du, dq; writes dx_q = W_q^T dq
 //      (C x N, float32) and partials of Z, dW_q, db, dg;
 //   3. la_bwd_ctx, per row: dctx, dW_out, D2;

@@ -7,11 +7,11 @@
 // Replaces the TPU kernels of dquartic_tpu/ops/linear_attention.py:
 //   K6a _sp_stats (_kernel_sp0_t): the phase-0 partials over the local
 //       slice, A = sum_n p xh^T (H, C) and s = sum_n p (H), p = exp(W_k xh -
-//       kshift). Here: K1's linattn_partials over ~1024-column chunks, then a
+//       kshift). Here: linattn_partials over ~1024-column chunks, then a
 //       fixed-order sum of the chunks -> stats (B, H, C + 1) = [A | s].
 //   K6b _fused_forward_sp_local (_kernel_sp1_t): phase 1 per local column
 //       given the folded context M = W_out^T ctx^T (C, H) formed from the
-//       all-reduced stats. Here: K1's linattn_apply.
+//       all-reduced stats. Here: linattn_apply (linattn_apply.cuh).
 //   K6c _fused_backward_sp_local (_kernel_sp_bwd_a/_b/_c): K4's passes
 //       split at the two barriers of the backward:
 //       a: la_bwd_q + sum of chunks -> per-rank partials of Z, dW_q, db, dg
@@ -25,9 +25,10 @@
 // with no running-max merge. Every sum inside a rank is over per-CTA
 // partials in a fixed order (no atomics), so each launch is deterministic.
 // The TPU kernels' masked full-H contraction and padding of N to its block
-// are not carried over. The device code is K1's and K4's own
-// (linattn_phase0.cuh, linattn_apply.cuh, linattn_bwd.cuh), so a split run
-// of K6 is K1 / K4 with the chunk sums grouped by rank.
+// are not carried over. The device code is K4's and the forward's in
+// launches of their own (linattn_phase0.cuh, linattn_apply.cuh,
+// linattn_bwd.cuh), so a split run of K6 is K4, and within rounding K1,
+// with the chunk sums grouped by rank.
 //
 // What bounds it: as K1 and K4, the per-column passes read x (and dy) once
 // per pass and do ~4 H C float32 multiply-adds per column; at C <= 16 and

@@ -37,9 +37,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/ (argtypes, restype int).
 _SIGNATURES = {
-    # x, wq, wk, wv, wout, qshift, kshift, g_pre, b_out, g, part, M, y,
-    # B, C, N, heads, nsplit, chunk, bf16, device, stream
-    "dq_linear_attention": [_P] * 13 + [_I] * 8 + [_P],
+    # x, y, w_qkv, its (c, h) strides, w_out, its (h, c) strides, b_out,
+    # stride, g, stride, g_pre, stride, B, C, N, heads, w_bf16, x_bf16,
+    # device, stream
+    "dq_linear_attention": ([_P] * 3 + [_L] * 2 + [_P] + [_L] * 2 + [_P, _L] * 3
+                            + [_I] * 7 + [_P]),
+    # C, N, heads, bf16, out (3 ints: CTAs per cluster, staged, smem bytes)
+    "dq_linear_attention_plan": [_I] * 4 + [_P],
     # x, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, out,
     # B, C_in, C_out, N, film, has_res, bf16, device, stream
     "dq_fused_resnet": [_P] * 12 + [_I] * 8 + [_P],
@@ -166,9 +170,11 @@ def check(code: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current stream of ``t``'s device (PyTorch's own
+    accessor, without building a ``torch.cuda.Stream`` on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_no_grad(op: str, *tensors) -> None:

@@ -11,9 +11,11 @@ rounding that is shared by every key of a row (``csrc/flash_attention.cu``
 says what such an error does to the gradients).
 
 :func:`flash_attention` is a ``torch.autograd.Function`` on both devices.
-On CUDA tensors its forward launches ``csrc/flash_attention.cu`` and its
-backward ``csrc/flash_attention_bwd.cu``; on CPU tensors they run the
-plain versions :func:`flash_attention_reference` and
+On CUDA tensors its forward launches ``csrc/flash_attention.cu`` (bf16 on
+tensor cores, float32 on CUDA cores) and its backward
+``csrc/flash_attention_bwd.cu``; a call that autograd does not track
+launches the forward alone, writing only the output. On CPU tensors they
+run the plain versions :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`, which compute the same
 formulas with float32 scores, softmax and products and round once to the
 input dtype (the math of the JAX kernel, not of ``_xla_attention``, which
@@ -87,24 +89,40 @@ def _check_kernel_args(op: str, q, k, v) -> None:
         raise ValueError(f"{op}: needs n, m >= 1 and b*h <= 65535")
 
 
-def _launch_forward(q, k, v, scale):
-    """K7a (``csrc/flash_attention.cu``): ``(out, lse, out32)``, ``out32``
-    the float32 output (``out`` itself for float32 inputs)."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, at a 16-byte aligned address (a view with an odd
+    offset is copied): the bf16 kernel reads rows with 16-byte copies."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_forward(q, k, v, scale, saved: bool = True):
+    """K7a (``csrc/flash_attention.cu``): ``(out, lse, out32)``. With
+    ``saved`` the kernel also writes what the backward takes, ``lse`` and
+    ``out32``, the float32 output (``out`` itself for float32 inputs);
+    without it they are None, and the output is the only allocation."""
     _check_kernel_args("flash_attention", q, k, v)
     b, h, n, _ = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
-    out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) if bf16 else out
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lse = out32 = None
+    if saved:
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) if bf16 else out
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     code = _build.library().dq_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        out32.data_ptr() if bf16 else None, lse.data_ptr(),
+        out32.data_ptr() if saved and bf16 else None, lse.data_ptr() if saved else None,
         b * h, n, k.shape[2], scale, int(bf16), q.device.index or 0, _build.stream_of(q),
     )
     _build.check(code, "dq_flash_attention")
     flash_attention.launches += 1
     return out, lse, out32
+
+
+def _plain(t: torch.Tensor) -> bool:
+    """Whether the op runs its plain versions: on CPU tensors."""
+    return t.device.type == "cpu"
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale: float):
@@ -114,7 +132,7 @@ def flash_attention_backward(q, k, v, o, lse, do, scale: float):
     :func:`flash_attention_backward_reference`; CUDA tensors launch K7b
     (``csrc/flash_attention_bwd.cu``: D and dq over the q blocks, then dk
     and dv over the kv blocks; no atomics, so deterministic)."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
     _check_kernel_args("flash_attention_backward", q, k, v)
     b, h, n, _ = q.shape
@@ -139,7 +157,7 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
+        if _plain(q):
             out32, lse = _reference_f32(q, k, v, scale)
             out = out32.to(q.dtype)
         else:
@@ -158,8 +176,14 @@ def flash_attention(
 ) -> torch.Tensor:
     """Softmax attention over (b, h, n, d) with a blockwise backward;
     ``scale=None`` is ``d ** -0.5``. On CUDA tensors: float32 or bf16,
-    d = 32, any n and m."""
-    return _FlashFn.apply(q, k, v, _scale(q, scale))
+    d = 32, any n and m. A call that autograd does not track (grad mode
+    off, or no input requiring grad) launches K7a alone, writing the
+    output and neither ``lse`` nor the float32 output."""
+    scale = _scale(q, scale)
+    if not _plain(q) and not (torch.is_grad_enabled()
+                              and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _launch_forward(q, k, v, scale, saved=False)[0]
+    return _FlashFn.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0  # kernel launches; reset by the caller

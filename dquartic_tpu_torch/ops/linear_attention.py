@@ -9,10 +9,12 @@ backward ``_fused_backward_t``):
     y = x + RMSNorm_g(W_out · attn(RMSNorm_{g_pre}(x)) + b_out)
 
 with q softmaxed over each head's features and k over the sequence. The
-CUDA kernels are ``csrc/linear_attention.cu`` (forward) and
+CUDA kernels are ``csrc/linear_attention.cu`` (forward, one cluster
+launch that reads the weights as they are) and
 ``csrc/linear_attention_bwd.cu`` (backward); on CUDA tensors the op is a
 ``torch.autograd.Function`` that runs one forward and one backward kernel
-and saves only ``(x, weights)``, as the JAX ``custom_vjp`` does. The op
+and saves only ``(x, weights)``, as the JAX ``custom_vjp`` does, and a call
+autograd does not track launches the forward alone. The op
 takes channel-first (B, C, N) activations — the layout the TPU kernel
 itself runs on — and the flax weight layouts: ``w_qkv`` (C, 3H) with
 q|k|v blocks and channel-major heads, ``w_out`` (H, C).
@@ -29,6 +31,7 @@ as their plain version.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -137,27 +140,48 @@ def _split(N):
     return nsplit, math.ceil(N / nsplit)
 
 
+def _weight_args(x, w_qkv, w_out, b_out, g, g_pre):
+    """The weights as K1 reads them, each in its own dtype through its
+    strides (no copy): ``(args, dtype bits)``, ``args`` the pointers and
+    strides of ``dq_linear_attention``."""
+    C = x.shape[1]
+    ws = (w_qkv, w_out, b_out.reshape(-1), g.reshape(-1), g_pre.reshape(-1))
+    args, bits = [], 0
+    for i, t in enumerate(ws):
+        if t.device != x.device or t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"linear_attention: weights must be float32 or bfloat16 on "
+                             f"{x.device} (got {t.dtype} on {t.device})")
+        if i >= 2 and t.shape != (C,):
+            raise ValueError(f"b_out, g and g_pre must hold {C} values")
+        bits |= (t.dtype == torch.bfloat16) << i
+        args += [t.data_ptr(), *t.stride()]
+    return args, bits
+
+
 def _forward_kernel(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
-    """Launch K1 (three kernels of ``csrc/linear_attention.cu``)."""
+    """Launch K1: one cluster launch of ``csrc/linear_attention.cu``, which
+    reads the weights as they are and prepares them itself."""
     _check_kernel_args("linear_attention", x, w_qkv, w_out, heads, dim_head)
     B, C, N = x.shape
-    H = heads * dim_head
-    dev = x.device
-    _, _, wv, gp, _, _, (wq2, wk2, kshift2, qshift2) = _kernel_weights(x, w_qkv, g_pre, heads)
-    nsplit, chunk = _split(N)
-    part = torch.empty((B, nsplit, H, C + 1), dtype=torch.float32, device=dev)
-    m = torch.empty((B, C, H), dtype=torch.float32, device=dev)
+    wargs, bits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
     y = torch.empty_like(x)
-    args = (wq2, wk2, wv, _f32(w_out, dev), qshift2, kshift2, gp, _f32(b_out, dev).reshape(C),
-            _f32(g, dev).reshape(C))
     code = _build.library().dq_linear_attention(
-        x.data_ptr(), *[a.data_ptr() for a in args], part.data_ptr(), m.data_ptr(),
-        y.data_ptr(), B, C, N, heads, nsplit, chunk, int(x.dtype == torch.bfloat16),
-        dev.index or 0, _build.stream_of(x),
+        x.data_ptr(), y.data_ptr(), *wargs, B, C, N, heads, bits,
+        int(x.dtype == torch.bfloat16), x.device.index or 0, _build.stream_of(x),
     )
     _build.check(code, "dq_linear_attention")
     linear_attention.launches += 1
     return y
+
+
+def linear_attention_plan(C: int, N: int, heads: int = 4, bf16: bool = True) -> dict:
+    """K1's launch shape for (C, N) (builds the kernels): CTAs per cluster
+    (``cluster``), whether a CTA stages its slice of x in shared memory
+    (``staged``) and its dynamic shared memory (``smem_bytes``)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().dq_linear_attention_plan(C, N, heads, int(bf16), out),
+                 "dq_linear_attention_plan")
+    return dict(cluster=out[0], staged=bool(out[1]), smem_bytes=out[2])
 
 
 def linear_attention_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD):
@@ -258,7 +282,10 @@ def linear_attention(
     K4 kernel (C <= 16, dim_head 32, heads·32 <= 256)."""
     if x.device.type == "cpu":
         return linear_attention_nr_reference(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
-    return _LinearAttentionFn.apply(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
+    args = (x, w_qkv, w_out, b_out, g, g_pre)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return _forward_kernel(*args, heads, dim_head)  # untracked: no autograd node
+    return _LinearAttentionFn.apply(*args, heads, dim_head)
 
 
 linear_attention.launches = 0  # kernel launches; reset by the caller

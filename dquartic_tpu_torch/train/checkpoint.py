@@ -6,8 +6,12 @@ The same file names as the JAX package: a "latest" checkpoint named
 written every epoch, plus the best-loss file; training auto-resumes from
 the latest file. The format is ``torch.save`` of ``{epoch, best_loss,
 step, params, opt_state, ema_params}``, written atomically through a
-``.tmp`` file and ``os.replace``. Reading the JAX package's msgpack files
-is not ported yet (ROADMAP.md Queue 1 item 6).
+``.tmp`` file and ``os.replace``: the port's files are ``torch.save``
+files under the JAX names, whatever the JAX package would write there.
+This is the port's only backend; ``build_trainer`` accepts
+``tpu.checkpoint_backend = "msgpack"`` (the default) and raises for
+``"orbax"`` or an unknown value. Reading the JAX package's msgpack files
+is not ported yet (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ for the UNet1d.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,6 +19,7 @@ from ..ops.quantization import quantize_mid_block_params
 from ..parallel.mesh import Mesh, make_mesh
 from ..train import Trainer, make_optimizer
 from .device import resolve_device
+from .logging import NoOpLogger, make_logger
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 # Parameters kept float32 in every dtype, as JAX keeps them: the gains of
@@ -157,23 +159,76 @@ def build_process(config: Dict[str, Any]) -> DDIMProcess:
     )
 
 
+def _check_checkpoint_backend(config: Dict[str, Any]) -> None:
+    """``tpu.checkpoint_backend``: the port writes its checkpoints one way
+    (:mod:`~dquartic_tpu_torch.train.checkpoint`), so only the default
+    ``"msgpack"`` names it; the JAX package's ``"orbax"`` and any unknown
+    value raise rather than train and write something else."""
+    backend = config["tpu"].get("checkpoint_backend", "msgpack")
+    if backend == "orbax":
+        raise ValueError(
+            "tpu.checkpoint_backend 'orbax': the PyTorch port has no Orbax backend; it "
+            "writes torch.save files under the JAX package's .ckpt names (use 'msgpack')")
+    if backend != "msgpack":
+        raise ValueError(f"Unknown checkpoint_backend: {backend!r}")
+
+
+def build_logger(config: Dict[str, Any], mesh=None):
+    """The metrics logger of the JAX ``build_trainer``: wandb from the
+    config's ``wandb`` block when ``use_wandb`` is set and wandb is
+    installed, else a JSONL log at ``<dirname(model.checkpoint_path)>/
+    metrics.jsonl``. Under a mesh only sp rank 0 logs, as only it writes
+    checkpoints; the other ranks get a no-op logger."""
+    if mesh is not None and mesh.sp_rank != 0:
+        return NoOpLogger()
+    w = config.get("wandb", {})
+    log_dir = os.path.dirname(config["model"].get("checkpoint_path", "")) or "."
+    return make_logger(
+        use_wandb=bool(w.get("use_wandb")),
+        log_dir=log_dir,
+        wandb_kwargs=dict(
+            project=w.get("wandb_project"),
+            name=w.get("wandb_name"),
+            id=w.get("wandb_id"),
+            resume=w.get("wandb_resume"),
+            mode=w.get("wandb_mode", "offline"),
+            config={
+                "architecture": w.get("wandb_architecture"),
+                "dataset": w.get("wandb_dataset"),
+                **config["model"],
+            },
+        ),
+        run_name=w.get("wandb_name"),
+    )
+
+
 def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None,
                   mesh=None) -> Trainer:
     """Trainer over a trainable UNet1d (float32 master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
     of the config, as the JAX ``build_trainer`` wires them, on ``device``
     (None: the card; raises without one), on ``mesh`` (None:
-    :func:`build_mesh` of ``tpu.mesh``)."""
+    :func:`build_mesh` of ``tpu.mesh``), logging its epochs to ``logger``
+    (None: :func:`build_logger` of the config).
+
+    ``tpu.checkpoint_backend`` must be ``"msgpack"``, the default: the
+    port's checkpoints are ``torch.save`` files under the JAX package's
+    names, and it has no Orbax backend, so ``"orbax"`` raises, as does an
+    unknown value (as in the JAX ``Trainer``). Reading the JAX package's
+    msgpack files is not ported yet."""
     if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
         raise ValueError(
             "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
             "in a training config: int8 weights are frozen post-training artifacts with "
             "no gradient. Train with float32 master weights, then quantize for predict."
         )
+    _check_checkpoint_backend(config)
     device = resolve_device(device, "build_trainer")
     if mesh is None:
         mesh = build_mesh(config)
     model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh)
+    if logger is None:
+        logger = build_logger(config, mesh)
     return Trainer(
         model,
         build_process(config),

@@ -1,0 +1,101 @@
+"""``build_trainer``'s handling of the config's checkpoint backend and metrics
+log, against the JAX package's builder and logger.
+
+The JAX ``Trainer`` raises for an unknown ``tpu.checkpoint_backend``; the
+port has one backend (``torch.save`` files under the JAX names), so it
+takes ``"msgpack"`` only. The JAX ``build_trainer`` always builds a
+logger (``make_logger``): wandb where configured and installed, else
+``<checkpoint dir>/metrics.jsonl``; the port builds the same one from
+its own copy of the logging module.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from dquartic_tpu.utils import logging as jax_logging
+from dquartic_tpu_torch.utils import logging as port_logging
+from dquartic_tpu_torch.utils.builder import build_logger, build_trainer
+from dquartic_tpu_torch.utils.config import load_train_config
+
+# the keys of the epoch record the JAX Trainer logs (trainer.py, Trainer.train)
+EPOCH_KEYS = {"epoch", "train/loss", "learning_rate", "epoch_seconds", "steps_per_second"}
+RT, MZ = 34, 64
+
+
+def _config(tmp_path=None, **tpu):
+    cfg = load_train_config("dquartic_train_config.json")
+    cfg["model"]["UNet1d"].update(dim_mults=[1, 2], downsample_dim=MZ)
+    cfg["tpu"].update(fused_resnet=True, **tpu)
+    cfg["wandb"]["use_wandb"] = False
+    if tmp_path is not None:
+        cfg["model"]["checkpoint_path"] = str(tmp_path / "run" / "best_model.ckpt")
+    return cfg
+
+
+def _batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"ms2_1": rng.uniform(0, 1, (1, RT, MZ)).astype(np.float32),
+            "ms1_1": rng.uniform(0, 1, (1, RT)).astype(np.float32),
+            "ms2_2": rng.uniform(0, 1, (1, RT, MZ)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("backend,match", [
+    ("orbax", "no Orbax backend"), ("msgpak", "Unknown checkpoint_backend"),
+])
+def test_config_checkpoint_backend_other_than_msgpack_raises(backend, match):
+    with pytest.raises(ValueError, match=match):
+        build_trainer(_config(checkpoint_backend=backend), device="cpu")
+
+
+def test_config_checkpoint_backend_msgpack_builds():
+    tr = build_trainer(_config(checkpoint_backend="msgpack"), device="cpu", seed=1)
+    assert tr.num_parameters() > 0
+
+
+def test_build_trainer_writes_the_metrics_log(tmp_path):
+    """Without a logger, build_trainer logs to ``<dirname(checkpoint_path)>/
+    metrics.jsonl`` (wandb off in the config), one record per epoch with
+    the JAX Trainer's keys."""
+    cfg = _config(tmp_path)
+    tr = build_trainer(cfg, device="cpu", seed=2)
+    assert isinstance(tr.logger, port_logging.JsonlLogger)
+    tr.train([_batch(3), _batch(4)], epochs=1, warmup_epochs=0, learning_rate=1e-3,
+             checkpoint_path=cfg["model"]["checkpoint_path"])
+    tr.logger.finish()
+    lines = (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()
+    (rec,) = [json.loads(line) for line in lines]
+    assert set(rec) == EPOCH_KEYS | {"_time"}
+    assert rec["epoch"] == 0 and np.isfinite(rec["train/loss"]) and rec["steps_per_second"] > 0
+
+
+def test_build_logger_logs_on_sp_rank_zero_only(tmp_path):
+    class Rank:
+        def __init__(self, r):
+            self.sp_rank = r
+
+    cfg = _config(tmp_path)
+    assert isinstance(build_logger(cfg, Rank(0)), port_logging.JsonlLogger)
+    assert isinstance(build_logger(cfg, Rank(1)), port_logging.NoOpLogger)
+    assert not build_logger(cfg, Rank(1)).enabled
+
+
+@pytest.mark.parametrize("run_name", [None, "run-a"])
+def test_jsonl_logger_writes_what_the_jax_logger_writes(tmp_path, run_name):
+    """The same dict gives the same record from both packages' loggers,
+    apart from ``_time`` (seconds since the logger was made)."""
+    metrics = {"epoch": 3, "train/loss": np.float32(0.25), "learning_rate": 1e-4,
+               "steps_per_second": torch.tensor(2.5), "note": "text", "shape": [1, 2]}
+    recs = []
+    for mod, d in ((port_logging, "port"), (jax_logging, "jax")):
+        lg = mod.make_logger(use_wandb=False, log_dir=str(tmp_path / d), run_name=run_name)
+        lg.log(metrics)
+        lg.log_table("t", ["a"], [[1]])
+        lg.finish()
+        lines = [json.loads(s) for s in (tmp_path / d / "metrics.jsonl").read_text().splitlines()]
+        lines[0].pop("_time")
+        recs.append(lines)
+    assert recs[0] == recs[1]
+    assert recs[0][0]["train/loss"] == 0.25 and recs[0][0]["note"] == "text"

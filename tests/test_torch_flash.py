@@ -127,7 +127,9 @@ def test_flash_backward_gets_the_float32_output(monkeypatch):
     """For bf16 inputs the autograd Function hands its backward the float32
     output, not the one rounded to bf16, so D = rowsum(dO ∘ O) carries no
     rounding shared by every key of a row; its gradients are then those of
-    autograd through the plain version, up to their own rounding to bf16."""
+    autograd through the plain version, up to their own rounding to bf16.
+    The kernel writes that output and lse only where autograd will need
+    them."""
     seen = []
     real = tfa.flash_attention_backward
     monkeypatch.setattr(tfa, "flash_attention_backward",
@@ -145,6 +147,26 @@ def test_flash_backward_gets_the_float32_output(monkeypatch):
     for g, r in zip(got, ref):
         assert g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), r.float(), rtol=2**-7, atol=1e-6)
+
+    # The kernel path's buffers, with the kernel library faked: an untracked
+    # call (serving) passes the kernel neither the float32 output nor lse,
+    # a call autograd tracks passes both, for the backward.
+    passed = []
+
+    class FakeLibrary:
+        def dq_flash_attention(self, q, k, v, out, out32, lse, *rest):
+            passed.append((out32 is not None, lse is not None))
+            return 0
+
+    monkeypatch.setattr(tfa, "_plain", lambda t: False)
+    monkeypatch.setattr(tfa, "_check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(tfa._build, "library", FakeLibrary)
+    monkeypatch.setattr(tfa._build, "stream_of", lambda t: 0)
+    with torch.no_grad():
+        tfa.flash_attention(*ts)
+    tfa.flash_attention(q, k, v)  # no input requires grad
+    tfa.flash_attention(*ts)
+    assert passed == [(False, False), (False, False), (True, True)]
 
 
 # --------------------------------------------------------------------- #
@@ -177,6 +199,20 @@ def test_dispatch_selects_implementation(monkeypatch):
     np.testing.assert_allclose(out.numpy(), real(q, k, v).detach().numpy(), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="Unknown attention impl"):
         tad.dot_product_attention(q, k, v, impl="nope")
+
+
+@pytest.mark.parametrize("dtype,d,extra,expect", [
+    ("bfloat16", 32, 0, True), ("bfloat16", 32, -1, False), ("float32", 32, 300, False),
+    ("bfloat16", 64, 300, False), ("float32", 64, 0, False),
+])
+def test_auto_takes_the_kernel_only_where_the_sweep_measured_it(dtype, d, extra, expect):
+    """``"auto"`` sends to K7a only bf16 at head dimension 32 from
+    FLASH_MIN_SEQ rows up (``extra`` rows past it): float32 (K7a's
+    CUDA-core body) and other head dimensions (which the kernels refuse)
+    take the plain version."""
+    q = torch.zeros((1, 2, (tad.FLASH_MIN_SEQ or 34) + extra, d), dtype=getattr(torch, dtype))
+    assert tad.flash_suits(q, q) == (expect and tad.FLASH_MIN_SEQ is not None)
+    assert tad.flash_suits(q, q[..., :1, :]) is False  # the shorter sequence decides
 
 
 def _small_config(simple, attn_impl):
@@ -268,3 +304,30 @@ def test_flash_backward_kernel_on_card(cuda, dtype, b, h, n, m):
         assert g.dtype == q.dtype
         err = float((g.float() - r).abs().max() / r.abs().max())
         assert err < (1e-5 if dtype == "float32" else 1e-2), err
+
+
+_EDGES = (1, 15, 17, 63, 65)  # around the 16-row warp block and the 64-row kv tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m", [(1, 4, 34, 34), (1, 4, 340, 340), (8, 4, 34, 34),
+                                     (1, 4, 130, 257)]
+                         + [(2, 3, n, m) for n in _EDGES for m in _EDGES])
+def test_flash_forward_bf16_tensor_cores_on_card(cuda, b, h, n, m):
+    """The bf16 K7a (mma.sync) at the UNet's shapes and at n, m around its
+    tile edges: the output within the bf16 tolerance of the plain version,
+    the float32 output and lse within 1e-5 of the plain version in float32
+    on the same values; an untracked call (the serving path) gives the same
+    output without writing lse or the float32 output."""
+    q, k, v = (_t(a, "bfloat16", cuda) for a in _qkv(b, h, n, m, seed=n * 100 + m))
+    out, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    with torch.no_grad():
+        served = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref, _ = tfa.flash_attention_reference(q, k, v, 32 ** -0.5)
+    ref32, ref_lse = tfa.flash_attention_reference(q.float(), k.float(), v.float(), 32 ** -0.5)
+    assert torch.equal(served, out) and torch.equal(out32.to(torch.bfloat16), out)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=CARD_TOL["bfloat16"],
+                               atol=CARD_TOL["bfloat16"])
+    torch.testing.assert_close(out32, ref32, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)

@@ -240,6 +240,61 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_linear_attention_wrapper_hands_the_weights_over_as_they_are(monkeypatch):
+    """K1's wrapper runs no torch op on the weights: the kernel gets their
+    own memory, strides and dtypes (here the module's bf16 views of the
+    conv weights beside float32 norm gains), and the wrapper allocates y."""
+    passed = []
+
+    class FakeLibrary:
+        def dq_linear_attention(self, *args):
+            passed.append(args)
+            return 0
+
+    monkeypatch.setattr(tla, "_check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(tla._build, "library", FakeLibrary)
+    monkeypatch.setattr(tla._build, "stream_of", lambda t: 0)
+    a = _linattn_args(np.random.default_rng(12), 2, 4, 10)
+    x = _t(a["x"]).to(torch.bfloat16)
+    conv_qkv = _t(a["w_qkv"]).t().contiguous().to(torch.bfloat16)  # (3H, C)
+    conv_out = _t(a["w_out"]).t().contiguous().to(torch.bfloat16)  # (C, H)
+    w = [conv_qkv.t(), conv_out.t(), _t(a["b_out"]).to(torch.bfloat16), _t(a["g"]),
+         _t(a["g_pre"]).reshape(1, 4, 1)]
+    before = tla.linear_attention.launches
+    y = tla._forward_kernel(x, *w, 4, 32)
+    assert tla.linear_attention.launches == before + 1
+    (args,) = passed
+    assert args[:2] == (x.data_ptr(), y.data_ptr())
+    assert args[2:5] == (conv_qkv.data_ptr(), 1, 4) and args[5:8] == (conv_out.data_ptr(), 1, 128)
+    assert args[8:14] == (w[2].data_ptr(), 1, w[3].data_ptr(), 1, w[4].data_ptr(), 1)
+    assert args[14:20] == (2, 4, 10, 4, 0b00111, 1)  # B, C, N, heads, bf16 weights, bf16 x
+    with pytest.raises(ValueError, match="b_out, g and g_pre"):
+        tla._forward_kernel(x, *w[:3], w[3][:3], w[4], 4, 32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [1, 3, 6, 8])
+def test_linear_attention_wrapper_takes_every_head_count(monkeypatch, heads, dtype):
+    """K1's wrapper hands every heads·32 <= 256 to the kernel, bf16 as
+    float32 (as K4 and the JAX kernel take them)."""
+    passed = []
+
+    class FakeLibrary:
+        def dq_linear_attention(self, *args):
+            passed.append(args)
+            return 0
+
+    monkeypatch.setattr(tla, "_check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(tla._build, "library", FakeLibrary)
+    monkeypatch.setattr(tla._build, "stream_of", lambda t: 0)
+    a = _linattn_args(np.random.default_rng(13), 1, 8, 5, heads=heads)
+    x = _t(a["x"]).to(getattr(torch, dtype))
+    tla._forward_kernel(x, *(_t(a[k]) for k in ("w_qkv", "w_out", "b_out", "g", "g_pre")),
+                        heads, 32)
+    (args,) = passed
+    assert args[14:18] == (1, 8, 5, heads) and args[19] == int(dtype == "bfloat16")
+
+
 # --------------------------------------------------------------------- #
 # on the card: each CUDA kernel against its plain version               #
 # --------------------------------------------------------------------- #
@@ -313,3 +368,69 @@ def test_int8_matmul_kernel_on_card(cuda, dtype, M, K, N):
         rtol=2**-7, atol=2**-8 * scale
     )
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+# (C, N) of the 14 mixers of the canonical UNet1d, then a ragged N and one
+# column (the MS1 tower's mixer); (16, 200000): a CTA's slice of x exceeds
+# K1's staging budget, so its passes read x from device memory
+MIXER_SHAPES = [(4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
+                (16, 625), (16, 1250), (12, 5000), (8, 20000), (8, 700), (12, 1025), (8, 1),
+                (16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,C,N", [(B, C, N) for C, N in MIXER_SHAPES for B in (1, 34)]
+                         + [(1, 16, 200000), (3, 16, 200000)])
+def test_linear_attention_kernel_every_mixer_shape_on_card(cuda, dtype, B, C, N):
+    """K1 at every mixer shape: one launch per call, bitwise equal over two
+    calls, within tolerance of the plain version. bf16 takes its weights as
+    the module passes them: bf16 views of the conv weights (transposed,
+    not copied); float32 takes contiguous float32 weights."""
+    a = _linattn_args(np.random.default_rng(C * 7 + N + B), B, C, N)
+    t = {k: _t(v, cuda) for k, v in a.items()}
+    dt = getattr(torch, dtype)
+    x = t["x"].to(dt)
+    w = [t[k] for k in ("w_qkv", "w_out", "b_out", "g", "g_pre")]
+    if dtype == "bfloat16":  # (3H, C) and (C, H) conv weights seen as (C, 3H), (H, C)
+        w[0] = w[0].t().contiguous().to(dt).t()
+        w[1] = w[1].t().contiguous().to(dt).t()
+        w[2] = w[2].to(dt)
+    before = tla.linear_attention.launches
+    with torch.no_grad():
+        out = tla.linear_attention(x, *w)
+        again = tla.linear_attention(x, *w)
+    assert tla.linear_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    plan = tla.linear_attention_plan(C, N, bf16=dtype == "bfloat16")
+    assert plan["staged"] == (N != 200000), plan
+    ref = tla.linear_attention_nr_reference(x.float(), *(v.float() for v in w), 4, 32)
+    tol = F32_CARD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [1, 2, 3, 5, 6, 7, 8])
+@pytest.mark.parametrize("B,C,N", [(34, 4, 5000), (2, 16, 1025), (1, 16, 200000)])
+def test_linear_attention_kernel_every_head_count_on_card(cuda, dtype, heads, B, C, N):
+    """K1 at every heads·32 <= 256: head counts whose features do not fill
+    whole thread groups or warps (3, 5, 6, 7), and bf16 above 128 features,
+    where phase 0 runs its feature blocks in two passes; bitwise equal over
+    two calls, within tolerance of the plain version."""
+    a = _linattn_args(np.random.default_rng(heads * 31 + C + N), B, C, N, heads=heads)
+    t = {k: _t(v, cuda) for k, v in a.items()}
+    dt = getattr(torch, dtype)
+    x = t["x"].to(dt)
+    w = [t[k] for k in ("w_qkv", "w_out", "b_out", "g", "g_pre")]
+    if dtype == "bfloat16":
+        w[:3] = [v.to(dt) for v in w[:3]]
+    with torch.no_grad():
+        out = tla.linear_attention(x, *w, heads=heads)
+        again = tla.linear_attention(x, *w, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = tla.linear_attention_nr_reference(x.float(), *(v.float() for v in w), heads, 32)
+    tol = F32_CARD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
