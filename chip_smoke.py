@@ -11,8 +11,11 @@ CUDA card with sm_90a). Phases, each of which must pass:
   2. hold each CUDA kernel (K1 linear attention, K2 fused ResnetBlock, K3
      int8 matmul, K7a flash attention) against its plain PyTorch version at
      the main path's shapes, in float32 (TF32 off) and bfloat16, and time
-     both; K1 and K7a also alone on the device (``torch.profiler``) and
-     beside the floor of their exponentials at the SFU's rate; sweep K7a
+     both; K1, K2, K3 and K7a also alone on the device (``torch.profiler``),
+     K1 and K7a beside the floor of their exponentials at the SFU's rate;
+     K3 beside ``torch._weight_int8pack_mm`` and at batch 8 and the
+     production shape; K2 at the 29 ResnetBlock shapes of the canonical
+     forward with the module's operands; sweep K7a
      against the plain attention and ``scaled_dot_product_attention`` over
      n = m from 34 to 16384 (the crossover behind ``attn_impl="auto"``);
   3. build the canonical UNet1d (``dquartic_train_config.json``, 1.2 B
@@ -23,12 +26,14 @@ CUDA card with sm_90a). Phases, each of which must pass:
      (34 x 40000) pair batch in bf16, check the result and that every
      kernel was launched (K1 700, K2 1450, K3 200, K7a 50 times), then time
      ms/window on the kernel path and on the plain path (median of 3), and
-     profile one serving forward: K1's device time and every kernel's;
+     profile one serving forward: K1's, K2's and K3's device time, and every
+     kernel's with their count;
   5. hold each backward kernel (K4 linear attention, K5 fused ResnetBlock,
      K7b flash attention) against autograd of its plain version at the
      training path's shapes,
      in float32 (TF32 off) and bfloat16, check that two identical calls
-     give bitwise equal gradients, and time both at the level-0 shape;
+     give bitwise equal gradients, and time both at the level-0 shape (K5
+     also on the device);
   6. full-width training of the canonical model through ``build_trainer``
      (bf16 compute on float32 master weights, AdamW + EMA, batch 1):
      (a) one step's gradients on the kernels against the plain path on the
@@ -85,7 +90,7 @@ one exists (``library_ms``), and ``bound_ms``: the least time for the
 same work on an H100 SXM at 700 W, the larger of its bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
-cores); K1 and K7a also carry ``device_ms`` (``torch.profiler``). The
+cores); K1, K2, K3, K5 and K7a also carry ``device_ms`` (``torch.profiler``). The
 log also gives K1's and K7a's exp floor, their exponentials at 16 a clock
 per SM, beside the bound; the JSON line holds only measured times and
 ``bound_ms``.
@@ -184,6 +189,18 @@ ROWS_EXTRA = ((8, 700), (12, 1025), (8, 1), (16, 1))
 ROWS_FORWARD = {"fused_linear_attention": 14, "int8_matmul": 4, "flash_attention": 1}
 # per train step: no K8 backward kernel
 ROWS_STEP = {"fused_linear_attention": 14, "flash_attention": 1, "flash_attention_backward": 1}
+# (C_in, C_out, N) of the 29 ResnetBlocks (K2) of the canonical forward: two
+# a level down (dim 4, dim_mults (1, 2, 2, 3, 3, 4, 4)), two a level up on
+# the concatenated skips, then final_res_block
+RESNET_SHAPES = (
+    [(c, c, MZ >> i) for i, c in enumerate((4, 4, 8, 8, 12, 12, 16)) for _ in "12"]
+    + [(i + o, o, (MZ >> 6) << j) for j, (i, o) in enumerate(
+        ((16, 16), (12, 16), (12, 12), (8, 12), (8, 8), (4, 8), (4, 4))) for _ in "12"]
+    + [(8, 4, MZ)]
+)
+# K3 (M, K, N) beside the canonical (34, 30000, 10000): batch 8, and the
+# production shape's mid conv (340 rows of 30016 m/z: 7504 channels)
+K3_SHAPES = ((8 * RT, 30000, 10000), (340, 22512, 7504))
 SWEEP_C = (4, 16)
 SWEEP_N = (1, 625, 1250, 2500, 5000, 10000, 20000, 40000)
 SWEEP_REPS = 5  # the mixer is host-bound at small N: medians of 5, impls in turn
@@ -404,6 +421,145 @@ def _compare(name, out, ref, tol, atol_scale=1.0):
     return max_abs
 
 
+def k3_bound(M, K, N) -> dict:
+    """K3 at (M, K, N) in bf16: the int8 weights, scales, x and out moved
+    once; 2 M K N operations on bf16 tensor cores."""
+    return bound(K * N + 4 * N + 2 * (M * K + M * N), 2 * M * K * N, "bfloat16")
+
+
+def _k3_compare(name, out, ref, tol):
+    # sums of K products: rounding scales with the size of the sums
+    return _compare(name, out, ref, tol, atol_scale=float(ref.float().abs().max()))
+
+
+def k3_library(x, q, s, ref, tol) -> dict:
+    """``library_ms`` of K3: ``torch._weight_int8pack_mm`` (x (M, K), int8
+    weights (N, K), per-column scales in x's dtype), the one PyTorch call
+    that forms x @ int8 weights x scale; its (N, K) weights and bf16 scales
+    are made once, outside the timing, and its output is held against the
+    plain version. Where the card's build has no kernel for it, the reason."""
+    import torch
+
+    try:
+        wt, st = q.t().contiguous(), s.to(x.dtype)
+        out = torch._weight_int8pack_mm(x, wt, st)
+        _k3_compare("torch._weight_int8pack_mm (scales rounded to bf16)", out, ref, tol)
+        ms = cuda_time(lambda: torch._weight_int8pack_mm(x, wt, st), 20)
+        log(f"  torch._weight_int8pack_mm at (34, 30000, 10000) bf16: {ms:.4f} ms")
+        return dict(library_ms=ms, library="torch._weight_int8pack_mm")
+    except SmokeFailure:
+        raise
+    except Exception as e:  # no CUDA kernel for it in this build
+        first = (str(e).strip().splitlines() or [type(e).__name__])[0]
+        log(f"  torch._weight_int8pack_mm on the card: {type(e).__name__}: {first}")
+        return dict(library_ms=None, library_note=f"torch._weight_int8pack_mm: {first}")
+
+
+def phase_k3_shapes(gen, results):
+    """K3 bf16 at batch 8 (M = 272) and the production mid conv (340 rows,
+    K 22512, N 7504) against its plain version, around the wrapper and on
+    the device, beside its bound (reported, not gated)."""
+    import torch
+
+    from dquartic_tpu_torch.ops import int8_matmul as im
+
+    rows = []
+    for M, K, N in K3_SHAPES:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        q, s = im.quantize_weight_matrix(torch.randn((K, N), generator=gen, device="cuda"))
+        _k3_compare(f"K3 int8_matmul bfloat16 M={M} K={K} N={N}", im.int8_matmul(x, q, s),
+                    im.int8_matmul_reference(x, q, s), (2**-7, 2**-8))
+        ms = cuda_time(lambda: im.int8_matmul(x, q, s), 10)
+        dev = device_ms(lambda: im.int8_matmul(x, q, s), 10, "int8_matmul_mma")["all"][0]
+        bnd = k3_bound(M, K, N)
+        log(f"  time int8_matmul bf16 ({M}, {K}, {N}): kernel {ms:.4f} ms, device {dev:.4f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows.append(dict(M=M, K=K, N=N, ms=ms, device_ms=dev, **bnd))
+        del x, q, s
+        torch.cuda.empty_cache()
+    results["int8_matmul"]["shapes"] = rows
+
+
+def k2_host_costs(gen, results):
+    """Host time of a K2 call and of two of its parts, on the host clock
+    over 2000 calls: the op at (34, 4 -> 4, N 8), where the host sets the
+    pace; ``torch.empty`` of its output; the ctypes call of the entry
+    point with its 38 arguments, made to return before any CUDA call (B =
+    0). What remains is the wrapper's Python and the launch."""
+    import torch
+
+    from dquartic_tpu_torch.ops import _build
+    from dquartic_tpu_torch.ops import fused_resnet as fr
+
+    def per_call_ms(fn, n=2000):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def randn(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    a = [randn(34, 4, 8), randn(4, 4, 3).permute(2, 1, 0), randn(4), randn(4, dt=torch.float32),
+         *randn(34, 8).chunk(2, dim=-1), randn(4, 4, 3).permute(2, 1, 0), randn(4),
+         randn(4, dt=torch.float32), None, None]
+    entry = _build.library().dq_fused_resnet
+    bare = [0] * (len(entry.argtypes) - 1) + [None]  # B = 0: refused before any CUDA call
+    with torch.no_grad():
+        costs = dict(host_ms_call=per_call_ms(lambda: fr.fused_resnet_block_t(*a)),
+                     host_ms_empty=per_call_ms(lambda: torch.empty((34, 4, 8), dtype=torch.bfloat16,
+                                                                   device="cuda")),
+                     host_ms_ctypes=per_call_ms(lambda: entry(*bare)))
+    log(f"  K2 on the host clock: a call {costs['host_ms_call']:.4f} ms, of which torch.empty "
+        f"{costs['host_ms_empty']:.4f} ms and the bare ctypes call {costs['host_ms_ctypes']:.4f} ms")
+    results["fused_resnet_block_t"].update(costs)
+
+
+def phase_k2_shapes(gen, results):
+    """K2 bf16 at the 29 ResnetBlock shapes of the canonical forward (B =
+    34), its parameters as the module hands them over (bf16 conv weights
+    seen through permute, bf16 biases, float32 gains, FiLM halves of one
+    tensor): held against the plain version, timed around the wrapper and
+    on the device; the device times summed over the 29."""
+    import torch
+
+    from dquartic_tpu_torch.ops import fused_resnet as fr
+
+    def randn(*shape, s=1.0, dt=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dt)
+
+    log("  K2 bf16 at the ResnetBlock shapes (34, C_in -> C_out, N), module operands:")
+    rows, total = [], 0.0
+    with torch.no_grad():
+        for c_in, c_out, N in sorted(set(RESNET_SHAPES), key=RESNET_SHAPES.index):
+            count = RESNET_SHAPES.count((c_in, c_out, N))
+            res = c_in != c_out
+            film = randn(34, 2 * c_out, s=0.2)
+            a = [randn(34, c_in, N), randn(c_out, c_in, 3, s=0.3).permute(2, 1, 0),
+                 randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2, dt=torch.float32),
+                 *film.chunk(2, dim=-1), randn(c_out, c_out, 3, s=0.3).permute(2, 1, 0),
+                 randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2, dt=torch.float32),
+                 randn(c_out, c_in, 1, s=0.3).permute(2, 1, 0) if res else None,
+                 randn(c_out, s=0.1) if res else None]
+            ref = fr.resnet_block_t_reference(*(None if v is None else v.float() for v in a))
+            _compare(f"K2 bf16 {c_in}->{c_out} N={N}", fr.fused_resnet_block_t(*a), ref,
+                     BF16_TOL)
+            ms = cuda_time(lambda: fr.fused_resnet_block_t(*a), 20)
+            dev = device_ms(lambda: fr.fused_resnet_block_t(*a), 20, "resnet_fwd")["resnet_fwd"][0]
+            bnd = resnet_bound(34, c_in, c_out, N, 2)
+            total += count * dev
+            log(f"    {c_in}->{c_out} N={N} (x{count}): wrapper {ms:.4f} ms, device {dev:.4f} ms, "
+                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            rows.append(dict(c_in=c_in, c_out=c_out, N=N, count=count, ms=ms, device_ms=dev,
+                             bound_ms=bnd["bound_ms"]))
+    log(f"  K2 device ms summed over the {len(RESNET_SHAPES)} ResnetBlocks: {total:.4f}")
+    results["fused_resnet_block_t"].update(shapes=rows, device_ms_29=total)
+
+
 def phase_kernels(gen, results):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -470,37 +626,49 @@ def phase_kernels(gen, results):
             errs["fused_resnet_block_t"] = max(errs["fused_resnet_block_t"], _compare(
                 f"K2 fused_resnet_block_t {tag} {c_in}->{c_out} N={N}", out, ref, tol))
             if dt == torch.bfloat16 and c_in == 4:
-                timing["fused_resnet_block_t"] = (
-                    cuda_time(lambda: fr.fused_resnet_block_t(*a), 20),
-                    cuda_time(lambda: fr.resnet_block_t_reference(*a), 5),
-                    resnet_bound(34, c_in, c_out, N, 2),
-                )
+                with torch.no_grad():
+                    timing["fused_resnet_block_t"] = (
+                        cuda_time(lambda: fr.fused_resnet_block_t(*a), 20),
+                        cuda_time(lambda: fr.resnet_block_t_reference(*a), 5),
+                        resnet_bound(34, c_in, c_out, N, 2),
+                    )
+                    k2_dev = device_ms(lambda: fr.fused_resnet_block_t(*a), 20, "resnet_fwd")
+                check(k2_dev["resnet_fwd"][1] == 1 and k2_dev["all"][1] == 1,
+                      f"K2 is not one launch a call: {k2_dev}")
         x = randn(34, 3 * 10000).to(dt)
         q, s = im.quantize_weight_matrix(randn(3 * 10000, 10000))
         out = im.int8_matmul(x, q, s)
         ref = im.int8_matmul_reference(x, q, s)
-        # sums of 30000 products: rounding scales with the size of the sums
-        scale = float(ref.float().abs().max())
         k3_tol = (1e-5, 1e-5) if dt == torch.float32 else (2**-7, 2**-8)
-        errs["int8_matmul"] = max(errs["int8_matmul"], _compare(
-            f"K3 int8_matmul {tag} M=34 K=30000 N=10000", out, ref, k3_tol, atol_scale=scale))
+        errs["int8_matmul"] = max(errs["int8_matmul"], _k3_compare(
+            f"K3 int8_matmul {tag} M=34 K=30000 N=10000", out, ref, k3_tol))
         if dt == torch.bfloat16:
-            # int8 weights and their scales, bf16 x and out; the product on
-            # bf16 tensor cores. No single PyTorch call forms the bf16 x
-            # int8 product with per-column scales on CUDA (torch._int_mm
-            # takes int8 x int8), so library_ms is null.
-            M, K, Nc = x.shape[0], x.shape[1], q.shape[1]
+            # bf16 x times int8 weights converted in registers to bf16
+            # operands of the tensor cores (mma.sync), float32 sums
             timing["int8_matmul"] = (
                 cuda_time(lambda: im.int8_matmul(x, q, s), 20),
                 cuda_time(lambda: im.int8_matmul_reference(x, q, s), 5),
-                bound(K * Nc + 4 * Nc + 2 * (M * K + M * Nc), 2 * M * K * Nc, "bfloat16"),
+                k3_bound(34, 30000, 10000),
             )
+            k3_dev = device_ms(lambda: im.int8_matmul(x, q, s), 20, "int8_matmul_mma",
+                               "int8_matmul_reduce")
+            check(k3_dev["all"][1] == 2, f"K3 is not two kernels a call: {k3_dev}")
+            library = k3_library(x, q, s, ref, k3_tol)
         del q, s
     for name, (ms, plain_ms, bnd) in timing.items():
         log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
                              **bnd)
+    results["fused_resnet_block_t"]["device_ms"] = k2_dev["resnet_fwd"][0]
+    results["int8_matmul"].update(device_ms=k3_dev["all"][0], **library)
+    log(f"  K2 at (34, 4, 40000) bf16 on the device: {k2_dev['resnet_fwd'][0]:.4f} ms; K3 at "
+        f"(34, 30000, 10000) bf16 on the device: {k3_dev['all'][0]:.4f} ms (tensor-core pass "
+        f"{k3_dev['int8_matmul_mma'][0]:.4f}, fixed-order reduce "
+        f"{k3_dev['int8_matmul_reduce'][0]:.4f}) (torch.profiler)")
+    phase_k3_shapes(gen, results)
+    phase_k2_shapes(gen, results)
+    k2_host_costs(gen, results)
     # two exponentials per feature and column: p of phase 0, q of the apply pass
     results["linear_attention"]["device_ms"] = k1_dev["linattn_cluster"][0]
     log(f"  K1 exp floor {exp_floor(2 * 128 * 34 * MZ):.4f} ms")
@@ -712,14 +880,22 @@ def phase_sample(config, seed, gen, per_forward, what="canonical", results=None)
         model.use_kernels(True)
         t = torch.full((1,), 500, dtype=torch.long, device="cuda")
         with torch.inference_mode():
-            dev = device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5, "linattn_cluster")
+            dev = device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5, "linattn_cluster",
+                            "resnet_fwd", "int8_matmul")
         k1_ms, k1_n = dev["linattn_cluster"]
         log(f"  one serving forward (torch.profiler, mean of 5): K1 {k1_n:g} launches, "
-            f"{k1_ms:.4f} ms of device time; all kernels {dev['all'][1]:g} launches, "
+            f"{k1_ms:.4f} ms of device time; K2 {dev['resnet_fwd'][1]:g} launches, "
+            f"{dev['resnet_fwd'][0]:.4f} ms; K3 {dev['int8_matmul'][1]:g} kernels (2 a call), "
+            f"{dev['int8_matmul'][0]:.4f} ms; all kernels {dev['all'][1]:g} launches, "
             f"{dev['all'][0]:.4f} ms")
         check(k1_n == per_forward["linear_attention"], f"K1 launches a forward {k1_n}")
+        check(dev["resnet_fwd"][1] == per_forward["fused_resnet_block_t"],
+              f"K2 launches a forward {dev['resnet_fwd'][1]}")
         results["linear_attention"].update(device_ms_per_forward=k1_ms,
-                                           forward_device_ms=dev["all"][0])
+                                           forward_device_ms=dev["all"][0],
+                                           forward_kernels=dev["all"][1])
+        results["fused_resnet_block_t"]["device_ms_per_forward"] = dev["resnet_fwd"][0]
+        results["int8_matmul"]["device_ms_per_forward"] = dev["int8_matmul"][0]
     del model, sampler
     torch.cuda.empty_cache()
     return counts, per_window
@@ -811,12 +987,18 @@ def phase_backward_kernels(gen, results):
                     cuda_time(lambda: fr.resnet_block_t_backward_reference(dy, *a), 3),
                     resnet_bound(34, c_in, c_out, N, 2, backward=True),
                 )
+                k5_dev = device_ms(lambda: fr.fused_resnet_backward(dy, *a), 10, "resnet_bwd")
             del got, again, ref
     for name, (ms, plain_ms, bnd) in timing.items():
         log(f"  time {name} bf16 at the level-0 shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
             f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
                              **bnd)
+    log(f"  K5 at 4->4, N 40000, bf16 on the device (torch.profiler): its kernels "
+        f"{k5_dev['resnet_bwd'][0]:.4f} ms, every kernel of the call (the row sums and casts "
+        f"of the wrapper too) {k5_dev['all'][0]:.4f} ms in {k5_dev['all'][1]:g} launches")
+    results["fused_resnet_backward"].update(device_ms=k5_dev["resnet_bwd"][0],
+                                            device_ms_call=k5_dev["all"][0])
     phase_flash_backward(gen, results)
 
 

@@ -20,18 +20,18 @@ class ResnetBlockT(ResnetBlock):
         self.kernels = True
 
     def forward(self, x: torch.Tensor, t_rows: torch.Tensor) -> torch.Tensor:
+        """The parameters go to the op as they are stored: the torch conv
+        weights (out, in, k) seen as flax (k, in, out) by ``permute`` (a
+        view), biases and gains in their own dtype. The op rounds the conv
+        weights to x's dtype (flax's ``dtype=bf16, param_dtype=float32``)."""
         scale, shift = self.film(t_rows)
-        cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
-
-        def flax(conv):  # torch (out, in, k) -> flax (k, in, out)
-            return conv.weight.permute(2, 1, 0).to(cd)
-
-        res = self.res_conv
+        b1, b2, res = self.block1, self.block2, self.res_conv
         op = fused_resnet_block_t if self.kernels else resnet_block_t_reference
         return op(
             x,
-            flax(self.block1.proj), self.block1.proj.bias.to(cd), self.block1.norm.g.reshape(-1),
+            b1.proj.weight.permute(2, 1, 0), b1.proj.bias, b1.norm.g.reshape(-1),
             scale, shift,
-            flax(self.block2.proj), self.block2.proj.bias.to(cd), self.block2.norm.g.reshape(-1),
-            flax(res) if res is not None else None, res.bias.to(cd) if res is not None else None,
+            b2.proj.weight.permute(2, 1, 0), b2.proj.bias, b2.norm.g.reshape(-1),
+            res.weight.permute(2, 1, 0) if res is not None else None,
+            res.bias if res is not None else None,
         )

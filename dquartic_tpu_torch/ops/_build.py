@@ -44,9 +44,11 @@ _SIGNATURES = {
                             + [_I] * 7 + [_P]),
     # C, N, heads, bf16, out (3 ints: CTAs per cluster, staged, smem bytes)
     "dq_linear_attention_plan": [_I] * 4 + [_P],
-    # x, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, out,
-    # B, C_in, C_out, N, film, has_res, bf16, device, stream
-    "dq_fused_resnet": [_P] * 12 + [_I] * 8 + [_P],
+    # x, out, then w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, each
+    # a pointer and its strides (3, 1, 1, 2, 2, 3, 1, 1, 2, 1 of them),
+    # B, C_in, C_out, N, flags, dtype bits, x_bf16, device, stream
+    "dq_fused_resnet": ([_P] * 2 + sum(([_P] + [_L] * n for n in (3, 1, 1, 2, 2, 3, 1, 1, 2, 1)), [])
+                        + [_I] * 8 + [_P]),
     # x, w_q, scale, part, out, M, K, N, ksplit, kchunk, bf16, device, stream
     "dq_int8_matmul": [_P] * 5 + [_I] * 7 + [_P],
     # x, dy, wq, wk, wv, wout, b_out, g, g_pre, qshift, kshift, wk2, kshift2,

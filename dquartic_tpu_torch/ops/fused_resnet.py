@@ -64,16 +64,18 @@ def resnet_block_t_backward_reference(dy, *args):
         return tuple(None if a is None else next(grads) for a in leaves)
 
 
-def _check_args(op, x_t, w1, scale, shift, w2, w_res):
+def _check_args(op, x_t, w1, scale, shift, w2, w_res) -> bool:
+    """Checks the op's arguments; True for CUDA tensors (the kernel's
+    checks too), False for CPU tensors (the plain version's)."""
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift must both be provided or both None")
     B, c_in, N = x_t.shape
     c_out = w1.shape[-1]
     if w_res is None and c_in != c_out:
         raise ValueError("identity residual requires C_in == C_out")
-    if x_t.device.type == "cpu":
-        return
-    if x_t.device.type != "cuda":
+    if not x_t.is_cuda:
+        if x_t.device.type == "cpu":
+            return False
         raise RuntimeError(f"{op}: unsupported device {x_t.device}")
     if x_t.dtype not in (torch.float32, torch.bfloat16) or not x_t.is_contiguous():
         raise ValueError(f"{op}: x_t must be contiguous float32 or bfloat16")
@@ -83,6 +85,7 @@ def _check_args(op, x_t, w1, scale, shift, w2, w_res):
         )
     if w1.shape != (3, c_in, c_out) or w2.shape != (3, c_out, c_out):
         raise ValueError(f"conv kernels must be (3, {c_in}, {c_out}) and (3, {c_out}, {c_out})")
+    return True
 
 
 def _kernel_params(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res):
@@ -115,17 +118,50 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_OPERANDS = ("w1", "b1", "g1", "scale", "shift", "w2", "b2", "g2", "w_res", "b_res")
+_NDIM = (3, 1, 1, 2, 2, 3, 1, 1, 3, 1)
+# the strides K2 reads of each operand (all but w_res's leading 1), and the
+# arguments that stand for a missing one
+_NSTRIDES = (3, 1, 1, 2, 2, 3, 1, 1, 2, 1)
+_STRIDES = tuple(slice(-n, None) for n in _NSTRIDES)
+_ABSENT = tuple((None,) + (0,) * n for n in _NSTRIDES)
+_BF16_BIT = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _forward_kernel(x_t, *params):
-    """Launch K2 (``csrc/fused_resnet.cu``) on checked arguments."""
+    """Launch K2 (``csrc/fused_resnet.cu``): checks, one allocation (out)
+    and one launch. The kernel reads every parameter as it is, in its own
+    dtype (float32 or bf16) through its strides, and rounds the conv
+    weights to x's dtype itself, as :func:`_kernel_params` does for K5."""
     B, c_in, N = x_t.shape
     c_out = params[0].shape[-1]
-    dev = x_t.device
-    args = _kernel_params(x_t, *params)
-    out = torch.empty((B, c_out, N), dtype=x_t.dtype, device=dev)
+    dev = x_t.get_device()
+    args, bits = [], 0
+    for i, t in enumerate(params):
+        if t is None:
+            args += _ABSENT[i]
+            continue
+        st = t.stride()
+        if len(st) != _NDIM[i] or t.get_device() != dev or t.dtype not in _BF16_BIT:
+            raise ValueError(
+                f"fused_resnet_block_t: {_OPERANDS[i]} must be a {_NDIM[i]}-d float32 or "
+                f"bfloat16 tensor on {x_t.device} (got {tuple(t.shape)} {t.dtype} on {t.device})")
+        bits |= _BF16_BIT[t.dtype] << i
+        args.append(t.data_ptr())
+        args += st[_STRIDES[i]]
+    w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res = params
+    if not b1.shape[0] == g1.shape[0] == b2.shape[0] == g2.shape[0] == c_out or (
+            b_res is not None and b_res.shape[0] != c_out):
+        raise ValueError(f"fused_resnet_block_t: biases and gains must hold {c_out} values")
+    if scale is not None and not scale.shape == shift.shape == (B, c_out):
+        raise ValueError(f"fused_resnet_block_t: scale and shift must be ({B}, {c_out})")
+    if w_res is not None and w_res.shape != (1, c_in, c_out):
+        raise ValueError(f"fused_resnet_block_t: w_res must be (1, {c_in}, {c_out})")
+    flags = (scale is not None) | (w_res is not None) << 1 | (b_res is not None) << 2
+    out = torch.empty((B, c_out, N), dtype=x_t.dtype, device=x_t.device)
     code = _build.library().dq_fused_resnet(
-        x_t.data_ptr(), *[_ptr(a) for a in args], out.data_ptr(), B, c_in, c_out, N,
-        int(params[3] is not None), int(params[8] is not None),
-        int(x_t.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x_t),
+        x_t.data_ptr(), out.data_ptr(), *args, B, c_in, c_out, N, flags, bits,
+        _BF16_BIT[x_t.dtype], dev, _build.stream_of(x_t),
     )
     _build.check(code, "dq_fused_resnet")
     fused_resnet_block_t.launches += 1
@@ -142,8 +178,7 @@ def fused_resnet_backward(dy, x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, 
     from x and returns per-row partial sums of the parameter gradients;
     the sum over rows is finished here with torch ops."""
     args = (x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
-    _check_args("fused_resnet_backward", x_t, w1, scale, shift, w2, w_res)
-    if x_t.device.type == "cpu":
+    if not _check_args("fused_resnet_backward", x_t, w1, scale, shift, w2, w_res):
         return resnet_block_t_backward_reference(dy, *args)
     B, c_in, N = x_t.shape
     c_out = w1.shape[-1]
@@ -219,14 +254,21 @@ def fused_resnet_block_t(
       w_res/b_res: (1, C_in, C_out) 1x1 residual conv and bias, or None
         for the identity residual (C_in == C_out).
 
+    Each parameter may be float32 or bfloat16 and any strided view (the
+    module hands over its torch conv weights permuted, and its float32
+    masters in training); the conv weights are used rounded to x's dtype.
+
     Returns (B, C_out, N) in x_t's dtype. CPU tensors run
     :func:`resnet_block_t_reference`, which autograd differentiates; CUDA
-    tensors run the K2 kernel, and its gradient is the K5 kernel."""
+    tensors run the K2 kernel, and its gradient is the K5 kernel. An
+    untracked call (no_grad, or nothing requiring grad) launches K2 without
+    an autograd node."""
     args = (x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
-    _check_args("fused_resnet_block_t", x_t, w1, scale, shift, w2, w_res)
-    if x_t.device.type == "cpu":
+    if not _check_args("fused_resnet_block_t", x_t, w1, scale, shift, w2, w_res):
         return resnet_block_t_reference(*args)
-    return _FusedResnetFn.apply(*args)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return _FusedResnetFn.apply(*args)
+    return _forward_kernel(*args)  # untracked: no autograd node
 
 
 fused_resnet_block_t.launches = 0  # kernel launches; reset by the caller

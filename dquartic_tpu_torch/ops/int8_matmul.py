@@ -6,7 +6,9 @@ Port of :mod:`dquartic_tpu.ops.int8_matmul` (``int8_matmul`` /
 W (3·C_in, C_out) with M = 34, K = 30000, N = 10000 at batch 1. Weights
 are stored once as int8 with one float32 scale per output column and are
 never widened in device memory: the CUDA kernel (``csrc/int8_matmul.cu``)
-reads the int8 bytes and converts them in registers.
+reads the int8 bytes and converts them in registers, to bf16 operands of
+the tensor cores (``mma.sync``) for bf16 x, to float32 on the CUDA cores
+for float32 x.
 
 Stored layout (the port's own): ``w_q`` (K, N) int8 row-major, rows
 tap-major (``tap * C_in + c``, the im2col order of :func:`int8_conv1d`),
@@ -27,8 +29,10 @@ import torch.nn.functional as F
 
 from . import _build
 
-_BLOCK_N = 128  # output columns per CTA (32 lanes x 4 columns)
-_BLOCK_K = 32  # K rows staged in shared memory per step
+# CTA tiles of the kernel, by x's dtype: (output columns, K rows a stage,
+# CTAs an SM). bf16: tensor cores, 8 warps x 32 columns, up to 64 rows of x
+# a CTA; float32: CUDA cores, 32 lanes x 4 columns, 8 warps x up to 8 rows.
+_TILES = {torch.bfloat16: (256, 64, 2), torch.float32: (128, 32, 4)}
 
 
 def quantize_weight_matrix(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +64,20 @@ def int8_matmul_reference(
     return (acc * scale[None, :]).to(x.dtype)
 
 
+def _split(M: int, K: int, N: int, dtype: torch.dtype, device) -> Tuple[int, int]:
+    """(ksplit, kchunk): K cut into chunks of whole stages, as many as keep
+    one wave of CTAs (``_TILES``' CTAs an SM on every SM) streaming. The
+    partial sums are reduced in a fixed order (deterministic)."""
+    block_n, block_k, per_sm = _TILES[dtype]
+    rows = 64 if dtype == torch.bfloat16 else 8 * min(8, math.ceil(M / 8))
+    tiles = math.ceil(N / block_n) * math.ceil(M / rows)
+    steps = math.ceil(K / block_k)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ksplit = max(1, min(steps, per_sm * sms // tiles))
+    kchunk = math.ceil(math.ceil(K / ksplit) / block_k) * block_k
+    return math.ceil(K / kchunk), kchunk
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) float32/bfloat16 @ dequant(w_q (K, N) int8, scale (N,)) -> (M, N).
 
@@ -82,17 +100,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"int8_matmul: {name} must be contiguous on {x.device}")
 
-    # split K so that about four CTAs per SM are in flight; partial sums go
-    # to a float32 scratch and a second pass reduces them in a fixed order
-    # (deterministic, unlike float atomics)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = 8 * min(8, math.ceil(M / 8))  # rows of x per CTA, as the kernel picks them
-    ctas = math.ceil(N / _BLOCK_N) * math.ceil(M / rows)
-    max_split = math.ceil(K / _BLOCK_K)
-    ksplit = max(1, min(max_split, math.ceil(4 * sms / ctas)))
-    kchunk = math.ceil(math.ceil(K / ksplit) / _BLOCK_K) * _BLOCK_K
-    ksplit = math.ceil(K / kchunk)
-
+    ksplit, kchunk = _split(M, K, N, x.dtype, x.device)
     part = torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _build.library()

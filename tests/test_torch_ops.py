@@ -295,6 +295,100 @@ def test_linear_attention_wrapper_takes_every_head_count(monkeypatch, heads, dty
     assert args[14:18] == (1, 8, 5, heads) and args[19] == int(dtype == "bfloat16")
 
 
+def _fake_fused_resnet_library(monkeypatch):
+    """Route K2's launch to a recorder; returns the list of argument tuples."""
+    passed = []
+
+    class FakeLibrary:
+        def dq_fused_resnet(self, *args):
+            passed.append(args)
+            return 0
+
+    monkeypatch.setattr(tfr._build, "library", FakeLibrary)
+    monkeypatch.setattr(tfr._build, "stream_of", lambda t: 0)
+    return passed
+
+
+class _AtenLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records every aten op run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+def test_fused_resnet_wrapper_hands_the_weights_over_as_they_are(monkeypatch):
+    """K2's wrapper runs no torch op on the parameters: the kernel gets their
+    own memory, strides and dtypes (bf16 views of the torch conv weights,
+    float32 gains, FiLM halves of one (B, 2 C_out) tensor), a missing
+    residual bias is a flag, out is the one allocation and the launch
+    counter advances by one."""
+    passed = _fake_fused_resnet_library(monkeypatch)
+    rng = np.random.default_rng(14)
+    B, c_in, c_out, N = 2, 8, 4, 10
+    x = _t(rng.normal(size=(B, c_in, N)).astype(np.float32)).to(torch.bfloat16)
+    conv1 = _t(rng.normal(size=(c_out, c_in, 3)).astype(np.float32)).to(torch.bfloat16)
+    conv2 = _t(rng.normal(size=(c_out, c_out, 3)).astype(np.float32)).to(torch.bfloat16)
+    conv_res = _t(rng.normal(size=(c_out, c_in, 1)).astype(np.float32)).to(torch.bfloat16)
+    film = _t(rng.normal(size=(B, 2 * c_out)).astype(np.float32)).to(torch.bfloat16)
+    scale, shift = film.chunk(2, dim=-1)
+    b1, b2 = (_t(rng.normal(size=(c_out,)).astype(np.float32)).to(torch.bfloat16) for _ in "12")
+    g1, g2 = (_t(rng.normal(size=(1, c_out, 1)).astype(np.float32)).reshape(-1) for _ in "12")
+    params = [conv1.permute(2, 1, 0), b1, g1, scale, shift, conv2.permute(2, 1, 0), b2, g2,
+              conv_res.permute(2, 1, 0), None]
+    before = tfr.fused_resnet_block_t.launches
+    with _AtenLog() as log:
+        out = tfr._forward_kernel(x, *params)
+    assert log.ops == ["aten.empty"] and out.shape == (B, c_out, N)
+    assert tfr.fused_resnet_block_t.launches == before + 1
+    (args,) = passed
+    assert args[:2] == (x.data_ptr(), out.data_ptr())
+    assert args[2:6] == (conv1.data_ptr(), 1, 3, 3 * c_in)  # w1 (3, C_in, C_out) over conv1
+    assert args[6:10] == (b1.data_ptr(), 1, g1.data_ptr(), 1)
+    assert args[10:16] == (film.data_ptr(), 2 * c_out, 1, film.data_ptr() + 2 * c_out, 2 * c_out, 1)
+    assert args[16:20] == (conv2.data_ptr(), 1, 3, 3 * c_out)
+    assert args[20:24] == (b2.data_ptr(), 1, g2.data_ptr(), 1)
+    assert args[24:29] == (conv_res.data_ptr(), 1, c_in, None, 0)  # no residual bias
+    # B, C_in, C_out, N, flags (FiLM | residual conv), dtype bits, bf16 x
+    bits = sum(1 << i for i in (0, 1, 3, 4, 5, 6, 8))  # all but the gains
+    assert args[29:36] == (B, c_in, c_out, N, 0b011, bits, 1)
+    with pytest.raises(ValueError, match="biases and gains"):
+        tfr._forward_kernel(x, *params[:2], g1[:3], *params[3:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_block_hands_its_parameters_to_the_kernel_without_a_copy(monkeypatch, dtype):
+    """A ResnetBlockT forward passes its conv weights, biases and gains to
+    K2 as stored (no cast, no contiguous copy): bf16 in a serving model,
+    float32 masters in training."""
+    from dquartic_tpu_torch.models import fused_blocks
+
+    passed = _fake_fused_resnet_library(monkeypatch)
+    monkeypatch.setattr(fused_blocks, "fused_resnet_block_t", tfr._forward_kernel)
+    dt = getattr(torch, dtype)
+    block = fused_blocks.ResnetBlockT(12, 8, 16)
+    for name, p in block.named_parameters():
+        if dtype == "bfloat16" and not name.endswith(".g"):
+            p.data = p.data.to(dt)  # the serving model's storage
+    x = torch.randn(3, 12, 20).to(dt)
+    with torch.no_grad():
+        block(x, torch.randn(3, 16).to(dt))
+    (args,) = passed
+    w1, w2, wr = (c.weight for c in (block.block1.proj, block.block2.proj, block.res_conv))
+    assert args[2:6] == (w1.data_ptr(), 1, 3, 3 * 12)
+    assert args[16:20] == (w2.data_ptr(), 1, 3, 3 * 8)
+    assert args[24:27] == (wr.data_ptr(), 1, 12)
+    assert args[6] == block.block1.proj.bias.data_ptr() and args[8] == block.block1.norm.g.data_ptr()
+    assert args[20] == block.block2.proj.bias.data_ptr() and args[27] == block.res_conv.bias.data_ptr()
+    bf16 = dtype == "bfloat16"  # then all but the gains are bf16
+    bits = sum(1 << i for i in (0, 1, 3, 4, 5, 6, 8, 9)) if bf16 else 0
+    assert args[33:36] == (0b111, bits, int(bf16))
+
+
 # --------------------------------------------------------------------- #
 # on the card: each CUDA kernel against its plain version               #
 # --------------------------------------------------------------------- #
@@ -368,6 +462,112 @@ def test_int8_matmul_kernel_on_card(cuda, dtype, M, K, N):
         rtol=2**-7, atol=2**-8 * scale
     )
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+# K3 at every tile edge of its bf16 tensor-core body: rows around the n8
+# tiles (1, 7, 16, 17, 34, 35) and the 64-row block (64, 65), batch 8 (272)
+# and the production rows (340); the canonical and production mid convs, a
+# ragged K with N % 16 != 0 (rows not 16-byte aligned), and a tiny case
+K3_MS = (1, 7, 16, 17, 34, 35, 64, 65, 272, 340)
+K3_KN = ((30000, 10000), (22512, 7504), (1537, 130), (48, 17))
+_K3_WEIGHTS = {}
+
+
+def _k3_weights(device, K, N):
+    """Quantized (K, N) weights, made once per shape on the card."""
+    if (K, N) not in _K3_WEIGHTS:
+        _K3_WEIGHTS.clear()
+        gen = torch.Generator(device=device).manual_seed(K + N)
+        _K3_WEIGHTS[K, N] = tim.quantize_weight_matrix(
+            torch.randn((K, N), generator=gen, device=device))
+    return _K3_WEIGHTS[K, N]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,N", K3_KN)
+@pytest.mark.parametrize("M", K3_MS)
+def test_int8_matmul_kernel_every_tile_edge_on_card(cuda, dtype, M, K, N):
+    """One launch a call, bitwise equal over two calls, within the
+    tolerances of test_int8_matmul_kernel_on_card."""
+    q, s = _k3_weights(cuda, K, N)
+    gen = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((M, K), generator=gen, device=cuda).to(getattr(torch, dtype))
+    before = tim.int8_matmul.launches
+    with torch.no_grad():
+        out = tim.int8_matmul(x, q, s)
+        again = tim.int8_matmul(x, q, s)
+    assert tim.int8_matmul.launches == before + 2
+    ref = tim.int8_matmul_reference(x, q, s).float()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    scale = float(ref.abs().max())
+    tol = dict(rtol=1e-5, atol=1e-5 * scale) if dtype == "float32" else dict(
+        rtol=2**-7, atol=2**-8 * scale
+    )
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
+
+
+# (C_in, C_out, N) of the 29 ResnetBlocks of the canonical UNet1d forward (dim
+# 4, dim_mults (1, 2, 2, 3, 3, 4, 4), m/z 40000): two a level down, two a level
+# up on the concatenated skips, then final_res_block; 14 distinct shapes
+RESNET_SHAPES = (
+    [(c, c, 40000 >> i) for i, c in enumerate((4, 4, 8, 8, 12, 12, 16)) for _ in "12"]
+    + [(i + o, o, 625 << j) for j, (i, o) in enumerate(
+        ((16, 16), (12, 16), (12, 12), (8, 12), (8, 8), (4, 8), (4, 4))) for _ in "12"]
+    + [(8, 4, 40000)]
+)
+
+
+def _resnet_operands(a, dt, form):
+    """The op's operands from ``_resnet_args`` numpy arrays, on the card, as
+    a model hands them over: ``"module"`` the torch conv weights (out, in, k)
+    stored in x's dtype and seen through ``permute``, biases in x's dtype,
+    FiLM as the two halves of one (B, 2 C_out) tensor; ``"masters"`` the
+    same views of float32 weights (training)."""
+    wd = dt if form == "module" else torch.float32
+
+    def conv(w):  # flax (k, in, out) -> torch (out, in, k) storage, viewed back
+        return None if w is None else _t(np.transpose(w, (2, 1, 0))).cuda().to(wd).permute(2, 1, 0)
+
+    def vec(v, d=wd):
+        return None if v is None else _t(v).cuda().to(d)
+
+    film = None
+    if a["scale"] is not None:
+        film = _t(np.concatenate([a["scale"], a["shift"]], axis=1)).cuda().to(dt).chunk(2, dim=-1)
+    return [_t(a["x_t"]).cuda().to(dt), conv(a["w1"]), vec(a["b1"]), vec(a["g1"], torch.float32),
+            *(film or (None, None)), conv(a["w2"]), vec(a["b2"]), vec(a["g2"], torch.float32),
+            conv(a["w_res"]), vec(a["b_res"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["module", "masters"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 34])
+@pytest.mark.parametrize("c_in,c_out,N", sorted(set(RESNET_SHAPES)))
+def test_fused_resnet_kernel_every_block_shape_on_card(cuda, c_in, c_out, N, B, dtype, form):
+    """K2 at every ResnetBlock shape of the canonical forward, with the
+    parameters as the module hands them over: one launch a call, bitwise
+    equal over two calls, and within tolerance of the plain version run in
+    float32 on the same values (the conv weights rounded to x's dtype, as
+    K2 uses them)."""
+    a = _resnet_args(np.random.default_rng(c_in * 1000 + N + B), B, c_in, c_out, N, True,
+                     c_in != c_out)
+    dt = getattr(torch, dtype)
+    ops = _resnet_operands(a, dt, form)
+    before = tfr.fused_resnet_block_t.launches
+    with torch.no_grad():
+        out = tfr.fused_resnet_block_t(*ops)
+        again = tfr.fused_resnet_block_t(*ops)
+    assert tfr.fused_resnet_block_t.launches == before + 2
+    ref_ops = [None if v is None else (_bf16_values(v) if dtype == "bfloat16" and i in (1, 6, 9)
+                                       else v.float()) for i, v in enumerate(ops)]
+    ref = tfr.resnet_block_t_reference(*ref_ops)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    tol = F32_CARD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), **tol)
 
 
 # (C, N) of the 14 mixers of the canonical UNet1d, then a ragged N and one
