@@ -32,15 +32,20 @@ CUDA card with sm_90a). Phases, each of which must pass:
      K7b flash attention) against autograd of its plain version at the
      training path's shapes,
      in float32 (TF32 off) and bfloat16, check that two identical calls
-     give bitwise equal gradients, and time both at the level-0 shape (K5
-     also on the device);
+     give bitwise equal gradients, and time both at the level-0 shape (K4
+     and K5 also on the device);
+     time K4 at the ten mixer shapes and K5 at the 29 ResnetBlock shapes
+     of a training step, around the wrapper and on the device;
   6. full-width training of the canonical model through ``build_trainer``
      (bf16 compute on float32 master weights, AdamW + EMA, batch 1):
      (a) one step's gradients on the kernels against the plain path on the
      same weights and draws, float32 and bf16; (b) ``train_step`` 1 + 5
      times with a finite loss, moving parameters and EMA, and K1/K4 14,
      K2/K5 29, K7a/K7b 1 launches per step; (c) median ms/step of 5 on the kernel and
-     the plain path, and the peak device memory;
+     the plain path, and the peak device memory; (d) one step under
+     ``torch.profiler``: K4's and K5's device ms and launches a step (at
+     most two a call), the device's busy and idle share of the step timed
+     in (c), the largest kernels;
   7. ``Trainer.train`` for 2 epochs of a 3-level model (m/z 256) writing
      latest and best checkpoints and ``build_trainer``'s ``metrics.jsonl``
      to a temporary directory, a resumed run from them, and a 10-step
@@ -90,7 +95,7 @@ one exists (``library_ms``), and ``bound_ms``: the least time for the
 same work on an H100 SXM at 700 W, the larger of its bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
-cores); K1, K2, K3, K5 and K7a also carry ``device_ms`` (``torch.profiler``). The
+cores); K1-K5 and K7a also carry ``device_ms`` (``torch.profiler``). The
 log also gives K1's and K7a's exp floor, their exponentials at 16 a clock
 per SM, beside the bound; the JSON line holds only measured times and
 ``bound_ms``.
@@ -264,10 +269,11 @@ def linattn_bound(B, C, N, itemsize, tensors=2, passes=4, H=128) -> dict:
 
 def resnet_bound(B, c_in, c_out, N, itemsize, backward=False) -> dict:
     """A ResnetBlock on (B, c_in, N) (K2; K5 with ``backward``): x in and
-    y out (and dy in, dx out), two conv3s and a 1x1 conv where c_in !=
-    c_out, float32 operations (three times the forward's for the backward)."""
+    y out (the backward recomputes the forward from x and writes no y: x
+    and dy in, dx out), two conv3s and a 1x1 conv where c_in != c_out,
+    float32 operations (three times the forward's for the backward)."""
     macs = 3 * c_in * c_out + 3 * c_out * c_out + (c_in * c_out if c_in != c_out else 0)
-    moved = (2 * c_in + 2 * c_out) if backward else (c_in + c_out)
+    moved = (2 * c_in + c_out) if backward else (c_in + c_out)
     return bound(moved * B * N * itemsize, (3 if backward else 1) * 2 * macs * B * N, "float32")
 
 
@@ -325,9 +331,13 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, reps, *names, warmup=1):
     """Device time from ``torch.profiler`` over ``reps`` calls of ``fn``
-    (after ``warmup``): {name: (ms per call, kernels per call)} summed over
-    the kernels whose names contain ``name``, and under ``"all"`` over every
-    kernel. Fails where a named kernel never ran on the device."""
+    (after ``warmup``): {name: (ms per call, kernels per call, ms per call
+    from each kernel's mean)} summed over the kernels whose names contain
+    ``name``, and under ``"all"`` over every kernel. The third number sums
+    each kernel's mean time once: for a call that launches each of its
+    kernels once it stands even where the profiler drops records (it drops
+    some in these short windows; a whole step's profile counted every
+    launch). Fails where a named kernel never ran on the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,19 +348,22 @@ def device_ms(fn, reps, *names, warmup=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    sums = {name: [0.0, 0] for name in names + ("all",)}
+    sums = {name: [0.0, 0, 0.0] for name in names + ("all",)}
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
+        if not e.count:
+            continue
         for name in names + ("all",):
             if name == "all" or name in e.key:
                 sums[name][0] += us
                 sums[name][1] += e.count
+                sums[name][2] += us / e.count
     for name in names:
         check(sums[name][1] > 0, f"the profiler saw no device time of {name}")
-    return {k: (us / 1e3 / reps, n / reps) for k, (us, n) in sums.items()}
+    return {k: (us / 1e3 / reps, n / reps, mean / 1e3) for k, (us, n, mean) in sums.items()}
 
 
 def phase_info():
@@ -882,7 +895,7 @@ def phase_sample(config, seed, gen, per_forward, what="canonical", results=None)
         with torch.inference_mode():
             dev = device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5, "linattn_cluster",
                             "resnet_fwd", "int8_matmul")
-        k1_ms, k1_n = dev["linattn_cluster"]
+        k1_ms, k1_n = dev["linattn_cluster"][:2]
         log(f"  one serving forward (torch.profiler, mean of 5): K1 {k1_n:g} launches, "
             f"{k1_ms:.4f} ms of device time; K2 {dev['resnet_fwd'][1]:g} launches, "
             f"{dev['resnet_fwd'][0]:.4f} ms; K3 {dev['int8_matmul'][1]:g} kernels (2 a call), "
@@ -962,6 +975,11 @@ def phase_backward_kernels(gen, results):
                     cuda_time(lambda: la.linear_attention_backward_reference(dy, x, *w, 4, 32), 3),
                     linattn_bound(34, C, N, 2, tensors=3, passes=12),
                 )
+                k4_dev = device_ms(lambda: la.linear_attention_backward(dy, x, *w), 10,
+                                   "linattn_bwd_cluster", "linattn_bwd_finish")
+                plan = la.linear_attention_backward_plan(34, C, N)
+                log(f"  K4 at (34, {C}, {N}) bf16: {plan['cluster']} CTAs per cluster, slices "
+                    f"staged {plan['staged']}, {plan['smem_bytes']} B of shared memory a CTA")
             del got, again, ref
         for c_in, c_out, N in ((4, 4, MZ), (32, 16, MZ // 64), (8, 4, MZ)):
             res = c_in != c_out
@@ -994,12 +1012,87 @@ def phase_backward_kernels(gen, results):
             f"ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
                              **bnd)
-    log(f"  K5 at 4->4, N 40000, bf16 on the device (torch.profiler): its kernels "
-        f"{k5_dev['resnet_bwd'][0]:.4f} ms, every kernel of the call (the row sums and casts "
-        f"of the wrapper too) {k5_dev['all'][0]:.4f} ms in {k5_dev['all'][1]:g} launches")
-    results["fused_resnet_backward"].update(device_ms=k5_dev["resnet_bwd"][0],
-                                            device_ms_call=k5_dev["all"][0])
+    for name, dev_ms, tag in (("linear_attention_backward", k4_dev, "K4 at (34, 4, 40000)"),
+                              ("fused_resnet_backward", k5_dev, "K5 at 4->4, N 40000")):
+        log(f"  {tag}, bf16, on the device (torch.profiler): its kernels "
+            f"{dev_ms['all'][2]:.4f} ms a call (each kernel's mean once; the profiler saw "
+            f"{dev_ms['all'][1]:g} launches a call; it drops records in these short windows, "
+            f"phase 6 counts them over a whole step), around the wrapper "
+            f"{results[name]['ms']:.4f} ms")
+        results[name].update(device_ms=dev_ms["all"][2])
+    log(f"  K4's two kernels: the cluster pass {k4_dev['linattn_bwd_cluster'][2]:.4f} ms, the "
+        f"fixed-order sums {k4_dev['linattn_bwd_finish'][2]:.4f} ms")
+    phase_k4_shapes(gen, results)
+    phase_k5_shapes(gen, results)
     phase_flash_backward(gen, results)
+
+
+def phase_k4_shapes(gen, results):
+    """K4 bf16 at the mixer shapes (34, C, N) of the canonical model, the
+    weights as the module passes them (bf16 views of the conv weights,
+    float32 gains): around the wrapper and on the device, with its plan."""
+    import torch
+
+    from dquartic_tpu_torch.ops import linear_attention as la
+
+    def randn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    log("  K4 bf16 at the mixer shapes (34, C, N), module weights:")
+    rows, total = [], 0.0
+    for C, N in ROWS_SHAPES:
+        x, dy = randn(34, C, N).to(torch.bfloat16), randn(34, C, N).to(torch.bfloat16)
+        w = [randn(3 * 128, C, s=0.3).to(torch.bfloat16).t(),
+             randn(C, 128, s=0.1).to(torch.bfloat16).t(), randn(C, s=0.1).to(torch.bfloat16),
+             randn(C), 1.0 + randn(C, s=0.2)]
+        ms = cuda_time(lambda: la.linear_attention_backward(dy, x, *w), 10)
+        dev = device_ms(lambda: la.linear_attention_backward(dy, x, *w), 10,
+                        "linattn_bwd")["all"][2]
+        bnd = linattn_bound(34, C, N, 2, tensors=3, passes=12)
+        plan = la.linear_attention_backward_plan(34, C, N)
+        total += dev
+        log(f"    ({C}, {N}): wrapper {ms:.4f} ms, device {dev:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms; {plan['cluster']} CTAs a cluster, staged {plan['staged']}")
+        rows.append(dict(C=C, N=N, ms=ms, device_ms=dev, bound_ms=bnd["bound_ms"],
+                         cluster=plan["cluster"]))
+    log(f"  K4 device ms summed over the {len(ROWS_SHAPES)} mixer shapes: {total:.4f}")
+    results["linear_attention_backward"].update(shapes=rows, device_ms_shapes=total)
+
+
+def phase_k5_shapes(gen, results):
+    """K5 bf16 at the 29 ResnetBlock shapes of the canonical model (B = 34),
+    its operands as the module hands them over: around the wrapper and on
+    the device; the device times summed over the 29."""
+    import torch
+
+    from dquartic_tpu_torch.ops import fused_resnet as fr
+
+    def randn(*shape, s=1.0, dt=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dt)
+
+    log("  K5 bf16 at the ResnetBlock shapes (34, C_in -> C_out, N), module operands:")
+    rows, total = [], 0.0
+    for c_in, c_out, N in sorted(set(RESNET_SHAPES), key=RESNET_SHAPES.index):
+        count = RESNET_SHAPES.count((c_in, c_out, N))
+        res = c_in != c_out
+        film = randn(34, 2 * c_out, s=0.2)
+        a = [randn(34, c_in, N), randn(c_out, c_in, 3, s=0.3).permute(2, 1, 0),
+             randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2, dt=torch.float32),
+             *film.chunk(2, dim=-1), randn(c_out, c_out, 3, s=0.3).permute(2, 1, 0),
+             randn(c_out, s=0.1), 1.0 + randn(c_out, s=0.2, dt=torch.float32),
+             randn(c_out, c_in, 1, s=0.3).permute(2, 1, 0) if res else None,
+             randn(c_out, s=0.1) if res else None]
+        dy = randn(34, c_out, N)
+        ms = cuda_time(lambda: fr.fused_resnet_backward(dy, *a), 10)
+        dev = device_ms(lambda: fr.fused_resnet_backward(dy, *a), 10, "resnet_bwd")["all"][2]
+        bnd = resnet_bound(34, c_in, c_out, N, 2, backward=True)
+        total += count * dev
+        log(f"    {c_in}->{c_out} N={N} (x{count}): wrapper {ms:.4f} ms, device {dev:.4f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows.append(dict(c_in=c_in, c_out=c_out, N=N, count=count, ms=ms, device_ms=dev,
+                         bound_ms=bnd["bound_ms"]))
+    log(f"  K5 device ms summed over the {len(RESNET_SHAPES)} ResnetBlocks: {total:.4f}")
+    results["fused_resnet_backward"].update(shapes=rows, device_ms_29=total)
 
 
 def phase_flash_backward(gen, results):
@@ -1164,6 +1257,49 @@ def timed_steps(trainer, batch, gen, kernels, lr=1e-4):
     return sorted(runs), counts, torch.cuda.max_memory_allocated() / 2**30, losses
 
 
+def profile_step(step, step_ms):
+    """One call of ``step`` under ``torch.profiler``, CUDA events around it:
+    its ms, the device time of every kernel summed (each kernel's self
+    time; the step runs on one stream, so the kernels do not overlap), the
+    device's busy and idle share of ``step_ms`` (the step's ms timed without
+    the profiler, whose own host work lengthens the profiled step) and of
+    the profiled step, K4's and K5's device ms and launches, and the
+    largest kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    by_name = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if us:
+            ms, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (ms + us / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in by_name.values())
+
+    def of(name):
+        hits = [v for k, v in by_name.items() if name in k]
+        return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+    k4, k5 = of("linattn_bwd"), of("resnet_bwd")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(step_ms=step_ms, profiled_step_ms=wall, device_ms=busy,
+                busy_share=busy / step_ms, idle_share=1 - busy / step_ms,
+                profiled_busy_share=busy / wall,
+                k4_device_ms=k4[0], k4_launches=k4[1], k5_device_ms=k5[0], k5_launches=k5[1],
+                top=[(k[:60], round(ms, 4), n) for k, (ms, n) in top])
+
+
 def phase_train(config, seed, gen, results):
     """Full-width training through build_trainer: kernel vs plain gradients,
     six steps with launch counts, ms/step and peak memory."""
@@ -1212,6 +1348,22 @@ def phase_train(config, seed, gen, results):
             results["train"] = dict(ms_per_step=median, peak_gib=peak)
         else:
             results["train"].update(plain_ms_per_step=median, plain_peak_gib=peak)
+    prof = profile_step(lambda: trainer.train_step(batch, 1e-4, generator=gen),
+                        results["train"]["ms_per_step"])
+    log(f"  one kernel-path train_step under torch.profiler: {prof['profiled_step_ms']:.2f} ms, "
+        f"device busy {prof['device_ms']:.2f} ms: {100 * prof['busy_share']:.1f} % of the "
+        f"{prof['step_ms']:.2f} ms step timed without the profiler (idle "
+        f"{100 * prof['idle_share']:.1f} %), {100 * prof['profiled_busy_share']:.1f} % of the "
+        f"profiled step; K4 {prof['k4_device_ms']:.4f} ms in "
+        f"{prof['k4_launches']} launches, K5 {prof['k5_device_ms']:.4f} ms in "
+        f"{prof['k5_launches']} launches; largest kernels {prof['top']}")
+    check(prof["k4_launches"] <= 2 * STEP_LAUNCHES["linear_attention_backward"] and
+          prof["k5_launches"] <= 2 * STEP_LAUNCHES["fused_resnet_backward"],
+          f"K4 or K5 ran more than two launches a call: {prof}")
+    for name, key in (("linear_attention_backward", "k4_launches"),
+                      ("fused_resnet_backward", "k5_launches")):
+        results[name]["launches_call"] = prof[key] / STEP_LAUNCHES[name]
+    results["train"]["profile"] = prof
     log(f"  losses over the {len(losses)} steps: {[round(v, 6) for v in losses]}")
     check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
     moved = float((probe.detach() - p0).abs().max())

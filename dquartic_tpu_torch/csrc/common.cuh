@@ -28,8 +28,6 @@ __device__ __forceinline__ float round_cd(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
 __device__ __forceinline__ float silu_grad(float v) {
   const float s = 1.0f / (1.0f + expf(-v));
   return s * (1.0f + v * (1.0f - s));

@@ -34,68 +34,11 @@
 // Interior math is float32; the output is stored in x's dtype. The TPU
 // kernel's row stacking, block-diagonal kron weights and indicator-matrix
 // norms existed only to fill TPU sublanes; there is no counterpart here.
-#include "common.cuh"
+#include "fused_resnet.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxCin = 32;
-constexpr int kMaxCout = 16;
-
-// Bits of `flags`.
-constexpr int kFilm = 1, kRes = 2, kResBias = 4;
-// Bits of `bits`: the operand is bf16 (else float32).
-enum Operand { kW1, kB1, kG1, kScale, kShift, kW2, kB2, kG2, kWRes, kBRes };
-
-struct Params {
-  const void* w1; long long w1_k, w1_i, w1_o;  // (3, C_in, C_out)
-  const void* b1; long long b1_o;
-  const void* g1; long long g1_o;
-  const void* scale; long long scale_b, scale_o;  // (B, C_out)
-  const void* shift; long long shift_b, shift_o;
-  const void* w2; long long w2_k, w2_i, w2_o;  // (3, C_out, C_out)
-  const void* b2; long long b2_o;
-  const void* g2; long long g2_o;
-  const void* w_res; long long wr_i, wr_o;  // (1, C_in, C_out)
-  const void* b_res; long long br_o;
-  int c_in, c_out, N, flags, bits;
-};
-
-__device__ __forceinline__ float ld(const void* p, long long i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// SiLU v sigmoid(v) with the fast exponential and reciprocal (MUFU.EX2,
-// MUFU.RCP; ~1e-6 relative): the function K5 differentiates when it
-// recomputes this forward.
-__device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
-
-// V elements of T as one load or store of V * sizeof(T) bytes.
-template <int Bytes> struct Raw;
-template <> struct Raw<2> { using type = unsigned short; };
-template <> struct Raw<4> { using type = unsigned int; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
-template <> struct Raw<32> { struct type { uint4 a, b; }; };
-template <typename T, int V>
-using RawOf = typename Raw<V * sizeof(T)>::type;
-
-// w[j] = row[j0 - 1 + j], j = 0 .. V + 1, as floats; row + j0 is aligned to
-// V elements.
-template <typename T, int V>
-__device__ __forceinline__ void load_window(const T* row, int j0, float (&w)[V + 2]) {
-  const RawOf<T, V> r = *reinterpret_cast<const RawOf<T, V>*>(row + j0);
-  const T* v = reinterpret_cast<const T*>(&r);
-  w[0] = dq::to_f32(row[j0 - 1]);
-#pragma unroll
-  for (int j = 0; j < V; ++j) w[j + 1] = dq::to_f32(v[j]);
-  w[V + 1] = dq::to_f32(row[j0 + V]);
-}
 
 // Shared memory of one CTA: x (T) over BN + 2P columns, h (float32) over
 // BN + 8 (h column n0 + j at index 4 + j), the weights and the vectors.
@@ -218,24 +161,7 @@ __global__ void __launch_bounds__(kThreads) resnet_fwd(const T* __restrict__ x,
   const bool has_res = GENERIC ? (p.flags & kRes) != 0 : CI != CO;
 
   // x over [n0 - P, n0 + BN + P): 16-byte copies, zero outside [0, N)
-  const T* xrow = x + (size_t)row * c_in * N;
-  constexpr int kChunks = XR / P;
-  const bool vec16 = N % P == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  for (int i = tid; i < CI * kChunks; i += kThreads) {
-    const int c = i / kChunks, col = n0 - P + (i % kChunks) * P;
-    T* dst = xs + c * XR + (i % kChunks) * P;
-    if (vec16) {
-      const bool in = c < c_in && col >= 0 && col < N;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                   "l"(in ? xrow + (size_t)c * N + col : xrow), "r"(in ? 16 : 0));
-    } else {
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int pos = col + j;
-        dst[j] = c < c_in && pos >= 0 && pos < N ? xrow[(size_t)c * N + pos] : T(0.0f);
-      }
-    }
-  }
+  stage_window<T, CI, XR>(xs, x + (size_t)row * c_in * N, c_in, N, n0 - P);
   asm volatile("cp.async.commit_group;\n" ::);
 
   // weights rounded to the activation dtype, zero past c_in / c_out

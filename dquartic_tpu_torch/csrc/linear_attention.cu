@@ -60,6 +60,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "linattn_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -76,28 +77,6 @@ constexpr int kTile = 128;          // columns normalized per phase-0 step
 constexpr int kStageBudget = 100 * 1024;  // bytes of staged x and norms per CTA
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kXr = 24;  // row stride (bf16) of 16-channel rows: ldmatrix rows on distinct banks
-
-// The op's weights as the caller holds them: w_qkv (C, 3H), w_out (H, C),
-// b_out, g, g_pre (C), each float32 or bf16 (bit i of `bf16`, in this
-// order), read through their strides.
-struct Weights {
-  const void* wqkv;
-  long long wqkv_c, wqkv_h;
-  const void* wout;
-  long long wout_h, wout_c;
-  const void* b_out;
-  long long b_out_c;
-  const void* g;
-  long long g_c;
-  const void* g_pre;
-  long long g_pre_c;
-  int bf16;
-};
-
-__device__ __forceinline__ float ld(const void* p, long long i, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
 
 // Shared-memory plan of a launch (float offsets, then the staged x in
 // bytes), computed once on the host.
@@ -150,49 +129,6 @@ Plan make_plan(int C, int CB, int H, int N, int elt) {
   return p;
 }
 
-// x of this CTA's slice: staged rows in shared memory, or device memory.
-template <typename T>
-struct Slice {
-  const char* xs;   // staged row 0 (already shifted to the source's phase)
-  int row_bytes;
-  const T* xg;      // x[b, 0, nbeg] in device memory
-  long long N;
-  bool staged;
-  __device__ __forceinline__ float at(int c, int j) const {
-    return dq::to_f32(staged ? reinterpret_cast<const T*>(xs + c * row_bytes)[j]
-                             : xg[c * N + j]);
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// Copies `cols` elements of each of the C rows (stride N) at src into
-// shared rows of stride row_bytes at dst, which has src's phase mod 16:
-// 16-byte cp.async for the aligned middle, plain copies at the ends.
-template <typename T>
-__device__ void stage_rows(char* dst, int row_bytes, const T* src, long long N, int C,
-                           int cols) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int c = 0; c < C; ++c) {
-    const T* s = src + c * N;
-    T* d = reinterpret_cast<T*>(dst + c * row_bytes);
-    const int head = min(cols, (int)(((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15) /
-                                     sizeof(T)));
-    const int nvec = (cols - head) / kVec;
-    for (int i = threadIdx.x; i < nvec; i += kThreads)
-      cp_async16(d + head + i * kVec, s + head + i * kVec);
-    const int tail0 = head + nvec * kVec;
-    for (int i = threadIdx.x; i < head + cols - tail0; i += kThreads) {
-      const int j = i < head ? i : tail0 + i - head;
-      d[j] = s[j];
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 template <typename T, int CB>
 __device__ __forceinline__ float column_den(const Slice<T>& x, int C, int j) {
   float ss = 0.0f;
@@ -203,27 +139,6 @@ __device__ __forceinline__ float column_den(const Slice<T>& x, int C, int j) {
       ss += v * v;
     }
   return fmaxf(sqrtf(ss), 1e-12f);
-}
-
-__device__ __forceinline__ float fast_exp2(float v) {  // MUFU.EX2; denormal results flush to 0
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {  // lo in the low half
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 template <int CB>
@@ -306,74 +221,6 @@ __device__ void phase0_fma(const Slice<T>& xsl, const float* den, const float* g
 #pragma unroll
     for (int c = 0; c < CB; ++c) part[d * CB + c] = a[c];
     psum[d] = s;
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// (hi, lo) of a float32 pair: hi its bf16 rounding, lo the bf16 rounding of
-// what hi misses (a in the low halves).
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
-// d (16 x 8, float32) += a (16 x 8, bf16, row) b (8 x 8, bf16, col): the
-// first half of m16n8k16's k, its fragments a0, a1 and b0, in half the time
-__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
-                                            uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p)));
-}
-
-// d = a b + c in three bf16 products of the (hi, lo) halves, hi hi + hi lo +
-// lo hi: about 16 of float32's 24 mantissa bits, for the q and k
-// projections of the bf16 path (their results are rounded to bf16 after the
-// exponential). The channels are the k of the products: at C <= 8 (kNarrow)
-// channels 8-15 are zeros, and each product is an m16n8k8 over channels 0-7
-// (b*: the b0 fragments); otherwise an m16n8k16 (b*0, b*1).
-template <bool kNarrow>
-__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                          uint32_t bl0, uint32_t bl1) {
-  if constexpr (kNarrow) {
-    mma_bf16_k8(d, ah[0], ah[1], bh0);
-    mma_bf16_k8(d, ah[0], ah[1], bl0);
-    mma_bf16_k8(d, al[0], al[1], bh0);
-  } else {
-    mma_bf16(d, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
-    mma_bf16(d, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
-    mma_bf16(d, al[0], al[1], al[2], al[3], bh0, bh1);
   }
 }
 

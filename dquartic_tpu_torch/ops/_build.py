@@ -51,13 +51,19 @@ _SIGNATURES = {
                         + [_I] * 8 + [_P]),
     # x, w_q, scale, part, out, M, K, N, ksplit, kchunk, bf16, device, stream
     "dq_int8_matmul": [_P] * 5 + [_I] * 7 + [_P],
-    # x, dy, wq, wk, wv, wout, b_out, g, g_pre, qshift, kshift, wk2, kshift2,
-    # part, m, ctx, inv_s, dxq, part_q, sum_q, dctx, d2, dwo, part_k, sum_k,
-    # part_x, dgpre, dx, B, C, N, heads, nsplit, chunk, bf16, device, stream
-    "dq_linear_attention_bwd": [_P] * 28 + [_I] * 8 + [_P],
-    # x, dy, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res, part, sums,
-    # dx, B, C_in, C_out, N, nsplit, chunk, film, has_res, bf16, device, stream
-    "dq_fused_resnet_bwd": [_P] * 15 + [_I] * 10 + [_P],
+    # x, dy, dx, then w_qkv, w_out, b_out, g, g_pre and their gradients, each
+    # a pointer and its strides (2, 2, 1, 1, 1), rowpart, ctapart, B, C, N,
+    # heads, w_bf16, g_bf16, x_bf16, device, stream
+    "dq_linear_attention_bwd": ([_P] * 3 + ([_P] + [_L] * 2) * 2 + [_P, _L] * 3
+                                + ([_P] + [_L] * 2) * 2 + [_P, _L] * 3 + [_P] * 2
+                                + [_I] * 8 + [_P]),
+    # B, C, N, heads, bf16, device, out (3 ints: CTAs per cluster, staged, smem bytes)
+    "dq_linear_attention_bwd_plan": [_I] * 6 + [_P],
+    # x, dy, dx, then the ten operands of dq_fused_resnet and their
+    # gradients, each a pointer and its strides, part, B, C_in, C_out, N,
+    # flags, dtype bits, gradient dtype bits, x_bf16, device, stream
+    "dq_fused_resnet_bwd": ([_P] * 3 + sum(([_P] + [_L] * n for n in (3, 1, 1, 2, 2, 3, 1, 1, 2, 1)), []) * 2
+                            + [_P] + [_I] * 9 + [_P]),
     # q, k, v, out, out32, lse, BH, n, m, scale, bf16, device, stream
     "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     # q, k, v, o (float32), lse, dO, D, dq, dk, dv, BH, n, m, scale, bf16, device, stream

@@ -49,9 +49,6 @@ def resnet_block_t_reference(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b
     return (h2 + res.to(dtype)).to(dtype)
 
 
-_CHUNK = 1024  # sequence columns per CTA of the backward
-
-
 def resnet_block_t_backward_reference(dy, *args):
     """Plain backward: autograd of :func:`resnet_block_t_reference` at
     ``args`` (the op's eleven arguments). Returns one gradient per
@@ -88,36 +85,6 @@ def _check_args(op, x_t, w1, scale, shift, w2, w_res) -> bool:
     return True
 
 
-def _kernel_params(x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res):
-    """float32 kernel arguments; the conv weights are rounded to the
-    activation dtype first, like the TPU kernel's weights, so K2 and K5
-    see the same weights."""
-    dev = x_t.device
-    B, _, _ = x_t.shape
-    c_out = w1.shape[-1]
-
-    def weight(w):
-        return w.to(device=dev, dtype=x_t.dtype).to(torch.float32).contiguous()
-
-    def f32(v, shape):
-        return v.to(device=dev, dtype=torch.float32).reshape(shape).contiguous()
-
-    film, has_res = scale is not None, w_res is not None
-    return [
-        weight(w1), f32(b1, (c_out,)), f32(g1, (c_out,)),
-        f32(scale, (B, c_out)) if film else None,
-        f32(shift, (B, c_out)) if film else None,
-        weight(w2), f32(b2, (c_out,)), f32(g2, (c_out,)),
-        weight(w_res[0]) if has_res else None,
-        (f32(b_res, (c_out,)) if b_res is not None else torch.zeros(c_out, device=dev))
-        if has_res else None,
-    ]
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 _OPERANDS = ("w1", "b1", "g1", "scale", "shift", "w2", "b2", "g2", "w_res", "b_res")
 _NDIM = (3, 1, 1, 2, 2, 3, 1, 1, 3, 1)
 # the strides K2 reads of each operand (all but w_res's leading 1), and the
@@ -128,11 +95,11 @@ _ABSENT = tuple((None,) + (0,) * n for n in _NSTRIDES)
 _BF16_BIT = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _forward_kernel(x_t, *params):
-    """Launch K2 (``csrc/fused_resnet.cu``): checks, one allocation (out)
-    and one launch. The kernel reads every parameter as it is, in its own
-    dtype (float32 or bf16) through its strides, and rounds the conv
-    weights to x's dtype itself, as :func:`_kernel_params` does for K5."""
+def _operand_args(x_t, params, what="fused_resnet_block_t"):
+    """The pointers and strides of the ten operands as K2 and K5 read them
+    (each in its own dtype through its strides, no copy), their dtype bits
+    and the flags (FiLM, residual conv, residual bias); checks their
+    shapes."""
     B, c_in, N = x_t.shape
     c_out = params[0].shape[-1]
     dev = x_t.get_device()
@@ -144,7 +111,7 @@ def _forward_kernel(x_t, *params):
         st = t.stride()
         if len(st) != _NDIM[i] or t.get_device() != dev or t.dtype not in _BF16_BIT:
             raise ValueError(
-                f"fused_resnet_block_t: {_OPERANDS[i]} must be a {_NDIM[i]}-d float32 or "
+                f"{what}: {_OPERANDS[i]} must be a {_NDIM[i]}-d float32 or "
                 f"bfloat16 tensor on {x_t.device} (got {tuple(t.shape)} {t.dtype} on {t.device})")
         bits |= _BF16_BIT[t.dtype] << i
         args.append(t.data_ptr())
@@ -152,16 +119,27 @@ def _forward_kernel(x_t, *params):
     w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res = params
     if not b1.shape[0] == g1.shape[0] == b2.shape[0] == g2.shape[0] == c_out or (
             b_res is not None and b_res.shape[0] != c_out):
-        raise ValueError(f"fused_resnet_block_t: biases and gains must hold {c_out} values")
+        raise ValueError(f"{what}: biases and gains must hold {c_out} values")
     if scale is not None and not scale.shape == shift.shape == (B, c_out):
-        raise ValueError(f"fused_resnet_block_t: scale and shift must be ({B}, {c_out})")
+        raise ValueError(f"{what}: scale and shift must be ({B}, {c_out})")
     if w_res is not None and w_res.shape != (1, c_in, c_out):
-        raise ValueError(f"fused_resnet_block_t: w_res must be (1, {c_in}, {c_out})")
+        raise ValueError(f"{what}: w_res must be (1, {c_in}, {c_out})")
     flags = (scale is not None) | (w_res is not None) << 1 | (b_res is not None) << 2
+    return args, bits, flags
+
+
+def _forward_kernel(x_t, *params):
+    """Launch K2 (``csrc/fused_resnet.cu``): checks, one allocation (out)
+    and one launch. The kernel reads every parameter as it is, in its own
+    dtype (float32 or bf16) through its strides, and rounds the conv
+    weights to x's dtype itself, as K5 does."""
+    B, c_in, N = x_t.shape
+    c_out = params[0].shape[-1]
+    args, bits, flags = _operand_args(x_t, params)
     out = torch.empty((B, c_out, N), dtype=x_t.dtype, device=x_t.device)
     code = _build.library().dq_fused_resnet(
         x_t.data_ptr(), out.data_ptr(), *args, B, c_in, c_out, N, flags, bits,
-        _BF16_BIT[x_t.dtype], dev, _build.stream_of(x_t),
+        _BF16_BIT[x_t.dtype], x_t.get_device(), _build.stream_of(x_t),
     )
     _build.check(code, "dq_fused_resnet")
     fused_resnet_block_t.launches += 1
@@ -171,50 +149,45 @@ def _forward_kernel(x_t, *params):
 def fused_resnet_backward(dy, x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res):
     """Gradients of :func:`fused_resnet_block_t` at its eleven arguments for
     the output cotangent ``dy`` (K5): dx in x_t's dtype, every other
-    gradient in its argument's dtype, None where the argument is None.
+    gradient in its argument's shape and dtype, None where the argument is
+    None.
 
-    CPU tensors run :func:`resnet_block_t_backward_reference`; CUDA
-    tensors launch ``csrc/fused_resnet_bwd.cu``, which recomputes the block
-    from x and returns per-row partial sums of the parameter gradients;
-    the sum over rows is finished here with torch ops."""
+    CPU tensors run :func:`resnet_block_t_backward_reference`. CUDA tensors
+    launch ``csrc/fused_resnet_bwd.cu``: one kernel that recomputes the
+    block from x, reads the parameters as K2 does and sums each CTA's
+    parameter gradients in registers, and one small launch that sums the
+    CTAs' partials in a fixed order into tensors of the parameters' shapes,
+    dtypes and strides. The wrapper allocates and launches; it runs no
+    torch op on the parameters."""
     args = (x_t, w1, b1, g1, scale, shift, w2, b2, g2, w_res, b_res)
     if not _check_args("fused_resnet_backward", x_t, w1, scale, shift, w2, w_res):
         return resnet_block_t_backward_reference(dy, *args)
+    return _backward_kernel(dy, *args)
+
+
+def _backward_kernel(dy, x_t, *params):
+    """Launch K5 on checked arguments: the gradients' allocations, one
+    buffer of partial sums and the entry point's two launches."""
     B, c_in, N = x_t.shape
-    c_out = w1.shape[-1]
-    dev = x_t.device
-    film, has_res = scale is not None, w_res is not None
-    kp = _kernel_params(*args)
-    dy = dy.to(x_t.dtype).contiguous()
-    nsplit = max(1, -(-N // _CHUNK))
-    chunk = -(-N // nsplit)
-    # per-CTA partials: dw1 | dw2 | dw_res | b1 g1 b2 g2 b_res scale shift
-    n_w1, n_w2, n_wr = 3 * c_in * c_out, 3 * c_out * c_out, c_in * c_out
-    plen = n_w1 + n_w2 + n_wr + 7 * c_out
-    part = torch.empty((B, nsplit, plen), dtype=torch.float32, device=dev)
-    sums = torch.empty((B, plen), dtype=torch.float32, device=dev)
+    c_out = params[0].shape[-1]
+    pargs, bits, flags = _operand_args(x_t, params, "fused_resnet_backward")
+    if dy.dtype != x_t.dtype or not dy.is_contiguous():
+        dy = dy.to(x_t.dtype).contiguous()
     dx = torch.empty_like(x_t)
+    grads = [None if t is None else torch.empty_like(t) for t in params]
+    gargs, gbits, _ = _operand_args(x_t, grads, "fused_resnet_backward")
+    # each CTA's partial sums: up to 64 CTAs a row, every weight, bias, gain
+    # and FiLM gradient
+    plen = 3 * c_in * c_out + 3 * c_out * c_out + c_in * c_out + 7 * c_out
+    part = torch.empty(B * min(64, -(-N // 128)) * plen, dtype=torch.float32, device=x_t.device)
     code = _build.library().dq_fused_resnet_bwd(
-        x_t.data_ptr(), dy.data_ptr(), *[_ptr(a) for a in kp], part.data_ptr(),
-        sums.data_ptr(), dx.data_ptr(), B, c_in, c_out, N, nsplit, chunk, int(film),
-        int(has_res), int(x_t.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x_t),
+        x_t.data_ptr(), dy.data_ptr(), dx.data_ptr(), *pargs, *gargs, part.data_ptr(), B, c_in,
+        c_out, N, flags, bits, gbits, _BF16_BIT[x_t.dtype], x_t.get_device(),
+        _build.stream_of(x_t),
     )
     _build.check(code, "dq_fused_resnet_bwd")
     fused_resnet_backward.launches += 1
-
-    total = sums.sum(0)
-    dw1, dw2, dwr, vec = torch.split(total, [n_w1, n_w2, n_wr, 7 * c_out])
-    db1, dg1, db2, dg2, dbr, _, _ = vec.reshape(7, c_out)
-    dsc, dsh = sums[:, n_w1 + n_w2 + n_wr + 5 * c_out :].reshape(B, 2, c_out).unbind(1)
-    grads = (
-        dx, dw1.reshape(3, c_in, c_out), db1, dg1, dsc if film else None,
-        dsh if film else None, dw2.reshape(3, c_out, c_out), db2, dg2,
-        dwr.reshape(1, c_in, c_out) if has_res else None,
-        dbr if has_res and b_res is not None else None,
-    )
-    return tuple(
-        None if d is None else d.reshape(a.shape).to(a.dtype) for d, a in zip(grads, args)
-    )
+    return (dx, *grads)
 
 
 class _FusedResnetFn(torch.autograd.Function):

@@ -140,22 +140,35 @@ def _split(N):
     return nsplit, math.ceil(N / nsplit)
 
 
-def _weight_args(x, w_qkv, w_out, b_out, g, g_pre):
-    """The weights as K1 reads them, each in its own dtype through its
-    strides (no copy): ``(args, dtype bits)``, ``args`` the pointers and
-    strides of ``dq_linear_attention``."""
-    C = x.shape[1]
-    ws = (w_qkv, w_out, b_out.reshape(-1), g.reshape(-1), g_pre.reshape(-1))
+def _vec_stride(t, C):
+    """The stride between the C values of a vector parameter of any shape
+    holding C values ((C,), (1, C, 1), ...), without a view op."""
+    if t.numel() != C:
+        raise ValueError(f"b_out, g and g_pre must hold {C} values")
+    strides = [st for n, st in zip(t.shape, t.stride()) if n > 1]
+    return strides[0] if strides else 1
+
+
+def _tensor_args(ts, C, dev, what):
+    """Pointers and strides of the op's five weights, or of their gradients,
+    as the kernels take them: ``(args, dtype bits)``, bit i set where
+    tensor i is bf16; the matrices give their two strides, the vectors the
+    stride of their C values."""
     args, bits = [], 0
-    for i, t in enumerate(ws):
-        if t.device != x.device or t.dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"linear_attention: weights must be float32 or bfloat16 on "
-                             f"{x.device} (got {t.dtype} on {t.device})")
-        if i >= 2 and t.shape != (C,):
-            raise ValueError(f"b_out, g and g_pre must hold {C} values")
+    for i, t in enumerate(ts):
+        if t.device != dev or t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"linear_attention: {what} must be float32 or bfloat16 on "
+                             f"{dev} (got {t.dtype} on {t.device})")
         bits |= (t.dtype == torch.bfloat16) << i
-        args += [t.data_ptr(), *t.stride()]
+        args += [t.data_ptr(), *(t.stride() if i < 2 else (_vec_stride(t, C),))]
     return args, bits
+
+
+def _weight_args(x, w_qkv, w_out, b_out, g, g_pre):
+    """The weights as K1 and K4 read them, each in its own dtype through
+    its strides (no copy): ``(args, dtype bits)``, ``args`` the pointers
+    and strides of ``dq_linear_attention``."""
+    return _tensor_args((w_qkv, w_out, b_out, g, g_pre), x.shape[1], x.device, "weights")
 
 
 def _forward_kernel(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
@@ -184,70 +197,63 @@ def linear_attention_plan(C: int, N: int, heads: int = 4, bf16: bool = True) -> 
     return dict(cluster=out[0], staged=bool(out[1]), smem_bytes=out[2])
 
 
+def linear_attention_backward_plan(B: int, C: int, N: int, heads: int = 4,
+                                   bf16: bool = True, device: int = 0) -> dict:
+    """K4's launch shape for (B, C, N) on ``device`` (builds the kernels):
+    CTAs per cluster (``cluster``), whether a CTA stages its slices of x
+    and dy in shared memory (``staged``) and its dynamic shared memory
+    (``smem_bytes``)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().dq_linear_attention_bwd_plan(B, C, N, heads, int(bf16), device,
+                                                               out),
+                 "dq_linear_attention_bwd_plan")
+    return dict(cluster=out[0], staged=bool(out[1]), smem_bytes=out[2])
+
+
 def linear_attention_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD):
     """Gradients (dx, dw_qkv, dw_out, db_out, dg, dg_pre) of
     :func:`linear_attention` at ``x`` for the output cotangent ``dy``, each
-    in its input's dtype (K4).
+    in its input's shape and dtype (K4).
 
-    CPU tensors run :func:`linear_attention_backward_reference`; CUDA
-    tensors launch the kernels of ``csrc/linear_attention_bwd.cu``, which
-    recompute the forward from ``x`` and return per-row partials; the
-    per-row weight gradients are finished here with torch ops (a few
-    (H, C) tensors), as the JAX wrapper finishes them in XLA."""
+    CPU tensors run :func:`linear_attention_backward_reference`. CUDA
+    tensors launch ``csrc/linear_attention_bwd.cu``: one cluster launch
+    that recomputes the forward from ``x`` and reads the weights as they
+    are, and one small launch that sums the rows' weight gradients in a
+    fixed order into tensors of the parameters' shapes, dtypes and (for
+    the two matrices) strides. The wrapper allocates and launches; it runs
+    no torch op on the weights."""
     if x.device.type == "cpu":
         return linear_attention_backward_reference(
             dy, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
     _check_kernel_args("linear_attention_backward", x, w_qkv, w_out, heads, dim_head)
+    return _backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
+
+
+def _backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
+    """Launch K4 on checked arguments: the gradients' allocations, one
+    scratch buffer and the entry point's two launches."""
     B, C, N = x.shape
-    H = heads * dim_head
+    HC = heads * dim_head * C
     dev = x.device
-    dy = dy.to(x.dtype).contiguous()
-    wq, wk, wv, gp, kshift, qshift, (_, wk2, kshift2, _) = _kernel_weights(x, w_qkv, g_pre, heads)
-    wout, bo, gg = _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C)
-    nsplit, chunk = _split(N)
-    f32 = dict(dtype=torch.float32, device=dev)
-    # scratch of the passes; see csrc/linear_attention_bwd.cu for each layout
-    part = torch.empty((B, nsplit, H, C + 1), **f32)
-    m = torch.empty((B, C, H), **f32)
-    ctx = torch.empty((B, H, DIM_HEAD), **f32)
-    inv_s = torch.empty((B, H), **f32)
-    dxq = torch.empty((B, C, N), **f32)
-    len_q, len_k = 2 * H * C + 2 * C, H + 2 * H * C
-    part_q = torch.empty((B, nsplit, len_q), **f32)
-    sum_q = torch.empty((B, len_q), **f32)
-    dctx = torch.empty((B, H, DIM_HEAD), **f32)
-    d2 = torch.empty((B, H, C), **f32)
-    dwo = torch.empty((B, H, C), **f32)
-    part_k = torch.empty((B, nsplit, len_k), **f32)
-    sum_k = torch.empty((B, len_k), **f32)
-    part_x = torch.empty((B, nsplit, C), **f32)
-    dgpre = torch.empty((B, C), **f32)
+    if dy.dtype != x.dtype or not dy.is_contiguous():
+        dy = dy.to(x.dtype).contiguous()
+    wargs, wbits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
     dx = torch.empty_like(x)
-    ptrs = [x, dy, wq, wk, wv, wout, bo, gg, gp, qshift, kshift, wk2, kshift2, part, m, ctx,
-            inv_s, dxq, part_q, sum_q, dctx, d2, dwo, part_k, sum_k, part_x, dgpre, dx]
+    grads = (torch.empty_like(w_qkv), torch.empty_like(w_out),
+             *(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (b_out, g, g_pre)))
+    gargs, gbits = _tensor_args(grads, C, dev, "gradients")
+    # per-row partials (dW_out, dW_v, db, dg) and per-CTA partials (dW_q,
+    # dW_k, dg_pre) of up to 8 CTAs a row, float32
+    rows = B * (2 * HC + 2 * C)
+    scratch = torch.empty(rows + B * 8 * (2 * HC + C), dtype=torch.float32, device=dev)
     code = _build.library().dq_linear_attention_bwd(
-        *[t.data_ptr() for t in ptrs], B, C, N, heads, nsplit, chunk,
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *wargs, *gargs, scratch.data_ptr(),
+        scratch.data_ptr() + 4 * rows, B, C, N, heads, wbits, gbits,
         int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
     )
     _build.check(code, "dq_linear_attention_bwd")
     linear_attention_backward.launches += 1
-
-    # per-row partials -> weight gradients (tiny torch ops, fixed order)
-    HC = H * C
-    dwq = sum_q[:, HC : 2 * HC].sum(0).reshape(H, C)
-    db, dg = sum_q[:, 2 * HC : 2 * HC + C].sum(0), sum_q[:, 2 * HC + C :].sum(0)
-    t_sum = sum_k[:, :H]
-    dwka, bmat = sum_k[:, H : H + HC].reshape(B, H, C), sum_k[:, H + HC :].reshape(B, H, C)
-    dwk = (dwka - bmat * t_sum[:, :, None]).sum(0)
-    # dWv[e, c] = sum_b sum_{d in head(e)} dctx_b[d, e] bmat_b[d, c]
-    dwv = torch.einsum(
-        "bhdi,bhdc->hic", dctx.reshape(B, heads, DIM_HEAD, DIM_HEAD),
-        bmat.reshape(B, heads, DIM_HEAD, C),
-    ).reshape(H, C)
-    dw_qkv = torch.cat([dwq, dwk, dwv], dim=0).t()
-    grads = (dw_qkv, dwo.sum(0), db, dg, dgpre.sum(0))
-    params = (w_qkv, w_out, b_out, g, g_pre)
-    return (dx, *(d.reshape(p.shape).to(p.dtype) for d, p in zip(grads, params)))
+    return (dx, *grads)
 
 
 class _LinearAttentionFn(torch.autograd.Function):
