@@ -73,16 +73,21 @@ CUDA card with sm_90a). Phases, each of which must pass:
      times on each path with K8 14 launches per step (its gradient is the
      vjp of the recomputed reference, as in JAX's ``_fused`` custom_vjp),
      ms/step and peak memory;
- 10. sequence parallelism over an sp = 2 group: K6a, K6b and K6c against
-     their plain versions at the sharded widths of the mixers and a ragged
-     N, float32 and bf16, timed at (34, 4, 20000); N cut by hand into 2
-     and 4 slices (one thread each, partials summed in rank order) against
-     K1 and K4 on the whole N; then two ranks spawned in one gloo group,
+ 10. sequence parallelism over an sp = 2 group: K6a (both operand modes),
+     K6b and K6c against their plain versions at the sharded widths of the
+     mixers and a ragged N, float32 and bf16, timed at (34, 4, 20000)
+     around the wrapper and on the device, with the kernels a call on the
+     device (K6a 1, K6c 3: no torch op beside them); N cut by hand into 2
+     and 4 slices (one thread each, partials summed in rank order, one Z
+     barrier in K6c) against K1 and K4 on the whole N; then two ranks
+     spawned in one gloo group,
      both on this card, each running the unfused canonical model
      (``linear_attn_impl = "auto"``, m/z split in two): the full-width
      forward (f32, bf16), a 50-step ``predict`` (bf16 with K6a 600 and K6b
      600 launches per rank, then f32) and ``Trainer.train_step`` (f32,
-     bf16; K6a 24, K6b 12, K6c 12 per rank), each held on rank 0 against
+     bf16; K6a 24, K6b 12, K6c 12 per rank), with the all_reduces of each
+     forward and step counted (the K6 op's: 12 a forward, 36 a step), each
+     held on rank 0 against
      the same call in one process (whose two mixers at N = 625 take the
      "xla" path, as at sp = 2); ms/window, ms/step and peak memory per
      rank, which say nothing of the speed of sequence parallelism (two
@@ -224,6 +229,14 @@ SP_FORWARD = {"linear_attention_sp_stats": 12, "linear_attention_sp_apply": 12,
 SP_STEP = {"linear_attention_sp_stats": 24, "linear_attention_sp_apply": 12,
            "linear_attention_sp_backward": 12, "flash_attention": 1,
            "flash_attention_backward": 1}
+# Kernels a call of K6a (either operands) and K6c on the device: one cluster
+# launch; two cluster launches and the fixed-order sum of the gradients. No
+# torch op runs on the device beside them.
+SP_KERNELS_A_CALL = {"K6a": 1, "K6a float32 operands": 1, "K6c": 3}
+# all_reduces per rank of the 12 K6 mixers: one a forward (the stats), two
+# a backward (the recomputed stats, then Z; T follows from Z and the summed
+# stats). A K6c that also summed T would run 12 more a step (48).
+SP_COLLECTIVES = {"forward": 12, "step": 12 * (1 + 2)}
 # K6a's partials are sums over up to 20000 columns: an absolute tolerance
 # of 1e-4 of the largest sum (float32, another summation order)
 SP_STATS_TOL = (1e-4, 1e-4)
@@ -329,15 +342,15 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / max(reps, 1)
 
 
-def device_ms(fn, reps, *names, warmup=1):
-    """Device time from ``torch.profiler`` over ``reps`` calls of ``fn``
-    (after ``warmup``): {name: (ms per call, kernels per call, ms per call
-    from each kernel's mean)} summed over the kernels whose names contain
-    ``name``, and under ``"all"`` over every kernel. The third number sums
-    each kernel's mean time once: for a call that launches each of its
-    kernels once it stands even where the profiler drops records (it drops
-    some in these short windows; a whole step's profile counted every
-    launch). Fails where a named kernel never ran on the device."""
+# Profiles taken of one set of calls before a kernel that ran is counted as
+# missing: torch.profiler drops records in short windows, now and then all
+# of one kernel's.
+PROFILE_TRIES = 3
+
+
+def _kernel_events(fn, reps, warmup):
+    """(name, device us, count) of every kernel ``torch.profiler`` saw in
+    ``reps`` calls of ``fn`` (after ``warmup``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,22 +361,58 @@ def device_ms(fn, reps, *names, warmup=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    sums = {name: [0.0, 0, 0.0] for name in names + ("all",)}
+    events = []
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count:
             continue
         us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        if not e.count:
-            continue
-        for name in names + ("all",):
-            if name == "all" or name in e.key:
-                sums[name][0] += us
-                sums[name][1] += e.count
-                sums[name][2] += us / e.count
-    for name in names:
-        check(sums[name][1] > 0, f"the profiler saw no device time of {name}")
+        events.append((e.key, e.self_cuda_time_total if us is None else us, e.count))
+    return events
+
+
+def device_ms(fn, reps, *names, warmup=1):
+    """Device time from ``torch.profiler`` over ``reps`` calls of ``fn``
+    (after ``warmup``): {name: (ms per call, kernels per call, ms per call
+    from each kernel's mean)} summed over the kernels whose names contain
+    ``name``, and under ``"all"`` over every kernel. The third number sums
+    each kernel's mean time once: for a call that launches each of its
+    kernels once it stands even where the profiler drops records (it drops
+    some in these short windows; a whole step's profile counted every
+    launch). Profiles again where a named kernel left no record, and fails
+    where it left none in PROFILE_TRIES profiles."""
+    for _ in range(PROFILE_TRIES):
+        sums = {name: [0.0, 0, 0.0] for name in names + ("all",)}
+        for key, us, count in _kernel_events(fn, reps, warmup):
+            for name in names + ("all",):
+                if name == "all" or name in key:
+                    sums[name][0] += us
+                    sums[name][1] += count
+                    sums[name][2] += us / count
+        missing = [name for name in names if not sums[name][1]]
+        if not missing:
+            break
+        log(f"  the profiler saw no device time of {missing}: profiling again")
+    check(not missing, f"the profiler saw no device time of {missing}")
     return {k: (us / 1e3 / reps, n / reps, mean / 1e3) for k, (us, n, mean) in sums.items()}
+
+
+def device_kernels(fn, reps, kernels_expected=None, warmup=1):
+    """Device time of whole calls of ``fn`` from ``torch.profiler``: (ms a
+    call summed over every kernel record, kernels a call as the profiler
+    counted them, the sorted names of the distinct kernels, ms a call from
+    each distinct kernel's mean time once). Where the profiler drops
+    records in a short window the names and, for a call that launches each
+    of its kernels once, the last time stand; it profiles again while it
+    saw fewer than ``kernels_expected`` kernels a call."""
+    for _ in range(PROFILE_TRIES):
+        events = _kernel_events(fn, reps, warmup)
+        n = sum(count for _, _, count in events)
+        if kernels_expected is None or n >= kernels_expected * reps:
+            break
+    kinds = sorted({key.replace("(anonymous namespace)::", "").split("(")[0]
+                    .replace("void ", "") for key, _, _ in events})
+    return (sum(us for _, us, _ in events) / 1e3 / reps, n / reps, kinds,
+            sum(us / count for _, us, count in events) / 1e3)
 
 
 def phase_info():
@@ -1697,10 +1746,11 @@ class _ThreadSum:
 def _hand_split(x, dy, w, size):
     """K6 on ``size`` slices of N: K6a on each slice, the partials summed in
     rank order, K6b on each; then the backward's K6a (float32 operands),
-    summed, and K6c on each slice in its own thread, the threads summing Z
-    and T between the launches. No autograd: the engine runs the backward
-    of all CUDA graphs on one device thread, which one waiting slice would
-    block. Returns (y, [dx, summed weight gradients])."""
+    summed, and K6c on each slice in its own thread (given the sums and its
+    own partials), the threads summing Z between its launches. No
+    autograd: the engine runs the backward of all CUDA graphs on one device
+    thread, which one waiting slice would block. Returns (y, [dx, summed
+    weight gradients])."""
     import threading
 
     import torch
@@ -1723,13 +1773,14 @@ def _hand_split(x, dy, w, size):
         _, _, m = la.sp_context(st, w_qkv, w_out, round_m=x.dtype == torch.bfloat16)
         y = torch.cat([la.linear_attention_sp_apply(xr, m, w_qkv, b_out, g, g_pre)
                        for xr in xs], 2)
-        st32 = summed([la.linear_attention_sp_stats(xr, w_qkv, g_pre, round_operands=False)
-                       for xr in xs])
+        local = [la.linear_attention_sp_stats(xr, w_qkv, g_pre, round_operands=False)
+                 for xr in xs]
+        st32 = summed(local)
         sums, grads, errors = _ThreadSum(size), [None] * size, []
 
         def run(r):
             try:
-                grads[r] = la.linear_attention_sp_backward(dys[r], xs[r], *w, st32,
+                grads[r] = la.linear_attention_sp_backward(dys[r], xs[r], *w, st32, local[r],
                                                            sums.reduce_of(r))
             except Exception as e:  # raised in the calling thread below
                 errors.append(e)
@@ -1777,42 +1828,68 @@ def phase_sp_kernels(gen, results):
             w = weights(C)
             x, dy = randn(34, C, n).to(dt), randn(34, C, n).to(dt)
             with torch.no_grad():
-                st = la.linear_attention_sp_stats(x, w[0], w[4])
-                ref = la.sp_stats_reference(x, w[0], w[4])
-                scale = float(ref.abs().max())
-                errs[names[0]] = max(errs[names[0]], _compare(
-                    f"K6a sp_stats {tag} (34, {C}, {n})", st, ref, SP_STATS_TOL, scale))
+                for rnd in (True, False):  # the forward's operands, the backward's
+                    st = la.linear_attention_sp_stats(x, w[0], w[4], round_operands=rnd)
+                    ref = la.sp_stats_reference(x, w[0], w[4], round_operands=rnd)
+                    errs[names[0]] = max(errs[names[0]], _compare(
+                        f"K6a sp_stats {tag} (34, {C}, {n}), "
+                        f"{'rounded' if rnd else 'float32'} operands", st, ref, SP_STATS_TOL,
+                        float(ref.abs().max())))
                 _, _, m = la.sp_context(ref, w[0], w[1], round_m=dt == torch.bfloat16)
                 y = la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4])
                 ref_y = la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4])
                 errs[names[1]] = max(errs[names[1]], _compare(
                     f"K6b sp_apply {tag} (34, {C}, {n})", y, ref_y, tol))
-                st32 = la.sp_stats_reference(x, w[0], w[4], round_operands=False)
-                got = la.linear_attention_sp_backward(dy, x, *w, st32, no_sum)
-                ref_g = la.sp_backward_reference(dy, x, *w, st32, no_sum)
+                st32 = ref  # one slice: its own stats are the sums
+                got = la.linear_attention_sp_backward(dy, x, *w, st32, st32, no_sum)
+                ref_g = la.sp_backward_reference(dy, x, *w, st32, st32, no_sum)
             errs[names[2]] = max(errs[names[2]], _compare_grads(
                 f"K6c sp_backward {tag} (34, {C}, {n})", got, ref_g, GRAD_TOL[tag]))
             if dt == torch.bfloat16 and (C, n) == SP_SHAPES[0]:
-                timing[names[0]] = (
-                    cuda_time(lambda: la.linear_attention_sp_stats(x, w[0], w[4]), 20),
-                    cuda_time(lambda: la.sp_stats_reference(x, w[0], w[4]), 5),
-                    linattn_bound(34, C, n, 2, tensors=1, passes=2))
-                timing[names[1]] = (
-                    cuda_time(lambda: la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4]),
-                              20),
-                    cuda_time(lambda: la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4]), 5),
-                    linattn_bound(34, C, n, 2, tensors=2, passes=2))
-                timing[names[2]] = (
-                    cuda_time(lambda: la.linear_attention_sp_backward(dy, x, *w, st32, no_sum), 10),
-                    cuda_time(lambda: la.sp_backward_reference(dy, x, *w, st32, no_sum), 3),
-                    linattn_bound(34, C, n, 2, tensors=3, passes=10))
+                calls = {  # kernel, plain version, reps
+                    "K6a": (lambda: la.linear_attention_sp_stats(x, w[0], w[4]),
+                            lambda: la.sp_stats_reference(x, w[0], w[4]), 20),
+                    "K6a float32 operands": (
+                        lambda: la.linear_attention_sp_stats(x, w[0], w[4], round_operands=False),
+                        lambda: la.sp_stats_reference(x, w[0], w[4], round_operands=False), 20),
+                    "K6b": (lambda: la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4]),
+                            lambda: la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4]), 20),
+                    "K6c": (lambda: la.linear_attention_sp_backward(dy, x, *w, st32, st32, no_sum),
+                            lambda: la.sp_backward_reference(dy, x, *w, st32, st32, no_sum), 10),
+                }
+                with torch.no_grad():
+                    for what, (kernel, plain, reps) in calls.items():
+                        timing[what] = (cuda_time(kernel, reps), cuda_time(plain, 3),
+                                        device_kernels(kernel, reps, SP_KERNELS_A_CALL.get(what)))
             del w, x, dy, got, ref_g
         torch.cuda.empty_cache()
-    for name, (ms, plain_ms, bnd) in timing.items():
-        log(f"  time {name} bf16 (34, 4, {SP_SHAPES[0][1]}): kernel {ms:.4f} ms, plain "
+    bounds = {"K6a": linattn_bound(34, *SP_SHAPES[0], 2, tensors=1, passes=2),
+              "K6b": linattn_bound(34, *SP_SHAPES[0], 2, tensors=2, passes=2),
+              "K6c": linattn_bound(34, *SP_SHAPES[0], 2, tensors=3, passes=10)}
+    for what, (ms, plain_ms, (dev_ms, per_call, kinds, once_ms)) in timing.items():
+        bnd = bounds[what.split()[0]]
+        log(f"  time {what} bf16 (34, {SP_SHAPES[0][0]}, {SP_SHAPES[0][1]}): wrapper {ms:.4f} ms, "
+            f"device {dev_ms:.4f} ms in {per_call:.1f} kernels a call, {once_ms:.4f} ms from each "
+            f"kernel's mean once ({len(kinds)} kinds: {', '.join(kinds)}), plain "
             f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        if what in SP_KERNELS_A_CALL:
+            check(len(kinds) == SP_KERNELS_A_CALL[what],
+                  f"{what}: {len(kinds)} kernels a call on the device, not "
+                  f"{SP_KERNELS_A_CALL[what]} (a torch op beside the kernel, or a launch more)")
+    # device ms: K6a's and K6c's kernels run once a call (the kinds checked
+    # above), so each kernel's mean once stands where records drop; K6b's
+    # torch ops repeat kernels, so its records are summed
+    def device(what):
+        _, _, (dev_ms, per_call, _, once_ms) = timing[what]
+        return dict(device_ms=once_ms if what in SP_KERNELS_A_CALL else dev_ms,
+                    kernels_a_call=per_call)
+
+    for name, what in zip(names, ("K6a", "K6b", "K6c")):
+        ms, plain_ms, _ = timing[what]
         results[name].update(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, library_ms=None,
-                             **bnd)
+                             **device(what), **bounds[what])
+    results[names[0]].update(ms_float32_operands=timing["K6a float32 operands"][0],
+                             device_ms_float32_operands=device("K6a float32 operands")["device_ms"])
 
     # the hand split: K1 / K4 on the whole N against K6 over 2 and 4 slices
     for dt in (torch.float32, torch.bfloat16):
@@ -1892,13 +1969,42 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
         torch.cuda.empty_cache()
         dist.barrier()
 
+    # every all_reduce of this rank, and those the K6 op issues (a caller in
+    # its module on the stack), counted here around torch.distributed
+    k6_module = os.path.join("dquartic_tpu_torch", "ops", "linear_attention.py")
+    collectives = {"all": 0, "k6": 0}
+    real_all_reduce = dist.all_reduce
+
+    def counting_all_reduce(*args, **kwargs):
+        frame = sys._getframe(1)
+        while frame is not None and not frame.f_code.co_filename.endswith(k6_module):
+            frame = frame.f_back
+        collectives["all"] += 1
+        collectives["k6"] += frame is not None
+        return real_all_reduce(*args, **kwargs)
+
+    def count_collectives(what, fn):
+        collectives.update(all=0, k6=0)
+        result = fn()
+        torch.cuda.synchronize()
+        got = dict(collectives)
+        check(got["k6"] == SP_COLLECTIVES[what],
+              f"K6 all_reduces a {what}: {got['k6']}, not {SP_COLLECTIVES[what]}")
+        _rank_log(rank, f"all_reduces a {what}: {got['all']}, of which K6 {got['k6']} "
+                  f"(expected {SP_COLLECTIVES[what]})")
+        out["collectives"][what] = got
+        return result
+
+    dist.all_reduce = counting_all_reduce
+    out["collectives"] = {}
+
     # (a) the full-width forward, sp = SP against one process
     for dtype in ("float32", "bfloat16"):
         cfg = _sp_config(config, dtype, SP)
         model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
         with torch.inference_mode():
             reset_launch_counts()
-            y = model(*inputs())
+            y = count_collectives("forward", lambda: model(*inputs()))
             counts = launch_counts()
         check(counts == _expect(SP_FORWARD, cfg=cfg), f"sp forward launches {counts}")
         y = y.float().cpu()
@@ -1966,7 +2072,7 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
         torch.cuda.reset_peak_memory_stats()
         trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
         reset_launch_counts()
-        m = trainer.train_step(tbatch, 1e-4, t=t, eps=eps)
+        m = count_collectives("step", lambda: trainer.train_step(tbatch, 1e-4, t=t, eps=eps))
         counts = launch_counts()
         check(counts == _expect(SP_STEP, cfg=cfg), f"sp train launches {counts}")
         loss = float(m["loss"])
@@ -2060,6 +2166,7 @@ def phase_sp(config, seed, gen, results):
              "speed of sequence parallelism",
         forward_rel_l2={d: lead[f"forward_rel_l2_{d}"] for d in ("float32", "bfloat16")},
         predict_rel_l2_float32=lead["predict_rel_l2_float32"],
+        collectives_per_rank=lead["collectives"],
         ms_per_window=[r["ms_per_window"] for r in ranks],
         train={d: [r[f"train_{d}"] for r in ranks] for d in ("float32", "bfloat16")})
 
@@ -2118,7 +2225,9 @@ def main(argv=None) -> int:
         "linear_attention_sp_stats": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1555",
-            note="K6a; launches per rank of the sp=2 predict (phase 10)"),
+            note="K6a: one cluster launch a call (K1's kernel in its stats mode, "
+                 "csrc/linear_attention.cu; K4's for bf16 with float32 operands); launches "
+                 "per rank of the sp=2 predict (phase 10)"),
         "linear_attention_sp_apply": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1589",
@@ -2126,7 +2235,9 @@ def main(argv=None) -> int:
         "linear_attention_sp_backward": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1797",
-            note="K6c (three launches a call); calls per rank of the sp=2 train step"),
+            note="K6c: three launches a call (K4's kernel twice, csrc/linear_attention_bwd.cu, "
+                 "and its fixed-order sum), one all_reduce; calls per rank of the sp=2 train "
+                 "step"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     try:

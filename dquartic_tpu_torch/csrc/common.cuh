@@ -37,26 +37,6 @@ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 namespace {
 
-// Second pass of a deterministic cross-CTA reduction: out[b][i] = sum of
-// part[b][sp][i] over sp = 0, 1, ..., nsplit-1, in that order (no atomics).
-// grid (ceil(len / 256), B), 256 threads.
-__global__ void __launch_bounds__(256) sum_partials(const float* __restrict__ part,
-                                                    float* __restrict__ out, int nsplit,
-                                                    int len) {
-  const int i = blockIdx.x * 256 + threadIdx.x, b = blockIdx.y;
-  if (i >= len) return;
-  const float* src = part + (size_t)b * nsplit * len + i;
-  float acc = 0.0f;
-  for (int sp = 0; sp < nsplit; ++sp) acc += src[(size_t)sp * len];
-  out[(size_t)b * len + i] = acc;
-}
-
-inline cudaError_t launch_sum_partials(const float* part, float* out, int B, int nsplit,
-                                       int len, cudaStream_t s) {
-  sum_partials<<<dim3(ceil_div(len, 256), B), 256, 0, s>>>(part, out, nsplit, len);
-  return cudaGetLastError();
-}
-
 // Opts a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -6,7 +6,7 @@
 // y = RMSNorm_g(M q + b_out) + x (see linear_attention.cu).
 #pragma once
 
-#include "linattn_phase0.cuh"
+#include "linattn_common.cuh"
 
 namespace {
 

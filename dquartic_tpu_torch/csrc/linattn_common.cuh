@@ -1,16 +1,24 @@
-// The weights and the slices of the pre-norm linear-attention kernels,
-// shared by K1 (linear_attention.cu) and K4 (linear_attention_bwd.cu): the
-// weights as the caller holds them, and a CTA's slice of a (B, C, N)
-// tensor staged in shared memory or read from device memory.
+// The weights, the slices and the cluster launches of the pre-norm
+// linear-attention kernels, shared by K1 (linear_attention.cu), K4
+// (linear_attention_bwd.cu) and K6 (linear_attention_sp.cu): the weights as
+// the caller holds them, a CTA's slice of a (B, C, N) tensor staged in
+// shared memory or read from device memory, the cluster size a launch takes,
+// and the host entry points through which K6 runs K1's and K4's cluster
+// kernels in their sequence-parallel modes.
 #pragma once
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "mma.cuh"
 
-namespace {
+namespace dq {
 
 // The op's weights as the caller holds them: w_qkv (C, 3H), w_out (H, C),
 // b_out, g, g_pre (C), each float32 or bf16 (bit i of `bf16`, in this
-// order), read through their strides.
+// order), read through their strides. A launch that reads only some of them
+// (K6a: w_qkv and g_pre) leaves the others null.
 struct Weights {
   const void* wqkv;
   long long wqkv_c, wqkv_h;
@@ -24,6 +32,55 @@ struct Weights {
   long long g_pre_c;
   int bf16;
 };
+
+// Their gradients as the caller allocated them, in the same layout, written
+// through their strides.
+struct Grads {
+  void* wqkv;
+  long long wqkv_c, wqkv_h;
+  void* wout;
+  long long wout_h, wout_c;
+  void* b_out;
+  long long b_out_c;
+  void* g;
+  long long g_c;
+  void* g_pre;
+  long long g_pre_c;
+  int bf16;
+};
+
+// K6's launches (stats: (B, H, C + 1) float32 [A | s] per row; z: (B, H, C)
+// float32; rowpart, ctapart: K4's partials, see linear_attention_bwd.cu).
+// K6a, p and xh rounded to x's dtype (bf16), or float32 x: K1's phase 0.
+cudaError_t linattn_stats(const void* x, float* stats, const Weights& w, int B, int C, int N,
+                          int heads, bool bf16, cudaStream_t s);
+// K6a, bf16 x with float32 operands (the backward's recompute): K4's pass 0.
+cudaError_t linattn_bwd_stats(const void* x, float* stats, const Weights& w, int B, int C,
+                              int N, int heads, cudaStream_t s);
+// K6c, launch 1: from the summed stats, the rank's Z and each row's db, dg.
+cudaError_t linattn_sp_bwd_z(const void* x, const void* dy, const Weights& w,
+                             const float* stats, float* z, float* rowpart, int B, int C, int N,
+                             int heads, bool bf16, cudaStream_t s);
+// K6c, launches 2 and 3: from the summed stats and Z, dx and the rank's
+// weight gradients (dW_out and dW_v from its own stats, stats_local).
+cudaError_t linattn_sp_bwd_x(const void* x, const void* dy, void* dx, const Weights& w,
+                             const Grads& g, const float* stats, const float* stats_local,
+                             const float* z, float* rowpart, float* ctapart, int B, int C,
+                             int N, int heads, bool bf16, cudaStream_t s);
+
+}  // namespace dq
+
+namespace {
+
+using dq::Grads;
+using dq::Weights;
+
+constexpr int kMaxC = 16;
+constexpr int kMaxH = 256;
+constexpr int kDimHead = 32;
+constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kColsPerCta = 256;  // fewest columns a CTA is given when a cluster has more than one
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ld(const void* p, long long i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -66,6 +123,77 @@ __device__ void stage_rows(char* dst, int row_bytes, const T* src, long long N, 
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+inline cudaLaunchConfig_t cluster_config(int cl, int B, int threads, int smem, cudaStream_t s,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launches `kernel` over grid (cl, B), a cluster of cl CTAs per row.
+template <typename K, typename... Args>
+cudaError_t launch_cluster(K kernel, int cl, int B, int threads, int smem, cudaStream_t s,
+                           Args... args) {
+  cudaError_t err = dq::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(cl, B, threads, smem, s, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// CTAs per cluster for a launch of `kernel` over B rows of N columns: the
+// fewest waves of clusters the card holds at once times the columns of a
+// CTA; among equals, the smaller cluster. make(cl) is the launch's plan at
+// cl CTAs a cluster (its `chunk` of columns a CTA and its shared `bytes`).
+// Cached per kernel and shape (the occupancy queries take host time).
+template <typename P, typename K, typename Make>
+cudaError_t choose_cluster(K kernel, int threads, int B, int C, int N, int H, Make make,
+                           P* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, P> cache;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), B, C, N, H);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  long long best = -1;
+  for (int cl = 1; cl <= kMaxCluster; ++cl) {
+    if (cl > 1 && N / cl < kColsPerCta) break;
+    const P p = make(cl);
+    cudaError_t err = dq::allow_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(cl, B, threads, p.bytes, nullptr, attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) continue;
+    const long long cost = (long long)dq::ceil_div(B, clusters) * p.chunk;
+    if (best < 0 || cost < best) best = cost, *out = p;
+  }
+  if (best < 0) return cudaErrorInvalidConfiguration;
+  cache[key] = *out;
+  return cudaSuccess;
+}
+
+inline bool linattn_valid(int B, int C, int N, int heads) {
+  const int H = heads * kDimHead;
+  return B >= 1 && B <= 65535 && C >= 1 && C <= kMaxC && N >= 1 && H >= kDimHead && H <= kMaxH;
 }
 
 }  // namespace

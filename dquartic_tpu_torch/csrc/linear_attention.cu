@@ -40,6 +40,10 @@
 //   5. apply: q, the per-head softmax and y = M q over the slice; for bf16
 //      x both products on tensor cores (apply_mma), for float32 one thread
 //      a column on CUDA cores (apply_fma).
+// In its stats mode (kStats) the same kernel is K6a on a rank's slice of a
+// sequence split over ranks (linear_attention_sp.cu): steps 1 and 2 and rank
+// 0's sum of the partials, written to device memory as each row's [A | s],
+// the cluster size from the card's occupancy.
 // The (H, N) q/k/v expansions never reach device memory: x is read once
 // and y written once. Per column the op does 4 H x C multiply-add passes
 // and 2 H exponentials, so at C = 4 it is bound by float32 operations and
@@ -68,14 +72,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 16;
-constexpr int kMaxH = 256;
-constexpr int kDimHead = 32;
-constexpr int kMaxCluster = 8;      // the portable cluster size
-constexpr int kColsPerCta = 256;    // fewest columns a CTA is given when CL > 1
 constexpr int kTile = 128;          // columns normalized per phase-0 step
 constexpr int kStageBudget = 100 * 1024;  // bytes of staged x and norms per CTA
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kXr = 24;  // row stride (bf16) of 16-channel rows: ldmatrix rows on distinct banks
 
 // Shared-memory plan of a launch (float offsets, then the staged x in
@@ -90,10 +88,17 @@ struct Plan {
   int bytes;
 };
 
-Plan make_plan(int C, int CB, int H, int N, int elt) {
+// K1's cluster size: 8 CTAs a row, fewer for small N so that a CTA has at
+// least kColsPerCta columns.
+int k1_cluster(int N) {
+  int cl = 1;
+  while (cl < kMaxCluster && N / (2 * cl) >= kColsPerCta) cl *= 2;
+  return cl;
+}
+
+Plan make_plan(int C, int CB, int H, int N, int elt, int cl) {
   Plan p{};
-  p.cl = 1;
-  while (p.cl < kMaxCluster && N / (2 * p.cl) >= kColsPerCta) p.cl *= 2;
+  p.cl = cl;
   p.chunk = dq::ceil_div(N, p.cl);
   // bf16 runs the tensor-core passes, whose channel rows are padded to 8
   const bool mma = elt == 2;
@@ -581,10 +586,14 @@ __device__ void apply_mma(const Slice<__nv_bfloat16>& xsl, const __nv_bfloat16* 
 // staged level-0 slice leaves room for 3 in shared memory), so that the 34
 // rows x 8 CTAs of the canonical level 0 run in one wave; otherwise 2
 // (float32's CUDA-core passes spill at 80).
-template <typename T, int CB>
+// kStats (K6a, a rank's phase-0 partials of a sequence split over ranks):
+// steps 1 and 2 and rank 0's sum of the partials, written to stats (B, H,
+// C + 1) as each row's [A | s]; no apply, no y, and only W_k and g_pre are
+// read.
+template <typename T, int CB, bool kStats>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
-    linattn_cluster(const T* __restrict__ x, T* __restrict__ y, Weights w, Plan p, int C,
-                    int N, int H) {
+    linattn_cluster(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ stats,
+                    Weights w, Plan p, int C, int N, int H) {
   constexpr bool kMma = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -619,8 +628,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   const bool bq = w.bf16 & 1, bo = w.bf16 & 2;
   if (t < CB) {
     const bool ok = t < C;
-    b_out[t] = ok ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
-    g[t] = ok ? ld(w.g, t * w.g_c, w.bf16 & 8) : 0.0f;
+    b_out[t] = ok && !kStats ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
+    g[t] = ok && !kStats ? ld(w.g, t * w.g_c, w.bf16 & 8) : 0.0f;
     gpre[t] = ok ? ld(w.g_pre, t * w.g_pre_c, w.bf16 & 16) : 0.0f;
     gp[t] = gpre[t] * rs;
   }
@@ -634,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   cn *= rs;
   __nv_bfloat16* wqh = reinterpret_cast<__nv_bfloat16*>(wq);  // bf16 W_q' (hi, lo) rows
   __nv_bfloat16* wql = wqh + H * kXr;
-  for (int d = t; d < 2 * H; d += kThreads) {  // rows 0..H-1: W_q; H..2H-1: W_k
+  for (int d = (kStats ? H : 0) + t; d < 2 * H; d += kThreads) {  // rows 0..H-1: W_q; H..2H-1: W_k
     float v[CB], nrm = 0.0f;
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
@@ -676,6 +685,28 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   else
     phase0_fma<T, CB>(xsl, den, gp, wk, ks, scratch, part, psum, C, H, cols, p.staged);
   cluster.sync();  // #1: every CTA's partial is visible to the cluster
+
+  if constexpr (kStats) {  // rank 0: the row's (A, s) in rank order, to stats
+    if (rank == 0 && t < H) {
+      float a[CB], s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) a[c] = 0.0f;
+      for (int r = 0; r < cl; ++r) {
+        float pr[CB];
+        load_row<CB>(cluster.map_shared_rank(part, r) + t * CB, pr);
+#pragma unroll
+        for (int c = 0; c < CB; ++c) a[c] += pr[c];
+        s += cluster.map_shared_rank(psum, r)[t];
+      }
+      float* dst = stats + ((long long)b * H + t) * (C + 1);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        if (c < C) dst[c] = a[c];
+      dst[C] = s;
+    }
+    cluster.sync();  // the partials stay until rank 0 has read them
+    return;
+  }
 
   // 3. rank 0: the row's (A, s) in rank order, then M = W_out^T ctx^T
   constexpr int NB = kMma ? (CB + 7) / 8 * 8 : CB;
@@ -741,50 +772,47 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     apply_fma<T, CB>(xsl, den, wq, qs, ms, b_out, g, gp, yb, N, C, H, cols, p.staged);
 }
 
-template <typename T, int CB>
-cudaError_t run_c(const void* x, void* y, const Weights& w, int B, int C, int N, int H,
-                  cudaStream_t s) {
-  const Plan p = make_plan(C, CB, H, N, sizeof(T));
-  auto kernel = linattn_cluster<T, CB>;
-  cudaError_t err = dq::allow_smem(kernel, p.bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cl, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = p.bytes;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<T*>(y), w, p, C,
-                           N, H);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+// K1: K1's cluster size. kStats (K6a): the cluster size from the card's
+// occupancy, as K4 takes it (choose_cluster).
+template <typename T, int CB, bool kStats>
+cudaError_t run_c(const void* x, void* y, float* stats, const Weights& w, int B, int C, int N,
+                  int H, cudaStream_t s) {
+  auto kernel = linattn_cluster<T, CB, kStats>;
+  Plan p;
+  if constexpr (kStats) {
+    const cudaError_t err = choose_cluster(
+        kernel, kThreads, B, C, N, H,
+        [&](int cl) { return make_plan(C, CB, H, N, sizeof(T), cl); }, &p);
+    if (err != cudaSuccess) return err;
+  } else {
+    p = make_plan(C, CB, H, N, sizeof(T), k1_cluster(N));
+  }
+  return launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, static_cast<const T*>(x),
+                        static_cast<T*>(y), stats, w, p, C, N, H);
 }
 
 // The channel loops are unrolled to C rounded up to a multiple of 4, so the
 // level-0 width C = 4 runs 4-wide loops rather than 16-wide predicated ones.
-template <typename T>
-cudaError_t run(const void* x, void* y, const Weights& w, int B, int C, int N, int H,
-                cudaStream_t s) {
+template <typename T, bool kStats>
+cudaError_t run(const void* x, void* y, float* stats, const Weights& w, int B, int C, int N,
+                int H, cudaStream_t s) {
   switch ((C + 3) / 4) {
-    case 1: return run_c<T, 4>(x, y, w, B, C, N, H, s);
-    case 2: return run_c<T, 8>(x, y, w, B, C, N, H, s);
-    case 3: return run_c<T, 12>(x, y, w, B, C, N, H, s);
-    default: return run_c<T, 16>(x, y, w, B, C, N, H, s);
+    case 1: return run_c<T, 4, kStats>(x, y, stats, w, B, C, N, H, s);
+    case 2: return run_c<T, 8, kStats>(x, y, stats, w, B, C, N, H, s);
+    case 3: return run_c<T, 12, kStats>(x, y, stats, w, B, C, N, H, s);
+    default: return run_c<T, 16, kStats>(x, y, stats, w, B, C, N, H, s);
   }
 }
 
-bool valid(int B, int C, int N, int heads) {
-  const int H = heads * kDimHead;
-  return B >= 1 && B <= 65535 && C >= 1 && C <= kMaxC && N >= 1 && H >= kDimHead && H <= kMaxH;
-}
-
 }  // namespace
+
+// K6a on K1's kernel (see linattn_common.cuh).
+cudaError_t dq::linattn_stats(const void* x, float* stats, const Weights& w, int B, int C, int N,
+                              int heads, bool bf16, cudaStream_t s) {
+  const int H = heads * kDimHead;
+  return bf16 ? run<__nv_bfloat16, true>(x, nullptr, stats, w, B, C, N, H, s)
+              : run<float, true>(x, nullptr, stats, w, B, C, N, H, s);
+}
 
 // x and y: contiguous (B, C, N), bf16 or float32 (x_bf16). The weights as
 // in Weights, each with its strides; `w_bf16` holds their dtype bits.
@@ -794,14 +822,15 @@ extern "C" int dq_linear_attention(const void* x, void* y, const void* wqkv, lon
                                    const void* g, long long g_c, const void* g_pre,
                                    long long g_pre_c, int B, int C, int N, int heads,
                                    int w_bf16, int x_bf16, int device, void* stream) {
-  if (!valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
                   g,    g_c,    g_pre,  g_pre_c, w_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int H = heads * kDimHead;
-  err = x_bf16 ? run<__nv_bfloat16>(x, y, w, B, C, N, H, s) : run<float>(x, y, w, B, C, N, H, s);
+  err = x_bf16 ? run<__nv_bfloat16, false>(x, y, nullptr, w, B, C, N, H, s)
+               : run<float, false>(x, y, nullptr, w, B, C, N, H, s);
   return (int)err;
 }
 
@@ -809,8 +838,8 @@ extern "C" int dq_linear_attention(const void* x, void* y, const void* wqkv, lon
 // out[1] whether the slice is staged in shared memory, out[2] the dynamic
 // shared memory of a CTA in bytes.
 extern "C" int dq_linear_attention_plan(int C, int N, int heads, int x_bf16, int* out) {
-  if (!valid(1, C, N, heads)) return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(C, (C + 3) / 4 * 4, heads * kDimHead, N, x_bf16 ? 2 : 4);
+  if (!linattn_valid(1, C, N, heads)) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(C, (C + 3) / 4 * 4, heads * kDimHead, N, x_bf16 ? 2 : 4, k1_cluster(N));
   out[0] = p.cl;
   out[1] = p.staged;
   out[2] = p.bytes;

@@ -32,6 +32,10 @@
 //     2 recomputes what pass 1 formed per column;
 //   * the second launch sums the rows' partials in a fixed order and writes
 //     each gradient in its parameter's shape, dtype and strides.
+// The same kernel runs the sequence-parallel K6a and K6c
+// (linear_attention_sp.cu) in its other modes (Mode below), each a stretch
+// of the passes above between two collectives, the cross-rank sums read
+// from and written to device memory.
 // Every column product runs on tensor cores (mma.sync m16n8k16 / k8) in
 // warp tiles of 16 columns: the projections onto features (q, k, dqn,
 // dkn) and back onto channels (u, dx_q, D2^T kn, W_k^T dk) as in K1's
@@ -49,10 +53,6 @@
 // chains of mma.sync, exponentials and shuffles a head runs.
 #include <cooperative_groups.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "common.cuh"
 #include "linattn_common.cuh"
 
@@ -62,34 +62,29 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 16;
-constexpr int kMaxH = 256;
-constexpr int kDimHead = 32;
-constexpr int kMaxCluster = 8;      // the portable cluster size
-constexpr int kColsPerCta = 256;    // fewest columns a CTA is given when CL > 1
 constexpr int kStageBudget = 48 * 1024;  // bytes of staged x and dy per CTA
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kDhScale = 0.17677669529663687f;  // 32 ** -0.5
 // bf16 stride of a feature row of the weight tiles: 8 channels at C <= 8
 // (kNarrow), else 16 padded to 24; either keeps ldmatrix rows on distinct
 // banks
 __host__ __device__ constexpr int row_stride(bool narrow) { return narrow ? 8 : 24; }
 
-// The gradients as the caller allocated them: w_qkv (C, 3H), w_out (H, C),
-// b_out, g, g_pre (C), each float32 or bf16 (bit i of `bf16`), written
-// through their strides.
-struct Grads {
-  void* wqkv;
-  long long wqkv_c, wqkv_h;
-  void* wout;
-  long long wout_h, wout_c;
-  void* b_out;
-  long long b_out_c;
-  void* g;
-  long long g_c;
-  void* g_pre;
-  long long g_pre_c;
-  int bf16;
+// What a launch of the cluster kernel computes. K4 is kFull. K6 (a
+// sequence split over ranks) runs the kernel between its collectives, each
+// mode one stretch of kFull with the cross-rank sums in device memory:
+enum Mode {
+  kFull,   // K4: passes 0-2; dx and the gradients' row and CTA partials
+  kStats,  // K6a (float32 operands): pass 0; each row's [A | s]
+  kSpZ,    // K6c launch 1: M from the summed (A, s); pass 1; the row's Z, db, dg
+  kSpX,    // K6c launch 2: M, D2, T from the summed (A, s) and Z; pass 2
+};
+
+// K6's tensors: (B, H, C + 1) [A | s] per row and (B, H, C) Z, float32.
+struct SpArgs {
+  const float* stats;        // kSpZ, kSpX: summed over the ranks
+  const float* stats_local;  // kSpX: this rank's own, for dW_out and dW_v
+  float* stats_out;          // kStats: the rank's
+  float* z;                  // kSpZ: the rank's (out); kSpX: summed over the ranks (in)
 };
 
 // Shared memory of a CTA (float offsets; the staged slices in bytes),
@@ -526,10 +521,11 @@ __device__ __forceinline__ void warp_ordered_vec(float* dst, float (&v)[NT][2]) 
   }
 }
 
-template <typename T, bool kNarrow, int kHeads>
+template <typename T, bool kNarrow, int kHeads, int kMode>
 __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
     const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx, Weights w, Plan p,
-    float* __restrict__ rowpart, float* __restrict__ ctapart, int C, int N, int heads) {
+    SpArgs sp, float* __restrict__ rowpart, float* __restrict__ ctapart, int C, int N,
+    int heads) {
   constexpr int NT = kNarrow ? 1 : 2;  // n-tiles of 8 channels
   constexpr bool kKeep = kNarrow && kHeads == 4;  // qn of every head stays in registers
   extern __shared__ __align__(16) float smem[];
@@ -570,19 +566,20 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
                p.row_bytes, dy + row0, N, (bool)p.staged};
   if (p.staged) {
     stage_rows<T>(const_cast<char*>(xs.xs), p.row_bytes, xs.xg, N, C, cols);
-    stage_rows<T>(const_cast<char*>(dys.xs), p.row_bytes, dys.xg, N, C, cols);
+    if (kMode != kStats) stage_rows<T>(const_cast<char*>(dys.xs), p.row_bytes, dys.xg, N, C, cols);
   }
   const bool bq = w.bf16 & 1, bo = w.bf16 & 2;
   if (t < kMaxC) {
-    const bool ok = t < C;
+    const bool ok = t < C && kMode != kStats;  // kStats reads w_qkv and g_pre alone
     vec[t] = ok ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
     vec[kMaxC + t] = ok ? ld(w.g, t * w.g_c, w.bf16 & 8) * rs : 0.0f;
-    gp[t] = ok ? ld(w.g_pre, t * w.g_pre_c, w.bf16 & 16) * rs : 0.0f;
+    gp[t] = t < C ? ld(w.g_pre, t * w.g_pre_c, w.bf16 & 16) * rs : 0.0f;
   }
   __syncthreads();
   float cn = 0.0f;  // sqrt(C) max |g_pre| bounds every pre-normed column's norm
   for (int c = 0; c < C; ++c) cn = fmaxf(cn, fabsf(gp[c]));
-  for (int d = t; d < 2 * H; d += kThreads) {  // rows 0..H-1: W_q; H..2H-1: W_k
+  // rows 0..H-1: W_q (not read by kStats); H..2H-1: W_k
+  for (int d = (kMode == kStats ? H : 0) + t; d < 2 * H; d += kThreads) {
     float v[16], nrm = 0.0f;
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
@@ -606,7 +603,7 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
   __syncthreads();
 
   // 2. pass 0: the slice's A = sum p xh^T and s = sum p
-  {
+  if constexpr (kMode == kFull || kMode == kStats) {
     float acc[kHeads][2][NT][4] = {};
     float sv[kHeads][4][2] = {};
     for_tiles<T, NT>(xs, dys, false, gp, C, cols, [&](const Tile<T, NT>& tl) {
@@ -652,24 +649,46 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
         }
       __syncthreads();
     }
+    cluster.sync();  // #1: every CTA's (A, s) is visible to the cluster
   }
-  cluster.sync();  // #1: every CTA's (A, s) is visible to the cluster
 
-  // 3. rank 0: the row's (A, s) in rank order, P_h, M = W_out^T ctx^T
+  // 3. rank 0: the row's (A, s) in rank order (K6: the sums over the ranks,
+  // from device memory), P_h, M = W_out^T ctx^T
   if (rank == 0) {
     for (int d = t; d < H; d += kThreads) {
       float a[16] = {}, s = 0.0f;
-      for (int r = 0; r < cl; ++r) {
-        const float* src = cluster.map_shared_rank(part, r) + d * kMaxC;
+      if constexpr (kMode == kFull || kMode == kStats) {
+        for (int r = 0; r < cl; ++r) {
+          const float* src = cluster.map_shared_rank(part, r) + d * kMaxC;
+#pragma unroll
+          for (int c = 0; c < 16; ++c)
+            if (c < C) a[c] += src[c];
+          s += cluster.map_shared_rank(psum, r)[d];
+        }
+      } else {
+        const float* src = sp.stats + ((long long)b * H + d) * (C + 1);
 #pragma unroll
         for (int c = 0; c < 16; ++c)
-          if (c < C) a[c] += src[c];
-        s += cluster.map_shared_rank(psum, r)[d];
+          if (c < C) a[c] = src[c];
+        s = src[C];
+      }
+      if constexpr (kMode == kStats) {
+        float* dst = sp.stats_out + ((long long)b * H + d) * (C + 1);
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          if (c < C) dst[c] = a[c];
+        dst[C] = s;
       }
 #pragma unroll
       for (int c = 0; c < 16; ++c) arow[d * kMaxC + c] = a[c];
       inv_s[d] = 1.0f / fmaxf(s, 1e-30f);
     }
+  }
+  if constexpr (kMode == kStats) {
+    cluster.sync();  // the partials stay until rank 0 has read them
+    return;
+  }
+  if (rank == 0) {
     for (int i = t; i < heads * kMaxC * kMaxC; i += kThreads) {
       const int h = i / (kMaxC * kMaxC), c1 = i / kMaxC % kMaxC, c = i % kMaxC;
       float v = 0.0f;
@@ -703,7 +722,7 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
   cluster.sync();  // #3: every CTA has its copy
 
   // 4. pass 1: Z = sum qn du^T, db = sum du, dg = sum dy yh
-  {
+  if constexpr (kMode == kFull || kMode == kSpZ) {
     float zacc[kHeads][2][NT][4] = {};
     float db[NT][2] = {}, dg[NT][2] = {};
     for_tiles<T, NT>(xs, dys, true, gp, C, cols, [&](const Tile<T, NT>& tl) {
@@ -740,35 +759,54 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
     warp_ordered_sum<NT, kHeads>(zpart, zacc, heads);
     warp_ordered_vec<NT>(dvec, db);
     warp_ordered_vec<NT>(dvec + kMaxC, dg);
+    cluster.sync();  // #4: every CTA's Z, db, dg partials are visible
   }
-  cluster.sync();  // #4: every CTA's Z, db, dg partials are visible
 
-  // 5. rank 0: Z of the row in rank order; G_h, D2, T; the row's dW_out,
-  // dW_v, db and dg
+  // 5. rank 0: Z of the row in rank order (kSpX: the sum over the ranks,
+  // from device memory); G_h, D2, T; the row's dW_out, dW_v, db and dg
+  // (kSpZ: the row's Z, db, dg alone, to device memory)
+  float* row = rowpart + (long long)b * (2 * HC + 2 * C);
+  float* zrow = part;
   if (rank == 0) {
-    float* zrow = part;
     for (int d = t; d < H; d += kThreads)
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         float z = 0.0f;
-        if (c < C)
-          for (int r = 0; r < cl; ++r) z += cluster.map_shared_rank(zpart, r)[d * kMaxC + c];
+        if (c < C) {
+          if constexpr (kMode == kSpX) {
+            z = sp.z[((long long)b * H + d) * C + c];
+          } else {
+            for (int r = 0; r < cl; ++r) z += cluster.map_shared_rank(zpart, r)[d * kMaxC + c];
+            if constexpr (kMode == kSpZ) sp.z[((long long)b * H + d) * C + c] = z;
+          }
+        }
         zrow[d * kMaxC + c] = z;
       }
-    float* row = rowpart + (long long)b * (2 * HC + 2 * C);
-    if (t < 2 * C) {  // db, then dg
+    if (kMode != kSpX && t < 2 * C) {  // db, then dg
       const int off = t < C ? t : kMaxC + t - C;
       float v = 0.0f;
       for (int r = 0; r < cl; ++r) v += cluster.map_shared_rank(dvec, r)[off];
       row[2 * HC + t] = t < C ? v : v * rs;
     }
+  }
+  if constexpr (kMode == kSpZ) {
+    cluster.sync();  // the partials stay until rank 0 has read them
+    return;
+  }
+  if (rank == 0) {
     __syncthreads();
+    // G_h[c'][c] = sum_{d in h} bmat[d][c'] Z[d][c]; under K6 with this
+    // rank's bmat (its own A over the summed s) and the summed Z, so that
+    // the ranks' dW_out and dW_v add up to the gradient
     for (int i = t; i < heads * kMaxC * kMaxC; i += kThreads) {
       const int h = i / (kMaxC * kMaxC), c1 = i / kMaxC % kMaxC, c = i % kMaxC;
       float v = 0.0f;
       if (c1 < C && c < C)
-        for (int d = h * kDimHead; d < (h + 1) * kDimHead; ++d)
-          v = fmaf(arow[d * kMaxC + c1] * inv_s[d], zrow[d * kMaxC + c], v);
+        for (int d = h * kDimHead; d < (h + 1) * kDimHead; ++d) {
+          const float a = kMode == kSpX ? sp.stats_local[((long long)b * H + d) * (C + 1) + c1]
+                                        : arow[d * kMaxC + c1];
+          v = fmaf(a * inv_s[d], zrow[d * kMaxC + c], v);
+        }
       gmat[i] = v;
     }
     // D2[d][c] = sum_c' Z[d][c'] P_h[c][c'];  T[d] = D2[d] . bmat[d]
@@ -809,7 +847,7 @@ __global__ void __launch_bounds__(kThreads) linattn_bwd_cluster(
   cluster.sync();  // #6: every CTA has its copy; rank 0 may go on and exit
 
   // 6. pass 2: dx, dW_q = sum dq xh^T, dW_k = sum dk xh^T, dg_pre = sum dxh u0
-  {
+  if constexpr (kMode == kFull || kMode == kSpX) {
     float qacc[kHeads][2][NT][4] = {}, kacc[kHeads][2][NT][4] = {};
     float dgp[NT][2] = {};
     for_tiles<T, NT>(xs, dys, true, gp, C, cols, [&](const Tile<T, NT>& tl) {
@@ -933,79 +971,24 @@ __global__ void __launch_bounds__(256) linattn_bwd_finish(const float* __restric
   }
 }
 
-// CTAs per cluster for (B, C, N, H): the fewest waves of clusters the card
-// holds at once times the columns of a CTA; among equals, the smaller
-// cluster. Cached per shape (the occupancy queries take host time).
-template <typename K>
-cudaError_t choose_plan(K kernel, int B, int C, int N, int H, int elt, Plan* out) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int, int, int>, Plan> cache;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), B, C, N, H, elt);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second;
-    return cudaSuccess;
-  }
-  long long best = -1;
-  for (int cl = 1; cl <= kMaxCluster; ++cl) {
-    if (cl > 1 && N / cl < kColsPerCta) break;
-    const Plan p = make_plan(C, H, N, elt, cl);
-    cudaError_t err = dq::allow_smem(kernel, p.bytes);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cl, B);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = p.bytes;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cl;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) continue;
-    const long long cost = (long long)dq::ceil_div(B, clusters) * p.chunk;
-    if (best < 0 || cost < best) best = cost, *out = p;
-  }
-  if (best < 0) return cudaErrorInvalidConfiguration;
-  cache[key] = *out;
-  return cudaSuccess;
-}
-
-template <typename T, bool kNarrow, int kHeads>
+template <typename T, bool kNarrow, int kHeads, int kMode>
 cudaError_t run_v(const void* x, const void* dy, void* dx, const Weights& w, const Grads& g,
-                  float* rowpart, float* ctapart, int B, int C, int N, int heads, cudaStream_t s,
-                  Plan* plan_only) {
-  auto kernel = linattn_bwd_cluster<T, kNarrow, kHeads>;
+                  const SpArgs& sp, float* rowpart, float* ctapart, int B, int C, int N,
+                  int heads, cudaStream_t s, Plan* plan_only) {
+  auto kernel = linattn_bwd_cluster<T, kNarrow, kHeads, kMode>;
   const int H = heads * kDimHead;
   Plan p;
-  cudaError_t err = choose_plan(kernel, B, C, N, H, sizeof(T), &p);
+  cudaError_t err = choose_cluster(kernel, kThreads, B, C, N, H,
+                                   [&](int cl) { return make_plan(C, H, N, sizeof(T), cl); }, &p);
   if (err != cudaSuccess) return err;
   if (plan_only) {
     *plan_only = p;
     return cudaSuccess;
   }
-  err = dq::allow_smem(kernel, p.bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.cl, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = p.bytes;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy),
-                           static_cast<T*>(dx), w, p, rowpart, ctapart, C, N, heads);
-  if (err != cudaSuccess) return err;
+  err = launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, static_cast<const T*>(x),
+                       static_cast<const T*>(dy), static_cast<T*>(dx), w, p, sp, rowpart,
+                       ctapart, C, N, heads);
+  if (err != cudaSuccess || kMode == kStats || kMode == kSpZ) return err;
   const int outs = 4 * H * C + 3 * C;
   linattn_bwd_finish<<<dq::ceil_div(outs * 32, 256), 256, 0, s>>>(rowpart, ctapart, g, B, p.cl, C, H);
   return cudaGetLastError();
@@ -1013,23 +996,47 @@ cudaError_t run_v(const void* x, const void* dy, void* dx, const Weights& w, con
 
 // kNarrow: C <= 8 (one n-tile of channels, k8 projections); kHeads: the
 // register arrays' head count (4, or 8 for more heads).
-template <typename T>
+template <typename T, int kMode>
 cudaError_t run(const void* x, const void* dy, void* dx, const Weights& w, const Grads& g,
-                float* rowpart, float* ctapart, int B, int C, int N, int heads, cudaStream_t s,
-                Plan* plan_only) {
-#define DQ_RUN(NARROW, HEADS) \
-  run_v<T, NARROW, HEADS>(x, dy, dx, w, g, rowpart, ctapart, B, C, N, heads, s, plan_only)
+                const SpArgs& sp, float* rowpart, float* ctapart, int B, int C, int N, int heads,
+                cudaStream_t s, Plan* plan_only = nullptr) {
+#define DQ_RUN(NARROW, HEADS)                                                                 \
+  run_v<T, NARROW, HEADS, kMode>(x, dy, dx, w, g, sp, rowpart, ctapart, B, C, N, heads, s, \
+                                 plan_only)
   if (C <= 8) return heads <= 4 ? DQ_RUN(true, 4) : DQ_RUN(true, 8);
   return heads <= 4 ? DQ_RUN(false, 4) : DQ_RUN(false, 8);
 #undef DQ_RUN
 }
 
-bool valid(int B, int C, int N, int heads) {
-  const int H = heads * kDimHead;
-  return B >= 1 && B <= 65535 && C >= 1 && C <= kMaxC && N >= 1 && H >= kDimHead && H <= kMaxH;
+}  // namespace
+
+// K6 on K4's kernel (see linattn_common.cuh).
+cudaError_t dq::linattn_bwd_stats(const void* x, float* stats, const Weights& w, int B, int C,
+                                  int N, int heads, cudaStream_t s) {
+  const SpArgs sp{nullptr, nullptr, stats, nullptr};
+  return run<__nv_bfloat16, kStats>(x, x, nullptr, w, Grads{}, sp, nullptr, nullptr, B, C, N,
+                                    heads, s);
 }
 
-}  // namespace
+cudaError_t dq::linattn_sp_bwd_z(const void* x, const void* dy, const Weights& w,
+                                 const float* stats, float* z, float* rowpart, int B, int C,
+                                 int N, int heads, bool bf16, cudaStream_t s) {
+  const SpArgs sp{stats, nullptr, nullptr, z};
+  return bf16 ? run<__nv_bfloat16, kSpZ>(x, dy, nullptr, w, Grads{}, sp, rowpart, nullptr, B, C,
+                                         N, heads, s)
+              : run<float, kSpZ>(x, dy, nullptr, w, Grads{}, sp, rowpart, nullptr, B, C, N,
+                                 heads, s);
+}
+
+cudaError_t dq::linattn_sp_bwd_x(const void* x, const void* dy, void* dx, const Weights& w,
+                                 const Grads& g, const float* stats, const float* stats_local,
+                                 const float* z, float* rowpart, float* ctapart, int B, int C,
+                                 int N, int heads, bool bf16, cudaStream_t s) {
+  const SpArgs sp{stats, stats_local, nullptr, const_cast<float*>(z)};
+  return bf16 ? run<__nv_bfloat16, kSpX>(x, dy, dx, w, g, sp, rowpart, ctapart, B, C, N, heads,
+                                         s)
+              : run<float, kSpX>(x, dy, dx, w, g, sp, rowpart, ctapart, B, C, N, heads, s);
+}
 
 // x, dy, dx: contiguous (B, C, N) of x's dtype (x_bf16). The weights as in
 // Weights and their gradients as in Grads, each with its strides and dtype
@@ -1042,7 +1049,7 @@ extern "C" int dq_linear_attention_bwd(
     long long dwout_c, void* db_out, long long db_out_c, void* dg, long long dg_c, void* dg_pre,
     long long dg_pre_c, void* rowpart, void* ctapart, int B, int C, int N, int heads,
     int w_bf16, int g_bf16, int x_bf16, int device, void* stream) {
-  if (!valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
@@ -1052,8 +1059,8 @@ extern "C" int dq_linear_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* rp = static_cast<float*>(rowpart);
   float* cp = static_cast<float*>(ctapart);
-  err = x_bf16 ? run<__nv_bfloat16>(x, dy, dx, w, gr, rp, cp, B, C, N, heads, s, nullptr)
-               : run<float>(x, dy, dx, w, gr, rp, cp, B, C, N, heads, s, nullptr);
+  err = x_bf16 ? run<__nv_bfloat16, kFull>(x, dy, dx, w, gr, SpArgs{}, rp, cp, B, C, N, heads, s)
+               : run<float, kFull>(x, dy, dx, w, gr, SpArgs{}, rp, cp, B, C, N, heads, s);
   return (int)err;
 }
 
@@ -1062,16 +1069,14 @@ extern "C" int dq_linear_attention_bwd(
 // memory of a CTA in bytes.
 extern "C" int dq_linear_attention_bwd_plan(int B, int C, int N, int heads, int x_bf16,
                                             int device, int* out) {
-  if (!valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Plan p;
-  const Weights w{};
-  const Grads gr{};
-  err = x_bf16 ? run<__nv_bfloat16>(nullptr, nullptr, nullptr, w, gr, nullptr, nullptr, B, C, N,
-                                    heads, nullptr, &p)
-               : run<float>(nullptr, nullptr, nullptr, w, gr, nullptr, nullptr, B, C, N, heads,
-                            nullptr, &p);
+  err = x_bf16 ? run<__nv_bfloat16, kFull>(nullptr, nullptr, nullptr, Weights{}, Grads{}, SpArgs{},
+                                           nullptr, nullptr, B, C, N, heads, nullptr, &p)
+               : run<float, kFull>(nullptr, nullptr, nullptr, Weights{}, Grads{}, SpArgs{}, nullptr,
+                                   nullptr, B, C, N, heads, nullptr, &p);
   if (err != cudaSuccess) return (int)err;
   out[0] = p.cl;
   out[1] = p.staged;

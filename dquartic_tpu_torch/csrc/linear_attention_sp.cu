@@ -2,63 +2,51 @@
 // (B, C, N_local) activations: each rank of a process group holds a slice
 // of N, and the wrapper (ops/linear_attention.py) sums the cross-column
 // couplings over the group with torch.distributed.all_reduce between
-// launches, where the TPU version has its psums.
+// launches, where the TPU version has its psums. The static shift
+// (_static_shifts) bounds every logit by a function of the weights alone, so
+// the couplings are plain sums: ranks add up with no running-max merge.
 //
 // Replaces the TPU kernels of dquartic_tpu/ops/linear_attention.py:
-//   K6a _sp_stats (_kernel_sp0_t): the phase-0 partials over the local
-//       slice, A = sum_n p xh^T (H, C) and s = sum_n p (H), p = exp(W_k xh -
-//       kshift). Here: linattn_partials over ~1024-column chunks, then a
-//       fixed-order sum of the chunks -> stats (B, H, C + 1) = [A | s].
+//   K6a _sp_stats (_kernel_sp0_t): the rank's phase-0 sums A = sum_n p xh^T
+//       (H, C) and s = sum_n p (H), p = exp(W_k xh - kshift), written as
+//       stats (B, H, C + 1) = [A | s]. One cluster launch of K1's kernel in
+//       its stats mode (linear_attention.cu: p and xh rounded to bf16 and A
+//       on tensor cores, as K1's phase 0; float32 x on CUDA cores), or, for
+//       bf16 x with float32 operands (the backward's recompute), of K4's in
+//       its stats mode (linear_attention_bwd.cu: hi/lo products, as K4's
+//       pass 0). Each CTA sums its slice and rank 0 of the cluster adds the
+//       CTAs' partials in rank order through distributed shared memory.
 //   K6b _fused_forward_sp_local (_kernel_sp1_t): phase 1 per local column
 //       given the folded context M = W_out^T ctx^T (C, H) formed from the
 //       all-reduced stats. Here: linattn_apply (linattn_apply.cuh).
-//   K6c _fused_backward_sp_local (_kernel_sp_bwd_a/_b/_c): K4's passes
-//       split at the two barriers of the backward:
-//       a: la_bwd_q + sum of chunks -> per-rank partials of Z, dW_q, db, dg
-//          (sum_q, K4's layout) and dx_q;                 [all_reduce Z]
-//       b: la_bwd_ctx (dctx, D2 from the global Z) and la_bwd_k + sum of
-//          chunks -> partials of T, dW_k', bmat (sum_k);   [all_reduce T]
-//       c: la_bwd_x (T correction, pre-norm backward, residual) + sum of
-//          chunks -> partials of dg_pre.
-// The static shift (_static_shifts) bounds every logit by a function of the
-// weights alone, so the partials are plain sums: ranks and chunks add up
-// with no running-max merge. Every sum inside a rank is over per-CTA
-// partials in a fixed order (no atomics), so each launch is deterministic.
-// The TPU kernels' masked full-H contraction and padding of N to its block
-// are not carried over. The device code is K4's and the forward's in
-// launches of their own (linattn_phase0.cuh, linattn_apply.cuh,
-// linattn_bwd.cuh), so a split run of K6 is K4, and within rounding K1,
-// with the chunk sums grouped by rank.
+//   K6c _fused_backward_sp_local (_kernel_sp_bwd_a/_b/_c): K4 cut at its one
+//       cross-rank coupling after (A, s). With bmat = A / s from the summed
+//       stats, T = rows of D2 . bmat needs no pass over the columns, so only
+//       Z crosses the ranks:
+//       1: K4's kernel from the summed (A, s): M, pass 1, the row's Z, db
+//          and dg (Z partials merged over the cluster in rank order);
+//                                                          [all_reduce Z]
+//       2: K4's kernel from the summed (A, s) and Z: M, D2, T, the row's
+//          dW_out and dW_v, then pass 2 (dx, dW_q, dW_k, dg_pre), dx_q
+//          recomputed per column rather than stored;
+//       3: K4's linattn_bwd_finish: the rows' and CTAs' partials summed in
+//          a fixed order into tensors of the parameters' shapes, dtypes and
+//          strides.
+//       The weight gradients are the rank's partials, which the trainer
+//       sums over the group: dW_out and dW_v from the rank's own bmat (its
+//       A over the summed s) against the summed Z, which add up over the
+//       ranks to bmat^T Z; the others are sums over the rank's columns.
+// The kernels read the weights as the caller holds them (no host work on
+// them), and every sum inside a rank runs in a fixed order (no atomics), so
+// each launch is deterministic. A split run of K6 is K1's and K4's
+// arithmetic with the sums of the slices grouped by rank.
 //
-// What bounds it: as K1 and K4, the per-column passes read x (and dy) once
-// per pass and do ~4 H C float32 multiply-adds per column; at C <= 16 and
-// N_local ~ 20000 each launch is a few microseconds of arithmetic behind
-// the launch latency and the host's all_reduce between launches.
+// What bounds it: as K1 and K4 (see their files), the per-column passes
+// read x (and dy) once per pass and do ~4 H C multiply-adds a column per
+// pass; at C <= 16 and N_local ~ 20000 a launch is tens of microseconds.
 #include "linattn_apply.cuh"
-#include "linattn_bwd.cuh"
 
 namespace {
-
-#define DQ_CHECK(expr)                    \
-  do {                                    \
-    cudaError_t err_ = (expr);            \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
-
-template <typename T, int CB>
-cudaError_t stats_c(const void* x, const float* wk2, const float* kshift2, const float* g_pre,
-                    float* part, float* stats, int B, int C, int N, int H, int nsplit,
-                    int chunk, int round, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  if (round)
-    linattn_partials<T, CB, true><<<dim3(nsplit, B), H, 0, s>>>(xt, wk2, kshift2, g_pre, part,
-                                                                C, N, H, chunk, nsplit);
-  else
-    linattn_partials<T, CB, false><<<dim3(nsplit, B), H, 0, s>>>(xt, wk2, kshift2, g_pre, part,
-                                                                 C, N, H, chunk, nsplit);
-  DQ_CHECK(cudaGetLastError());
-  return dq::launch_sum_partials(part, stats, B, nsplit, H * (C + 1), s);
-}
 
 template <typename T, int CB>
 cudaError_t apply_c(const void* x, const float* wq2, const float* qshift2, const float* g_pre,
@@ -70,96 +58,28 @@ cudaError_t apply_c(const void* x, const float* wq2, const float* qshift2, const
   return cudaGetLastError();
 }
 
-template <typename T, int CB>
-cudaError_t bwd_a_c(const void* x, const void* dy, const float* wq, const float* m,
-                    const float* qshift, const float* b_out, const float* g, const float* g_pre,
-                    float* dxq, float* part_q, float* sum_q, int B, int C, int N, int heads,
-                    int nsplit, int chunk, cudaStream_t s) {
-  const int H = heads * kDimHead;
-  const size_t sq = smem_q(H, C, CB);
-  DQ_CHECK(dq::allow_smem(la_bwd_q<T, CB>, sq));
-  la_bwd_q<T, CB><<<dim3(nsplit, B), kThreads, sq, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), wq, m, qshift, b_out, g, g_pre, dxq,
-      part_q, C, N, heads, chunk, nsplit);
-  DQ_CHECK(cudaGetLastError());
-  return dq::launch_sum_partials(part_q, sum_q, B, nsplit, 2 * H * C + 2 * C, s);
-}
-
-template <typename T, int CB>
-cudaError_t bwd_b_c(const void* x, const float* sum_q, const float* ctx, const float* wout,
-                    const float* wv, const float* wk, const float* kshift, const float* inv_s,
-                    const float* g_pre, float* dctx, float* d2, float* dwo, float* part_k,
-                    float* sum_k, int B, int C, int N, int heads, int nsplit, int chunk,
-                    cudaStream_t s) {
-  const int H = heads * kDimHead;
-  la_bwd_ctx<<<B, H, 0, s>>>(sum_q, ctx, wout, wv, dctx, d2, dwo, C, H);
-  DQ_CHECK(cudaGetLastError());
-  const size_t sk = smem_k(H, C, CB);
-  DQ_CHECK(dq::allow_smem(la_bwd_k<T, CB>, sk));
-  la_bwd_k<T, CB><<<dim3(nsplit, B), kThreads, sk, s>>>(static_cast<const T*>(x), wk, kshift,
-                                                        inv_s, d2, g_pre, part_k, C, N, heads,
-                                                        chunk, nsplit);
-  DQ_CHECK(cudaGetLastError());
-  return dq::launch_sum_partials(part_k, sum_k, B, nsplit, H + 2 * H * C, s);
-}
-
-template <typename T, int CB>
-cudaError_t bwd_c_c(const void* x, const void* dy, const float* dxq, const float* wk,
-                    const float* kshift, const float* inv_s, const float* d2,
-                    const float* sum_k, const float* g_pre, void* dx, float* part_x,
-                    float* dgpre, int B, int C, int N, int heads, int nsplit, int chunk,
-                    cudaStream_t s) {
-  const int H = heads * kDimHead;
-  const size_t sx = sizeof(float) * (2 * (size_t)H * C + 3 * H + CB * kThreads);
-  DQ_CHECK(dq::allow_smem(la_bwd_x<T, CB>, sx));
-  la_bwd_x<T, CB><<<dim3(nsplit, B), kThreads, sx, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), dxq, wk, kshift, inv_s, d2, sum_k,
-      g_pre, static_cast<T*>(dx), part_x, C, N, heads, chunk, nsplit);
-  DQ_CHECK(cudaGetLastError());
-  return dq::launch_sum_partials(part_x, dgpre, B, nsplit, C, s);
-}
-
-// Dispatch on the activation type and on C rounded up to a multiple of 4
-// (the unrolled channel loops), as K1 and K4 do.
-#define DQ_DISPATCH(FN, ...)                                              \
-  do {                                                                    \
-    const int cb = (C + 3) / 4;                                           \
-    if (bf16) {                                                           \
-      if (cb == 1) return (int)FN<__nv_bfloat16, 4>(__VA_ARGS__);         \
-      if (cb == 2) return (int)FN<__nv_bfloat16, 8>(__VA_ARGS__);         \
-      if (cb == 3) return (int)FN<__nv_bfloat16, 12>(__VA_ARGS__);        \
-      return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);                     \
-    }                                                                     \
-    if (cb == 1) return (int)FN<float, 4>(__VA_ARGS__);                   \
-    if (cb == 2) return (int)FN<float, 8>(__VA_ARGS__);                   \
-    if (cb == 3) return (int)FN<float, 12>(__VA_ARGS__);                  \
-    return (int)FN<float, 16>(__VA_ARGS__);                               \
-  } while (0)
-
-inline int prologue(int C, int heads, int device) {
-  if (C < 1 || C > kMaxC || heads * kDimHead > kMaxH) return (int)cudaErrorInvalidValue;
-  return (int)cudaSetDevice(device);
-}
-
 const float* cf(const void* p) { return static_cast<const float*>(p); }
 float* f(void* p) { return static_cast<float*>(p); }
 
 }  // namespace
 
-// K6a. stats (B, H, C + 1) = per-row [A | s] over the local columns; part
-// (B, nsplit, H, C + 1) is scratch. round: the matmul operands p and xh are
-// rounded to the compute dtype (the forward, as K1); 0 keeps them float32
-// (the backward's recompute, as K4).
-extern "C" int dq_linear_attention_sp_stats(const void* x, const void* wk2, const void* kshift2,
-                                            const void* g_pre, void* part, void* stats, int B,
-                                            int C, int N, int heads, int nsplit, int chunk,
-                                            int round, int bf16, int device, void* stream) {
-  const int err = prologue(C, heads, device);
-  if (err) return err;
+// K6a. stats (B, H, C + 1) = per-row [A | s] over the local columns. Reads
+// w_qkv and g_pre alone (w_bf16: bit 0 w_qkv, bit 4 g_pre). round: the
+// matmul operands p and xh are rounded to the compute dtype (the forward,
+// as K1); 0 keeps them float32 (the backward's recompute, as K4).
+extern "C" int dq_linear_attention_sp_stats(const void* x, const void* wqkv, long long wqkv_c,
+                                            long long wqkv_h, const void* g_pre,
+                                            long long g_pre_c, void* stats, int B, int C, int N,
+                                            int heads, int w_bf16, int round, int x_bf16,
+                                            int device, void* stream) {
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights w{wqkv, wqkv_c, wqkv_h, nullptr, 0, 0, nullptr, 0, nullptr, 0, g_pre, g_pre_c,
+                  w_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int H = heads * kDimHead;
-  DQ_DISPATCH(stats_c, x, cf(wk2), cf(kshift2), cf(g_pre), f(part), f(stats), B, C, N, H,
-              nsplit, chunk, round, s);
+  if (x_bf16 && !round) return (int)dq::linattn_bwd_stats(x, f(stats), w, B, C, N, heads, s);
+  return (int)dq::linattn_stats(x, f(stats), w, B, C, N, heads, x_bf16, s);
 }
 
 // K6b. y = RMSNorm_g(M q + b_out) + x per local column; m (B, C, H).
@@ -167,58 +87,67 @@ extern "C" int dq_linear_attention_sp_apply(const void* x, const void* wq2, cons
                                             const void* g_pre, const void* m, const void* b_out,
                                             const void* g, void* y, int B, int C, int N,
                                             int heads, int bf16, int device, void* stream) {
-  const int err = prologue(C, heads, device);
-  if (err) return err;
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ_DISPATCH(apply_c, x, cf(wq2), cf(qshift2), cf(g_pre), cf(m), cf(b_out), cf(g), y, B, C, N,
-              heads, s);
+  const int cb = (C + 3) / 4;  // the unrolled channel loops: C rounded up to a multiple of 4
+#define DQ_APPLY(T, CB)                                                                       \
+  return (int)apply_c<T, CB>(x, cf(wq2), cf(qshift2), cf(g_pre), cf(m), cf(b_out), cf(g), y, \
+                             B, C, N, heads, s)
+  if (bf16) {
+    if (cb == 1) DQ_APPLY(__nv_bfloat16, 4);
+    if (cb == 2) DQ_APPLY(__nv_bfloat16, 8);
+    if (cb == 3) DQ_APPLY(__nv_bfloat16, 12);
+    DQ_APPLY(__nv_bfloat16, 16);
+  }
+  if (cb == 1) DQ_APPLY(float, 4);
+  if (cb == 2) DQ_APPLY(float, 8);
+  if (cb == 3) DQ_APPLY(float, 12);
+  DQ_APPLY(float, 16);
+#undef DQ_APPLY
 }
 
-// K6c, launch a. dxq (B, C, N) float32; sum_q (B, 2HC + 2C) = Z | dW_q | db
-// | dg (K4's layout); part_q (B, nsplit, 2HC + 2C) is scratch.
-extern "C" int dq_linear_attention_sp_bwd_a(const void* x, const void* dy, const void* wq,
-                                            const void* m, const void* qshift, const void* b_out,
-                                            const void* g, const void* g_pre, void* dxq,
-                                            void* part_q, void* sum_q, int B, int C, int N,
-                                            int heads, int nsplit, int chunk, int bf16,
-                                            int device, void* stream) {
-  const int err = prologue(C, heads, device);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ_DISPATCH(bwd_a_c, x, dy, cf(wq), cf(m), cf(qshift), cf(b_out), cf(g), cf(g_pre), f(dxq),
-              f(part_q), f(sum_q), B, C, N, heads, nsplit, chunk, s);
+// K6c, launch 1, from the all-reduced stats (B, H, C + 1): z (B, H, C) the
+// rank's Z; rowpart (B, 2HC + 2C) gets each row's db and dg (K4's layout).
+// x, dy contiguous (B, C, N) of x's dtype; the weights as dq_linear_attention
+// takes them.
+extern "C" int dq_linear_attention_sp_bwd_z(
+    const void* x, const void* dy, const void* wqkv, long long wqkv_c, long long wqkv_h,
+    const void* wout, long long wout_h, long long wout_c, const void* b_out, long long b_out_c,
+    const void* g, long long g_c, const void* g_pre, long long g_pre_c, const void* stats,
+    void* z, void* rowpart, int B, int C, int N, int heads, int w_bf16, int x_bf16, int device,
+    void* stream) {
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
+                  g,    g_c,    g_pre,  g_pre_c, w_bf16};
+  return (int)dq::linattn_sp_bwd_z(x, dy, w, cf(stats), f(z), f(rowpart), B, C, N, heads, x_bf16,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-// K6c, launch b, after the all_reduce of Z in sum_q. dctx (B, H, 32), d2 (B,
-// H, C), dwo (B, H, C); sum_k (B, H + 2HC) = T | dW_k' | bmat; part_k is
-// scratch.
-extern "C" int dq_linear_attention_sp_bwd_b(const void* x, const void* sum_q, const void* ctx,
-                                            const void* wout, const void* wv, const void* wk,
-                                            const void* kshift, const void* inv_s,
-                                            const void* g_pre, void* dctx, void* d2, void* dwo,
-                                            void* part_k, void* sum_k, int B, int C, int N,
-                                            int heads, int nsplit, int chunk, int bf16,
-                                            int device, void* stream) {
-  const int err = prologue(C, heads, device);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ_DISPATCH(bwd_b_c, x, cf(sum_q), cf(ctx), cf(wout), cf(wv), cf(wk), cf(kshift), cf(inv_s),
-              cf(g_pre), f(dctx), f(d2), f(dwo), f(part_k), f(sum_k), B, C, N, heads, nsplit,
-              chunk, s);
-}
-
-// K6c, launch c, after the all_reduce of T in sum_k. dx (B, C, N) in x's
-// dtype; dgpre (B, C) per-row partials; part_x is scratch.
-extern "C" int dq_linear_attention_sp_bwd_c(const void* x, const void* dy, const void* dxq,
-                                            const void* wk, const void* kshift,
-                                            const void* inv_s, const void* d2,
-                                            const void* sum_k, const void* g_pre, void* dx,
-                                            void* part_x, void* dgpre, int B, int C, int N,
-                                            int heads, int nsplit, int chunk, int bf16,
-                                            int device, void* stream) {
-  const int err = prologue(C, heads, device);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ_DISPATCH(bwd_c_c, x, dy, cf(dxq), cf(wk), cf(kshift), cf(inv_s), cf(d2), cf(sum_k),
-              cf(g_pre), dx, f(part_x), f(dgpre), B, C, N, heads, nsplit, chunk, s);
+// K6c, launches 2 and 3, after the all_reduce of Z: dx (B, C, N) in x's
+// dtype and the rank's weight gradients, as dq_linear_attention_bwd writes
+// them. stats: all-reduced; stats_local: the rank's own; z: all-reduced;
+// rowpart: launch 1's; ctapart: B 8 (2HC + C) float32 scratch.
+extern "C" int dq_linear_attention_sp_bwd_x(
+    const void* x, const void* dy, void* dx, const void* wqkv, long long wqkv_c,
+    long long wqkv_h, const void* wout, long long wout_h, long long wout_c, const void* b_out,
+    long long b_out_c, const void* g, long long g_c, const void* g_pre, long long g_pre_c,
+    void* dwqkv, long long dwqkv_c, long long dwqkv_h, void* dwout, long long dwout_h,
+    long long dwout_c, void* db_out, long long db_out_c, void* dg, long long dg_c, void* dg_pre,
+    long long dg_pre_c, const void* stats, const void* stats_local, const void* z,
+    void* rowpart, void* ctapart, int B, int C, int N, int heads, int w_bf16, int g_bf16,
+    int x_bf16, int device, void* stream) {
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
+                  g,    g_c,    g_pre,  g_pre_c, w_bf16};
+  const Grads gr{dwqkv, dwqkv_c, dwqkv_h, dwout, dwout_h, dwout_c, db_out, db_out_c,
+                 dg,    dg_c,    dg_pre,  dg_pre_c, g_bf16};
+  return (int)dq::linattn_sp_bwd_x(x, dy, dx, w, gr, cf(stats), cf(stats_local), cf(z),
+                                   f(rowpart), f(ctapart), B, C, N, heads, x_bf16,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -35,6 +35,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+# w_qkv, w_out (a pointer and two strides each), b_out, g, g_pre (a pointer
+# and a stride each): the five weights, or their gradients
+_WEIGHTS = ([_P] + [_L] * 2) * 2 + [_P, _L] * 3
 # C signatures of the entry points in csrc/ (argtypes, restype int).
 _SIGNATURES = {
     # x, y, w_qkv, its (c, h) strides, w_out, its (h, c) strides, b_out,
@@ -71,20 +74,17 @@ _SIGNATURES = {
     # x, y, stride_b, stride_n, stride_c, wq, wk, wv, wout, b_out, g, m,
     # B, C, N, heads, two_call, bf16, device, stream
     "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_P],
-    # x, wk2, kshift2, g_pre, part, stats, B, C, N, heads, nsplit, chunk, round,
-    # bf16, device, stream
-    "dq_linear_attention_sp_stats": [_P] * 6 + [_I] * 9 + [_P],
+    # x, w_qkv, its (c, h) strides, g_pre, its stride, stats, B, C, N, heads,
+    # w_bf16, round, x_bf16, device, stream
+    "dq_linear_attention_sp_stats": [_P] * 2 + [_L] * 2 + [_P, _L, _P] + [_I] * 8 + [_P],
     # x, wq2, qshift2, g_pre, m, b_out, g, y, B, C, N, heads, bf16, device, stream
     "dq_linear_attention_sp_apply": [_P] * 8 + [_I] * 6 + [_P],
-    # x, dy, wq, m, qshift, b_out, g, g_pre, dxq, part_q, sum_q,
-    # B, C, N, heads, nsplit, chunk, bf16, device, stream
-    "dq_linear_attention_sp_bwd_a": [_P] * 11 + [_I] * 8 + [_P],
-    # x, sum_q, ctx, wout, wv, wk, kshift, inv_s, g_pre, dctx, d2, dwo, part_k,
-    # sum_k, B, C, N, heads, nsplit, chunk, bf16, device, stream
-    "dq_linear_attention_sp_bwd_b": [_P] * 14 + [_I] * 8 + [_P],
-    # x, dy, dxq, wk, kshift, inv_s, d2, sum_k, g_pre, dx, part_x, dgpre,
-    # B, C, N, heads, nsplit, chunk, bf16, device, stream
-    "dq_linear_attention_sp_bwd_c": [_P] * 12 + [_I] * 8 + [_P],
+    # x, dy, the five weights as dq_linear_attention takes them, stats, z,
+    # rowpart, B, C, N, heads, w_bf16, x_bf16, device, stream
+    "dq_linear_attention_sp_bwd_z": [_P] * 2 + _WEIGHTS + [_P] * 3 + [_I] * 7 + [_P],
+    # x, dy, dx, the five weights and their gradients, stats, stats_local, z,
+    # rowpart, ctapart, B, C, N, heads, w_bf16, g_bf16, x_bf16, device, stream
+    "dq_linear_attention_sp_bwd_x": [_P] * 3 + _WEIGHTS * 2 + [_P] * 5 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -43,7 +42,6 @@ from . import _build
 _LOG2E = 1.4426950408889634
 MAX_C = 16
 DIM_HEAD = 32  # the kernel maps one head onto one warp
-_CHUNK = 1024  # sequence columns per CTA of the streaming passes
 
 
 def rmsnorm_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -135,11 +133,6 @@ def _f32(t, dev):
     return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _split(N):
-    nsplit = max(1, math.ceil(N / _CHUNK))
-    return nsplit, math.ceil(N / nsplit)
-
-
 def _vec_stride(t, C):
     """The stride between the C values of a vector parameter of any shape
     holding C values ((C,), (1, C, 1), ...), without a view op."""
@@ -149,18 +142,18 @@ def _vec_stride(t, C):
     return strides[0] if strides else 1
 
 
-def _tensor_args(ts, C, dev, what):
-    """Pointers and strides of the op's five weights, or of their gradients,
-    as the kernels take them: ``(args, dtype bits)``, bit i set where
-    tensor i is bf16; the matrices give their two strides, the vectors the
-    stride of their C values."""
+def _tensor_args(ts, C, dev, what, matrices=2):
+    """Pointers and strides of the op's weights, or of their gradients, as
+    the kernels take them: ``(args, dtype bits)``, bit i set where tensor i
+    is bf16; the first ``matrices`` tensors give their two strides, the
+    vectors after them the stride of their C values."""
     args, bits = [], 0
     for i, t in enumerate(ts):
         if t.device != dev or t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"linear_attention: {what} must be float32 or bfloat16 on "
                              f"{dev} (got {t.dtype} on {t.device})")
         bits |= (t.dtype == torch.bfloat16) << i
-        args += [t.data_ptr(), *(t.stride() if i < 2 else (_vec_stride(t, C),))]
+        args += [t.data_ptr(), *(t.stride() if i < matrices else (_vec_stride(t, C),))]
     return args, bits
 
 
@@ -229,27 +222,39 @@ def linear_attention_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim
     return _backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
 
 
+def _backward_buffers(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
+    """What K4's launches write, allocated: dx, the gradients in their
+    parameters' shapes, dtypes and (for the two matrices) strides, with
+    their kernel arguments, and float32 scratch for the per-row partials
+    (dW_out, dW_v, db, dg) and the per-CTA partials (dW_q, dW_k, dg_pre) of
+    up to 8 CTAs a row. Returns ``(dx, grads, (gargs, gbits), scratch,
+    (rowpart, ctapart))``, the last two the scratch's pointers."""
+    B, C, _ = x.shape
+    HC = heads * dim_head * C
+    dev = x.device
+    grads = (torch.empty_like(w_qkv), torch.empty_like(w_out),
+             *(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (b_out, g, g_pre)))
+    rows = B * (2 * HC + 2 * C)
+    scratch = torch.empty(rows + B * 8 * (2 * HC + C), dtype=torch.float32, device=dev)
+    return (torch.empty_like(x), grads, _tensor_args(grads, C, dev, "gradients"), scratch,
+            (scratch.data_ptr(), scratch.data_ptr() + 4 * rows))
+
+
 def _backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
     """Launch K4 on checked arguments: the gradients' allocations, one
     scratch buffer and the entry point's two launches."""
     B, C, N = x.shape
-    HC = heads * dim_head * C
     dev = x.device
     if dy.dtype != x.dtype or not dy.is_contiguous():
         dy = dy.to(x.dtype).contiguous()
     wargs, wbits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
-    dx = torch.empty_like(x)
-    grads = (torch.empty_like(w_qkv), torch.empty_like(w_out),
-             *(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (b_out, g, g_pre)))
-    gargs, gbits = _tensor_args(grads, C, dev, "gradients")
-    # per-row partials (dW_out, dW_v, db, dg) and per-CTA partials (dW_q,
-    # dW_k, dg_pre) of up to 8 CTAs a row, float32
-    rows = B * (2 * HC + 2 * C)
-    scratch = torch.empty(rows + B * 8 * (2 * HC + C), dtype=torch.float32, device=dev)
+    # scratch stays bound until the launches are queued: freed earlier, its
+    # memory could go to another allocation first
+    dx, grads, (gargs, gbits), scratch, parts = _backward_buffers(x, w_qkv, w_out, b_out, g,
+                                                                  g_pre, heads, dim_head)
     code = _build.library().dq_linear_attention_bwd(
-        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *wargs, *gargs, scratch.data_ptr(),
-        scratch.data_ptr() + 4 * rows, B, C, N, heads, wbits, gbits,
-        int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *wargs, *gargs, *parts, B, C, N, heads,
+        wbits, gbits, int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
     )
     _build.check(code, "dq_linear_attention_bwd")
     linear_attention_backward.launches += 1
@@ -419,11 +424,13 @@ fused_linear_attention_two_call.launches = 0
 # --------------------------------------------------------------------- #
 #
 # Each rank holds a slice of the columns of every row. The only couplings
-# across columns are the k-softmax statistics (A, s), Z and T, all plain
+# across columns are the k-softmax statistics (A, s) and Z, both plain
 # sums thanks to the static shift, so each is a per-rank partial summed by
 # ``reduce`` (an all_reduce over the group) between launches, where
 # ``_fused_forward_sp_local`` / ``_fused_backward_sp_local`` of the JAX
-# package psum. ``reduce(t)`` sums ``t`` in place over the ranks.
+# package psum (JAX also psums T, which here follows from Z and the summed
+# (A, s): T = rows of D2 . bmat, bmat = A / s). ``reduce(t)`` sums ``t`` in
+# place over the ranks.
 
 
 def _round_cd(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -480,44 +487,30 @@ def sp_apply_reference(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD)
     return (rmsnorm_reference(y, g) + x.float()).to(x.dtype)
 
 
-def _finish_sp_grads(params, dwq, dwka, bmat, t, dctx, dwo, db, dg, dgpre, heads):
-    """This rank's weight gradients from its partials and the global T:
-    dW_k = Σ_b (dW_k' - bmat T), dW_v = Σ_b dctx_bᵀ bmat_b per head (the
-    finish of K4 and of JAX ``_fused_backward_sp_local``)."""
-    B, H, C = bmat.shape
-    dwk = (dwka - bmat * t[:, :, None]).sum(0)
-    dwv = torch.einsum("bhdi,bhdc->hic", dctx.reshape(B, heads, DIM_HEAD, DIM_HEAD),
-                       bmat.reshape(B, heads, DIM_HEAD, C)).reshape(H, C)
-    grads = (torch.cat([dwq, dwk, dwv], dim=0).t(), dwo, db, dg, dgpre)
-    return tuple(d.reshape(p.shape).to(p.dtype) for d, p in zip(grads, params))
-
-
-def _dwo_partial(ctx, z, heads):
-    """dW_out[e, c] = Σ_b Σ_{d in head(e)} ctx[b, d, e] Z[b, d, c] of this
-    rank's Z partial (linear in Z: the partials sum to the gradient)."""
-    B, H, C = z.shape
-    return torch.einsum("bhij,bhic->hjc", ctx.reshape(B, heads, DIM_HEAD, DIM_HEAD),
-                        z.reshape(B, heads, DIM_HEAD, C)).reshape(H, C)
-
-
-def sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce, heads=4,
-                          dim_head=DIM_HEAD):
-    """Plain K6c: the three per-shard bodies of the backward in float32 (K4's
-    arithmetic) with ``reduce`` at the two barriers (Z, then T). ``stats``
-    are the all-reduced float32 phase-0 sums. Returns dx (in x's dtype) and
-    this rank's partial weight gradients (dw_qkv, dw_out, db_out, dg,
-    dg_pre): their sum over the ranks is the gradient."""
+def sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local, reduce,
+                          heads=4, dim_head=DIM_HEAD):
+    """Plain K6c: K4's arithmetic in float32 on the rank's columns, with
+    ``reduce`` at the one barrier (Z). ``stats`` are the all-reduced float32
+    phase-0 sums of the backward's recompute, ``stats_local`` the rank's own.
+    T = rows of D2 · bmat with bmat = A / s from ``stats``. Returns dx (in
+    x's dtype) and this rank's partial weight gradients (dw_qkv, dw_out,
+    db_out, dg, dg_pre), whose sum over the ranks is the gradient: dW_out
+    and dW_v from the rank's own bmat (its A over the summed s) against the
+    summed Z, the others summed over the rank's columns."""
     B, C, N = x.shape
     H = heads * dim_head
     rc = C**0.5
     wq, wk, wv, gp, kshift, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
-    ctx, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
+    wv, wo = wv.reshape(heads, DIM_HEAD, C), w_out.float().reshape(heads, DIM_HEAD, C)
+    _, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
+    bmat = stats[..., :C] * inv_s[..., None]
+    bmat_local = stats_local[..., :C] * inv_s[..., None]
     x32, dy32 = x.float(), dy.float()
     r0 = torch.clamp(x32.norm(dim=1, keepdim=True), min=1e-12)
     u0 = x32 / r0
     gpc = (gp * rc).reshape(1, C, 1)
     xh = u0 * gpc
-    # bwd_a: everything downstream of q; partials of Z, dW_q, db, dg
+    # pass 1: everything downstream of q; Z (summed over the ranks), db, dg
     q = torch.einsum("hc,bcn->bhn", wq, xh) - qshift[:, None]
     qn = torch.softmax(q.reshape(B, heads, DIM_HEAD, N), dim=2).reshape(B, H, N) * DIM_HEAD**-0.5
     u = torch.einsum("bch,bhn->bcn", m, qn) + b_out.float().reshape(1, C, 1)
@@ -526,54 +519,54 @@ def sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce, h
     dyh = dy32 * (g.float().reshape(1, C, 1) * rc)
     du = (dyh - yh * (dyh * yh).sum(1, keepdim=True)) / r
     db, dg = du.sum((0, 2)), (dy32 * yh).sum((0, 2)) * rc
-    z_part = torch.einsum("bdn,bcn->bdc", qn, du)
+    z = torch.einsum("bdn,bcn->bdc", qn, du).contiguous()
+    reduce(z)
+    # the row's D2 and T from Z and the summed (A, s); dW_out, dW_v
+    dctx = torch.einsum("bhic,hjc->bhij", z.reshape(B, heads, DIM_HEAD, C), wo)
+    d2 = torch.einsum("bhij,hjc->bhic", dctx, wv).reshape(B, H, C)
+    t = (d2 * bmat).sum(2)
+    ctx_local = torch.einsum("bhic,hjc->bhij", bmat_local.reshape(B, heads, DIM_HEAD, C), wv)
+    dwo = torch.einsum("bhij,bhic->hjc", ctx_local, z.reshape(B, heads, DIM_HEAD, C))
+    dwv = torch.einsum("bhij,bhic->hjc", dctx, bmat_local.reshape(B, heads, DIM_HEAD, C))
+    # pass 2: dx, dW_q, dW_k, dg_pre
     dqn = torch.einsum("bcd,bcn->bdn", m, du)
     tq = (qn * dqn).reshape(B, heads, DIM_HEAD, N).sum(2, keepdim=True)
     dq = qn * (dqn - (tq / DIM_HEAD**-0.5).expand(-1, -1, DIM_HEAD, -1).reshape(B, H, N))
-    dwq = torch.einsum("bdn,bcn->dc", dq, xh)
-    dxq = torch.einsum("dc,bdn->bcn", wq, dq)
-    z = z_part.clone()
-    reduce(z)
-    # bwd_b: the dctx side; partials of T, dW_k', bmat
-    dctx = torch.einsum("bhic,hjc->bhij", z.reshape(B, heads, DIM_HEAD, C),
-                        w_out.float().reshape(heads, DIM_HEAD, C))
-    d2 = torch.einsum("bhij,hjc->bhic", dctx, wv.reshape(heads, DIM_HEAD, C)).reshape(B, H, C)
     kn = torch.exp(torch.einsum("hc,bcn->bhn", wk, xh) - kshift[:, None]) * inv_s[:, :, None]
-    dkn = torch.einsum("bdc,bcn->bdn", d2, xh)
-    t = (kn * dkn).sum(2)
-    dwka = torch.einsum("bdn,bcn->bdc", kn * dkn, xh)
-    bmat = torch.einsum("bdn,bcn->bdc", kn, xh)
-    reduce(t)
-    # bwd_c: T correction, pre-norm backward, residual; partials of dg_pre
-    dxn = (dxq + torch.einsum("bdc,bdn->bcn", d2, kn)
-           + torch.einsum("dc,bdn->bcn", wk, kn * (dkn - t[:, :, None])))
+    dk = kn * (torch.einsum("bdc,bcn->bdn", d2, xh) - t[:, :, None])
+    dxn = (torch.einsum("dc,bdn->bcn", wq, dq) + torch.einsum("bdc,bdn->bcn", d2, kn)
+           + torch.einsum("dc,bdn->bcn", wk, dk))
     dgpre = (dxn * u0).sum((0, 2)) * rc
     dx = (dxn * gpc - u0 * (dxn * gpc * u0).sum(1, keepdim=True)) / r0 + dy32
-    grads = _finish_sp_grads((w_qkv, w_out, b_out, g, g_pre), dwq, dwka, bmat, t,
-                             dctx.reshape(B, H, DIM_HEAD), _dwo_partial(ctx, z_part, heads),
-                             db, dg, dgpre, heads)
-    return (dx.to(x.dtype), *grads)
+    dwq, dwk = (torch.einsum("bdn,bcn->dc", d, xh) for d in (dq, dk))
+    grads = (torch.cat([dwq, dwk, dwv.reshape(H, C)], dim=0).t(), dwo.reshape(H, C), db, dg,
+             dgpre)
+    params = (w_qkv, w_out, b_out, g, g_pre)
+    return (dx.to(x.dtype), *(d.reshape(p.shape).to(p.dtype) for d, p in zip(grads, params)))
 
 
 def linear_attention_sp_stats(x, w_qkv, g_pre, heads=4, dim_head=DIM_HEAD, round_operands=True):
     """K6a: this rank's partials ``[A | s]`` (B, H, C + 1) over the columns of
-    x (B, C, N_local). CPU tensors run :func:`sp_stats_reference`; CUDA
+    x (B, C, N_local). CPU tensors run :func:`sp_stats_reference`. CUDA
     tensors launch ``dq_linear_attention_sp_stats``
-    (``csrc/linear_attention_sp.cu``)."""
+    (``csrc/linear_attention_sp.cu``): one cluster launch that reads w_qkv
+    and g_pre as they are (the wrapper runs no torch op on them)."""
     if x.device.type == "cpu":
         return sp_stats_reference(x, w_qkv, g_pre, heads, dim_head, round_operands)
     _check_kernel_args("linear_attention_sp_stats", x, w_qkv, None, heads, dim_head)
+    return _sp_stats_kernel(x, w_qkv, g_pre, heads, dim_head, round_operands)
+
+
+def _sp_stats_kernel(x, w_qkv, g_pre, heads, dim_head, round_operands):
+    """Launch K6a on checked arguments: the stats' allocation and one launch."""
     B, C, N = x.shape
-    H = heads * dim_head
     dev = x.device
-    _, _, _, gp, _, _, (_, wk2, kshift2, _) = _kernel_weights(x, w_qkv, g_pre, heads)
-    nsplit, chunk = _split(N)
-    part = torch.empty((B, nsplit, H, C + 1), dtype=torch.float32, device=dev)
-    stats = torch.empty((B, H, C + 1), dtype=torch.float32, device=dev)
+    wargs, wbit = _tensor_args((w_qkv,), C, dev, "w_qkv")
+    gargs, gbit = _tensor_args((g_pre,), C, dev, "g_pre", matrices=0)
+    stats = torch.empty((B, heads * dim_head, C + 1), dtype=torch.float32, device=dev)
     code = _build.library().dq_linear_attention_sp_stats(
-        x.data_ptr(), wk2.data_ptr(), kshift2.data_ptr(), gp.data_ptr(), part.data_ptr(),
-        stats.data_ptr(), B, C, N, heads, nsplit, chunk, int(round_operands),
-        int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
+        x.data_ptr(), *wargs, *gargs, stats.data_ptr(), B, C, N, heads, wbit | gbit << 4,
+        int(round_operands), int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
     )
     _build.check(code, "dq_linear_attention_sp_stats")
     linear_attention_sp_stats.launches += 1
@@ -604,76 +597,67 @@ def linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DI
     return y
 
 
-def linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce, heads=4,
-                                 dim_head=DIM_HEAD):
+def linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local,
+                                 reduce, heads=4, dim_head=DIM_HEAD):
     """K6c: dx and this rank's partial weight gradients (see
     :func:`sp_backward_reference`) for the cotangent ``dy`` of the local
     columns, given the all-reduced float32 ``stats`` of the backward's
-    recompute; ``reduce`` sums Z and then T over the ranks between the
-    three launches. JAX ``_fused_backward_sp_local`` also psums the weight
-    gradients; here they stay partials, as every other parameter's
-    gradient of a sequence-parallel model does, and the trainer sums them
-    all over the group once. CPU tensors run :func:`sp_backward_reference`."""
+    recompute and the rank's own ``stats_local``; ``reduce`` sums Z over the
+    ranks, the call's one collective. JAX ``_fused_backward_sp_local`` also
+    psums the weight gradients; here they stay partials, as every other
+    parameter's gradient of a sequence-parallel model does, and the trainer
+    sums them all over the group once. CPU tensors run
+    :func:`sp_backward_reference`. CUDA tensors launch
+    ``csrc/linear_attention_sp.cu``'s three kernels (K4's cluster kernel
+    for Z, ``reduce``, K4's for dx and the partials, the fixed-order sum into
+    the gradients), which read the weights as they are: the wrapper
+    allocates and launches, and runs no torch op on the weights."""
     if x.device.type == "cpu":
-        return sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, reduce,
-                                     heads, dim_head)
+        return sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local,
+                                     reduce, heads, dim_head)
     _check_kernel_args("linear_attention_sp_backward", x, w_qkv, w_out, heads, dim_head)
+    return _sp_backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local, reduce,
+                               heads, dim_head)
+
+
+def _sp_backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local, reduce, heads,
+                        dim_head):
+    """Launch K6c on checked arguments: the allocations, launch 1, ``reduce``
+    of Z, launches 2 and 3."""
     B, C, N = x.shape
-    H, HC = heads * dim_head, heads * dim_head * C
+    H = heads * dim_head
     dev = x.device
-    dy = dy.to(x.dtype).contiguous()
-    wq, wk, wv, gp, kshift, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
-    wout, bo, gg = _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C)
-    ctx, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
-    nsplit, chunk = _split(N)
-    f32 = dict(dtype=torch.float32, device=dev)
-    lib = _build.library()
-    sizes = (B, C, N, heads, nsplit, chunk, int(x.dtype == torch.bfloat16), dev.index or 0,
-             _build.stream_of(x))
-
-    dxq = torch.empty((B, C, N), **f32)
-    part_q = torch.empty((B, nsplit, 2 * HC + 2 * C), **f32)
-    sum_q = torch.empty((B, 2 * HC + 2 * C), **f32)
-    ptrs = [x, dy, wq, m, qshift, bo, gg, gp, dxq, part_q, sum_q]
-    _build.check(lib.dq_linear_attention_sp_bwd_a(*[p.data_ptr() for p in ptrs], *sizes),
-                 "dq_linear_attention_sp_bwd_a")
-    z_part = sum_q[:, :HC].reshape(B, H, C).clone()
-    z = z_part.clone()
+    for t, what in ((stats, "stats"), (stats_local, "stats_local")):
+        if t.shape != (B, H, C + 1) or t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"linear_attention_sp_backward: {what} must be contiguous float32 "
+                             f"{(B, H, C + 1)} on {dev}")
+    if dy.dtype != x.dtype or not dy.is_contiguous():
+        dy = dy.to(x.dtype).contiguous()
+    wargs, wbits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
+    # scratch stays bound until the launches are queued (see _backward_kernel)
+    dx, grads, (gargs, gbits), scratch, (rowpart, ctapart) = _backward_buffers(
+        x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
+    z = torch.empty((B, H, C), dtype=torch.float32, device=dev)
+    lib, bf16, stream = _build.library(), int(x.dtype == torch.bfloat16), _build.stream_of(x)
+    code = lib.dq_linear_attention_sp_bwd_z(
+        x.data_ptr(), dy.data_ptr(), *wargs, stats.data_ptr(), z.data_ptr(), rowpart, B, C, N,
+        heads, wbits, bf16, dev.index or 0, stream)
+    _build.check(code, "dq_linear_attention_sp_bwd_z")
     reduce(z)
-    sum_q[:, :HC] = z.reshape(B, HC)
-
-    dctx = torch.empty((B, H, DIM_HEAD), **f32)
-    d2 = torch.empty((B, H, C), **f32)
-    dwo_global = torch.empty((B, H, C), **f32)  # the kernel's, from the global Z: unused
-    part_k = torch.empty((B, nsplit, H + 2 * HC), **f32)
-    sum_k = torch.empty((B, H + 2 * HC), **f32)
-    ptrs = [x, sum_q, ctx, wout, wv, wk, kshift, inv_s, gp, dctx, d2, dwo_global, part_k, sum_k]
-    _build.check(lib.dq_linear_attention_sp_bwd_b(*[p.data_ptr() for p in ptrs], *sizes),
-                 "dq_linear_attention_sp_bwd_b")
-    t = sum_k[:, :H].clone()
-    reduce(t)
-    sum_k[:, :H] = t
-
-    dx = torch.empty_like(x)
-    part_x = torch.empty((B, nsplit, C), **f32)
-    dgpre = torch.empty((B, C), **f32)
-    ptrs = [x, dy, dxq, wk, kshift, inv_s, d2, sum_k, gp, dx, part_x, dgpre]
-    _build.check(lib.dq_linear_attention_sp_bwd_c(*[p.data_ptr() for p in ptrs], *sizes),
-                 "dq_linear_attention_sp_bwd_c")
+    code = lib.dq_linear_attention_sp_bwd_x(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *wargs, *gargs, stats.data_ptr(),
+        stats_local.data_ptr(), z.data_ptr(), rowpart, ctapart, B, C, N, heads, wbits, gbits,
+        bf16, dev.index or 0, stream)
+    _build.check(code, "dq_linear_attention_sp_bwd_x")
     linear_attention_sp_backward.launches += 1
-
-    dwq = sum_q[:, HC : 2 * HC].sum(0).reshape(H, C)
-    db, dg = sum_q[:, 2 * HC : 2 * HC + C].sum(0), sum_q[:, 2 * HC + C :].sum(0)
-    dwka, bmat = sum_k[:, H : H + HC].reshape(B, H, C), sum_k[:, H + HC :].reshape(B, H, C)
-    grads = _finish_sp_grads((w_qkv, w_out, b_out, g, g_pre), dwq, dwka, bmat, t, dctx,
-                             _dwo_partial(ctx, z_part, heads), db, dg, dgpre.sum(0), heads)
     return (dx, *grads)
 
 
 class _LinearAttentionSpFn(torch.autograd.Function):
     """K6a -> reduce(A, s) -> context -> K6b; the backward recomputes the
-    stats (K6a, float32 operands) -> reduce -> K6c. Saves only ``(x,
-    weights)``."""
+    stats (K6a, float32 operands), keeps the rank's own, reduces them and
+    runs K6c (which reduces Z). Saves only ``(x, weights)``."""
 
     @staticmethod
     def forward(ctx, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head, reduce):
@@ -689,8 +673,9 @@ class _LinearAttentionSpFn(torch.autograd.Function):
         x, w_qkv, w_out, b_out, g, g_pre = ctx.saved_tensors
         stats = linear_attention_sp_stats(x, w_qkv, g_pre, ctx.heads, ctx.dim_head,
                                           round_operands=False)
+        local = stats.clone()
         ctx.reduce(stats)
-        grads = linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats,
+        grads = linear_attention_sp_backward(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, local,
                                              ctx.reduce, ctx.heads, ctx.dim_head)
         return (*grads, None, None, None)
 
@@ -704,11 +689,12 @@ def linear_attention_sp(x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim_head=DIM_
     (:func:`dquartic_tpu.ops.linear_attention.fused_linear_attention_t`
     with ``sp_axis``).
 
-    The forward is K6a, the sum of (A, s) over the ranks, the context, K6b;
-    the backward is K6a again, the sum, and K6c, with the sums of Z and T
-    between its launches. The weight gradients are this rank's partials
-    (:func:`linear_attention_sp_backward`). On CPU tensors the three
-    bodies run their plain versions; the sums are the same collectives."""
+    The forward is K6a, the sum of (A, s) over the ranks, the context, K6b:
+    one collective. The backward is K6a again, the sum, and K6c, with the
+    sum of Z between its launches: two collectives. The weight gradients
+    are this rank's partials (:func:`linear_attention_sp_backward`). On CPU
+    tensors the bodies run their plain versions; the sums are the same
+    collectives."""
     reduce = functools.partial(sp_all_reduce, group=group)
     return _LinearAttentionSpFn.apply(x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head, reduce)
 

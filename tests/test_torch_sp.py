@@ -38,6 +38,8 @@ from dquartic_tpu_torch.train import Trainer
 from dquartic_tpu_torch.utils.builder import build_mesh, build_model, build_trainer
 from dquartic_tpu_torch.utils.config import load_train_config
 from chip_smoke import _hand_split
+from test_torch_ops import _AtenLog
+from test_torch_train_ops import _ALLOCATIONS
 
 try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
     import jax
@@ -216,51 +218,221 @@ def _op_weights(C, seed, heads=4):
 
 def _sp_op(mesh, x, w, dy):
     """linear_attention_sp on this rank's slice of x (B, C, N): y, dx of
-    the loss Σ y·dy over the ranks, and the rank's weight partials."""
+    the loss Σ y·dy over the ranks, the rank's weight partials, and the
+    shapes of the tensors the op summed over the ranks in its forward and
+    in its backward."""
     rank, size = mesh.sp_rank, mesh.sp
     n = x.shape[2] // size
     xs = _t(x[:, :, rank * n:(rank + 1) * n]).requires_grad_(True)
     ws = [_t(a).requires_grad_(True) for a in w]
-    y = tla.linear_attention_sp(xs, *ws, group=mesh.sp_group)
-    (y * _t(dy[:, :, rank * n:(rank + 1) * n])).sum().backward()
-    return y.detach().numpy(), xs.grad.numpy(), [t.grad.numpy() for t in ws]
+    summed, real = [], tla.sp_all_reduce
+    tla.sp_all_reduce = lambda t, group: summed.append(tuple(t.shape)) or real(t, group)
+    try:
+        y = tla.linear_attention_sp(xs, *ws, group=mesh.sp_group)
+        forward = list(summed)
+        (y * _t(dy[:, :, rank * n:(rank + 1) * n])).sum().backward()
+    finally:
+        tla.sp_all_reduce = real
+    return (y.detach().numpy(), xs.grad.numpy(), [t.grad.numpy() for t in ws],
+            (forward, summed[len(forward):]))
 
 
-@pytest.mark.parametrize("N", [256, 600])
-def test_sp_op_matches_jax(ranks, N):
-    """``linear_attention_sp`` at sp = 2 (f32; N = 600 leaves 300 columns a
-    rank, ragged against the JAX kernel's 512-column block) against JAX
-    ``fused_linear_attention_t(..., sp_axis="sp")`` on a 2-device mesh:
-    the output and all six gradients (the weights' as the sum of the
-    ranks' partials)."""
+def _sp_op_inputs(C, N, seed):
+    w = _op_weights(C, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    return (w, rng.normal(size=(2, C, N)).astype(np.float32),
+            rng.normal(size=(2, C, N)).astype(np.float32))
+
+
+def _jax_op(x, w, dy, sp=None):
+    """JAX ``fused_linear_attention_t`` (pre-norm, residual) on (B, C, N)
+    and its vjp for ``dy``: on one device, or with ``sp_axis="sp"`` on an
+    ``sp``-device mesh; returns y and the six gradients as numpy arrays in
+    the port's layouts."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    C = 4
-    w = _op_weights(C, seed=N)
-    rng = np.random.default_rng(N + 1)
-    x = rng.normal(size=(2, C, N)).astype(np.float32)
-    dy = rng.normal(size=(2, C, N)).astype(np.float32)
-    out = ranks.run("_sp_op", 2, x, w, dy)
-    y = np.concatenate([o[0] for o in out], axis=2)
-    dx = np.concatenate([o[1] for o in out], axis=2)
-    dws = [sum(o[2][i] for o in out) for i in range(5)]
-
-    mesh = jax_make_mesh(dp=1, sp=2, tp=1, devices=jax.devices()[:2])
     jw = [jnp.asarray(a) for a in w]
 
     def f(xx, wq, wo, bo, gg, gp):
         return jla.fused_linear_attention_t(xx, wq, wo, bo, gg, 4, 32, g_pre=gp, residual=True,
-                                            sp_axis="sp")
+                                            sp_axis="sp" if sp else None)
 
-    xj = jnp.asarray(x.transpose(0, 2, 1))
-    with jax.set_mesh(mesh):
-        xs = jax.device_put(xj, NamedSharding(mesh, P(None, "sp", None)))
-        yj, vjp = jax.vjp(jax.jit(f), xs, *jw)
-        grads = vjp(jnp.asarray(dy.transpose(0, 2, 1)))
-    np.testing.assert_allclose(y, np.asarray(yj).transpose(0, 2, 1), **OP_TOL)
-    np.testing.assert_allclose(dx, np.asarray(grads[0]).transpose(0, 2, 1), **OP_GRAD_TOL)
-    for got, ref in zip(dws, grads[1:]):
-        np.testing.assert_allclose(got, np.asarray(ref), **OP_GRAD_TOL)
+    xj, dyj = jnp.asarray(x.transpose(0, 2, 1)), jnp.asarray(dy.transpose(0, 2, 1))
+    if sp:
+        mesh = jax_make_mesh(dp=1, sp=sp, tp=1, devices=jax.devices()[:sp])
+        with jax.set_mesh(mesh):
+            xs = jax.device_put(xj, NamedSharding(mesh, P(None, "sp", None)))
+            yj, vjp = jax.vjp(jax.jit(f), xs, *jw)
+            grads = vjp(dyj)
+    else:
+        yj, vjp = jax.vjp(jax.jit(f), xj, *jw)
+        grads = vjp(dyj)
+    return (np.asarray(yj).transpose(0, 2, 1), np.asarray(grads[0]).transpose(0, 2, 1),
+            [np.asarray(gr) for gr in grads[1:]])
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("N", [256, 600])
+def test_sp_op_matches_jax(ranks, N, sp):
+    """``linear_attention_sp`` at sp = 2 and 4 (f32; N = 600 leaves 300 or
+    150 columns a rank, ragged against the JAX kernel's 512-column block)
+    against JAX ``fused_linear_attention_t(..., sp_axis="sp")`` on an
+    sp-device mesh: the output and all six gradients (the weights' as the
+    sum of the ranks' partials)."""
+    w, x, dy = _sp_op_inputs(4, N, seed=N)
+    out = ranks.run("_sp_op", sp, x, w, dy)
+    y = np.concatenate([o[0] for o in out], axis=2)
+    dx = np.concatenate([o[1] for o in out], axis=2)
+    dws = [sum(o[2][i] for o in out) for i in range(5)]
+    yj, dxj, grads = _jax_op(x, w, dy, sp=sp)
+    np.testing.assert_allclose(y, yj, **OP_TOL)
+    np.testing.assert_allclose(dx, dxj, **OP_GRAD_TOL)
+    for got, ref in zip(dws, grads):
+        np.testing.assert_allclose(got, ref, **OP_GRAD_TOL)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_sp_op_sums_the_stats_once_and_z_once_in_the_backward(ranks, sp):
+    """The forward sums (A, s) over the ranks; the backward sums the
+    recomputed (A, s) and then Z, and nothing else: two collectives a
+    backward (T follows from Z and the summed (A, s))."""
+    C, N = 4, 64
+    w, x, dy = _sp_op_inputs(C, N, seed=7)
+    for *_, (forward, backward) in ranks.run("_sp_op", sp, x, w, dy):
+        assert forward == [(2, 128, C + 1)]
+        assert backward == [(2, 128, C + 1), (2, 128, C)]
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_sp_weight_partials_follow_the_rule(ranks, sp):
+    """Each rank's dW_out and dW_v are those of its own bmat (its A over the
+    summed s) against the summed Z, Z here from autograd of the plain
+    forward with respect to the folded context M (Z = (∂L/∂M)ᵀ); summed over
+    the ranks they are JAX's gradients on one device."""
+    C, N, H = 4, 128, 128
+    w, x, dy = _sp_op_inputs(C, N, seed=11)
+    out = ranks.run("_sp_op", sp, x, w, dy)
+    w_qkv, w_out, b_out, g, g_pre = map(_t, w)
+    xt = _t(x)
+    stats = tla.sp_stats_reference(xt, w_qkv, g_pre, round_operands=False)
+    _, inv_s, m = tla.sp_context(stats, w_qkv, w_out)
+    m.requires_grad_(True)
+    (tla.sp_apply_reference(xt, m, w_qkv, b_out, g, g_pre) * _t(dy)).sum().backward()
+    z = m.grad.transpose(1, 2).reshape(2, 4, 32, C)  # (B, heads, 32, C)
+    wv = w_qkv[:, 2 * H:].t().reshape(4, 32, C)
+    wo = w_out.reshape(4, 32, C)
+    n = N // sp
+    for r, o in enumerate(out):
+        local = tla.sp_stats_reference(xt[:, :, r * n:(r + 1) * n], w_qkv, g_pre,
+                                       round_operands=False)
+        bmat = (local[..., :C] * inv_s[..., None]).reshape(2, 4, 32, C)
+        ctx = torch.einsum("bhic,hjc->bhij", bmat, wv)
+        dctx = torch.einsum("bhic,hjc->bhij", z, wo)
+        dwo = torch.einsum("bhij,bhic->hjc", ctx, z).reshape(H, C)
+        dwv = torch.einsum("bhij,bhic->hjc", dctx, bmat).reshape(H, C)
+        np.testing.assert_allclose(o[2][1], dwo.numpy(), **OP_GRAD_TOL)
+        np.testing.assert_allclose(o[2][0][:, 2 * H:], dwv.t().numpy(), **OP_GRAD_TOL)
+    _, _, grads = _jax_op(x, w, dy)
+    np.testing.assert_allclose(sum(o[2][1] for o in out), grads[1], **OP_GRAD_TOL)
+    np.testing.assert_allclose(sum(o[2][0] for o in out)[:, 2 * H:], grads[0][:, 2 * H:],
+                               **OP_GRAD_TOL)
+
+
+def _recording_sp_library(monkeypatch, *entries):
+    """Route ``entries`` of the kernel library to one recorder; returns the
+    list of (entry, arguments) in call order."""
+    calls = []
+
+    class FakeLibrary:
+        pass
+
+    for entry in entries:
+        setattr(FakeLibrary, entry,
+                lambda self, *args, entry=entry: calls.append((entry, args)) or 0)
+    monkeypatch.setattr(tla._build, "library", FakeLibrary)
+    monkeypatch.setattr(tla._build, "stream_of", lambda t: 0)
+    return calls
+
+
+def _module_weights(C, dt, seed):
+    """The weights as LinearAttention hands them over: transposed views of
+    the conv weights in the compute dtype, float32 gains, g_pre as (1, C, 1)."""
+    w_qkv, w_out, b_out, g, g_pre = map(_t, _op_weights(C, seed))
+    conv_qkv, conv_out = w_qkv.t().contiguous().to(dt), w_out.t().contiguous().to(dt)
+    return [conv_qkv.t(), conv_out.t(), b_out.to(dt), g, g_pre.reshape(1, C, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("round_operands", [True, False])
+def test_sp_stats_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype,
+                                                             round_operands):
+    """K6a's wrapper runs no aten op but the stats' allocation: one launch,
+    which gets w_qkv's and g_pre's own memory, strides and dtypes (no
+    static shifts, casts or transposes on the host), and the counter
+    advances by one."""
+    calls = _recording_sp_library(monkeypatch, "dq_linear_attention_sp_stats")
+    dt = getattr(torch, dtype)
+    B, C, N = 2, 4, 10
+    x = _t(np.random.default_rng(3).normal(size=(B, C, N)).astype(np.float32)).to(dt)
+    w = _module_weights(C, dt, seed=3)
+    before = tla.linear_attention_sp_stats.launches
+    with _AtenLog() as log:
+        stats = tla._sp_stats_kernel(x, w[0], w[4], 4, 32, round_operands)
+    assert set(log.ops) <= _ALLOCATIONS, log.ops
+    assert tla.linear_attention_sp_stats.launches == before + 1
+    ((entry, args),) = calls
+    assert args[:7] == (x.data_ptr(), w[0].data_ptr(), 1, C, w[4].data_ptr(), 1,
+                        stats.data_ptr())
+    bits = 1 if dtype == "bfloat16" else 0  # w_qkv in the compute dtype, g_pre float32
+    # B, C, N, heads, weight dtype bits, round, bf16 x, device
+    assert args[7:15] == (B, C, N, 4, bits, int(round_operands), int(dtype == "bfloat16"), 0)
+    assert stats.shape == (B, 128, C + 1) and stats.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_backward_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype):
+    """K6c's wrapper runs no aten op but allocations: launch 1 (Z), one
+    ``reduce`` of Z, launches 2 and 3 in one entry point, each given the
+    weights' own memory, strides and dtypes and the summed and the rank's
+    own stats as they are; the gradients come back in each parameter's
+    shape, dtype and (for the two matrices) strides; no (B, C, N) float32
+    buffer is allocated; the counter advances by one."""
+    calls = _recording_sp_library(monkeypatch, "dq_linear_attention_sp_bwd_z",
+                                  "dq_linear_attention_sp_bwd_x")
+    dt = getattr(torch, dtype)
+    B, C, N, H = 2, 4, 10, 128
+    rng = np.random.default_rng(4)
+    x, dy = (_t(rng.normal(size=(B, C, N)).astype(np.float32)).to(dt) for _ in "12")
+    w = _module_weights(C, dt, seed=4)
+    stats, local = (torch.rand(B, H, C + 1) for _ in "12")
+    reduce = lambda t: calls.append(("reduce", t))  # noqa: E731
+    before = tla.linear_attention_sp_backward.launches
+    with _AtenLog() as log:
+        grads = tla._sp_backward_kernel(dy, x, *w, stats, local, reduce, 4, 32)
+    assert set(log.ops) <= _ALLOCATIONS, log.ops
+    assert tla.linear_attention_sp_backward.launches == before + 1
+    assert [c[0] for c in calls] == ["dq_linear_attention_sp_bwd_z", "reduce",
+                                     "dq_linear_attention_sp_bwd_x"]
+    (_, za), (_, z), (_, xa) = calls
+    assert z.shape == (B, H, C) and z.dtype == torch.float32
+    dx, dw_qkv, dw_out, db_out, dg, dg_pre = grads
+    weights = (w[0].data_ptr(), 1, C, w[1].data_ptr(), 1, H, w[2].data_ptr(), 1,
+               w[3].data_ptr(), 1, w[4].data_ptr(), 1)
+    bits = 0b00111 if dtype == "bfloat16" else 0  # w_qkv, w_out, b_out in the compute dtype
+    assert za[:2] == (x.data_ptr(), dy.data_ptr()) and za[2:14] == weights
+    assert za[14:16] == (stats.data_ptr(), z.data_ptr())
+    assert za[17:24] == (B, C, N, 4, bits, int(dtype == "bfloat16"), 0)
+    assert xa[:3] == (x.data_ptr(), dy.data_ptr(), dx.data_ptr()) and xa[3:15] == weights
+    assert xa[15:27] == (dw_qkv.data_ptr(), *dw_qkv.stride(), dw_out.data_ptr(),
+                         *dw_out.stride(), db_out.data_ptr(), 1, dg.data_ptr(), 1,
+                         dg_pre.data_ptr(), 1)
+    assert xa[27:30] == (stats.data_ptr(), local.data_ptr(), z.data_ptr())
+    assert xa[30] == za[16]  # launch 1's row partials (db, dg) reach launch 2
+    assert xa[32:40] == (B, C, N, 4, bits, bits, int(dtype == "bfloat16"), 0)
+    assert dx.shape == x.shape and dx.dtype == dt
+    for gr, p in zip(grads[1:], w):
+        assert gr.shape == p.shape and gr.dtype == p.dtype
+    assert dw_qkv.stride() == w[0].stride() and dw_out.stride() == w[1].stride()
 
 
 # --------------------------------------------------------------------- #
@@ -538,11 +710,12 @@ def _cuda_inputs(B, C, N, dev, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C,N", [(4, 20000), (16, 313), (8, 700)])
+@pytest.mark.parametrize("C,N", [(4, 20000), (16, 313), (8, 700), (8, 1), (16, 100000)])
 def test_k6_kernels_match_plain(cuda, dtype, C, N):
-    """K6a, K6b and K6c on one slice against their plain versions (bf16: on
-    the same bf16 values). float32 sums in another order; bf16 outputs
-    round once."""
+    """K6a (both operand modes), K6b and K6c on one slice against their
+    plain versions (bf16: on the same bf16 values), at the level-0 slice,
+    ragged N, one column and a slice too long to stage. float32 sums in
+    another order; bf16 outputs round once."""
     dt = getattr(torch, dtype)
     x, dy, w = _cuda_inputs(34, C, N, cuda, dt, seed=C * N)
     w_qkv, w_out, b_out, g, g_pre = w
@@ -555,8 +728,9 @@ def test_k6_kernels_match_plain(cuda, dtype, C, N):
     y = tla.linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre)
     torch.testing.assert_close(y.float(), tla.sp_apply_reference(x, m, w_qkv, b_out, g, g_pre)
                                .float(), **tol)
-    got = tla.linear_attention_sp_backward(dy, x, *w, st, lambda t: None)
-    ref = tla.sp_backward_reference(dy, x, *w, st, lambda t: None)
+    # one slice: its own stats are the sums
+    got = tla.linear_attention_sp_backward(dy, x, *w, st, st, lambda t: None)
+    ref = tla.sp_backward_reference(dy, x, *w, st, st, lambda t: None)
     # max |error| over the largest entry (chip_smoke's GRAD_TOL): float32
     # sums in another order; in bf16 dx rounds once, one ulp is 2^-8 of it
     grad_tol = 1e-3 if dtype == "float32" else 1e-2
