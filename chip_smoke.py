@@ -64,7 +64,8 @@ CUDA card with sm_90a). Phases, each of which must pass:
      (``tpu.fused_resnet = false``, ``tpu.linear_attn_impl = "pallas"``):
      K8 and K9 against their plain version at every mixer shape of the
      path, a ragged N and N = 1, float32 and bf16, timed through the
-     wrapper and alone; the sweep of K1, K8 and the "xla" path, whose
+     wrapper and alone, K8 also on the device with its kernels a call (1:
+     no torch op beside it); the sweep of K1, K8 and the "xla" path, whose
      crossover must be ``LINATTN_MIN_SEQ``; the full-width forward on the
      kernels against the plain path; a 50-step ``predict`` (K8 700, K1 0, K2 0, K3 200, K7a 50 launches)
      and ms/window; full-width training (no int8): one step's gradients
@@ -77,7 +78,8 @@ CUDA card with sm_90a). Phases, each of which must pass:
      K6b and K6c against their plain versions at the sharded widths of the
      mixers and a ragged N, float32 and bf16, timed at (34, 4, 20000)
      around the wrapper and on the device, with the kernels a call on the
-     device (K6a 1, K6c 3: no torch op beside them); N cut by hand into 2
+     device (K6a 1, K6b 1, K6c 3, a mixer's forward K6a + K6b 2: no torch
+     op beside them); N cut by hand into 2
      and 4 slices (one thread each, partials summed in rank order, one Z
      barrier in K6c) against K1 and K4 on the whole N; then two ranks
      spawned in one gloo group,
@@ -229,10 +231,12 @@ SP_FORWARD = {"linear_attention_sp_stats": 12, "linear_attention_sp_apply": 12,
 SP_STEP = {"linear_attention_sp_stats": 24, "linear_attention_sp_apply": 12,
            "linear_attention_sp_backward": 12, "flash_attention": 1,
            "flash_attention_backward": 1}
-# Kernels a call of K6a (either operands) and K6c on the device: one cluster
-# launch; two cluster launches and the fixed-order sum of the gradients. No
+# Kernels a call of K6a (either operands), K6b, K6c and a split mixer's
+# forward (K6a, the sum, K6b) on the device: one cluster launch; one launch;
+# two cluster launches and the fixed-order sum of the gradients; two. No
 # torch op runs on the device beside them.
-SP_KERNELS_A_CALL = {"K6a": 1, "K6a float32 operands": 1, "K6c": 3}
+SP_KERNELS_A_CALL = {"K6a": 1, "K6a float32 operands": 1, "K6b": 1, "K6c": 3,
+                     "K6 forward": 2}
 # all_reduces per rank of the 12 K6 mixers: one a forward (the stats), two
 # a backward (the recomputed stats, then Z; T follows from Z and the summed
 # stats). A K6c that also summed T would run 12 more a step (48).
@@ -348,22 +352,34 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 PROFILE_TRIES = 3
 
 
+# A spin of the card (torch.cuda._sleep, kernel "spin_kernel") before and
+# after the profiled calls: late in a long process the profiler loses the
+# records at the edges of a short window (all of a 1.5 ms window of K6b's
+# launches in three tries, where a fresh process kept every record), and the
+# spins take those edges. They are not counted.
+PROFILE_PAD_S = 2e-3
+
+
 def _kernel_events(fn, reps, warmup):
     """(name, device us, count) of every kernel ``torch.profiler`` saw in
-    ``reps`` calls of ``fn`` (after ``warmup``)."""
+    ``reps`` calls of ``fn`` (after ``warmup``), the padding spins left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    pad = int(PROFILE_PAD_S * sm_clock_hz())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(pad)
         for _ in range(reps):
             fn()
+        torch.cuda._sleep(pad)
         torch.cuda.synchronize()
     events = []
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count:
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count \
+                or "spin_kernel" in e.key:
             continue
         us = getattr(e, "self_device_time_total", None)
         events.append((e.key, e.self_cuda_time_total if us is None else us, e.count))
@@ -896,7 +912,8 @@ def phase_sample(config, seed, gen, per_forward, what="canonical", results=None)
     """One 50-step predict with its launch counts, then ms/window on the
     kernel and the plain path. Returns (launch counts, ms/window by path).
     With ``results``, also the device time of one serving forward from
-    ``torch.profiler``: K1's and every kernel's."""
+    ``torch.profiler``: K1's (K8's on the unfused "pallas" path) and every
+    kernel's."""
     import numpy as np
     import torch
 
@@ -938,7 +955,20 @@ def phase_sample(config, seed, gen, per_forward, what="canonical", results=None)
         log(f"  {STEPS}-step DDIM ms/window ({what}, bs1, 34x40000, bf16, int8 mid convs), {path} "
             f"path: median {per_window[path]:.2f} ms of {SAMPLE_REPS} "
             f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
-    if results is not None:
+    if results is not None and per_forward.get("fused_linear_attention"):
+        model.use_kernels(True)
+        t = torch.full((1,), 500, dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            dev = device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5,
+                            "linattn_rows_cluster")
+        k8_ms, k8_n, _ = dev["linattn_rows_cluster"]
+        log(f"  one serving forward (torch.profiler, mean of 5): K8 {k8_n:g} launches recorded "
+            f"({per_forward['fused_linear_attention']} made), {k8_ms:.4f} ms of device time; all "
+            f"kernels {dev['all'][1]:g} launches, {dev['all'][0]:.4f} ms")
+        results["fused_linear_attention"].update(device_ms_per_forward=k8_ms,
+                                                 forward_device_ms=dev["all"][0],
+                                                 forward_kernels=dev["all"][1])
+    elif results is not None:
         model.use_kernels(True)
         t = torch.full((1,), 500, dtype=torch.long, device="cuda")
         with torch.inference_mode():
@@ -1560,8 +1590,9 @@ def phase_rows_kernels(gen, results):
     float32 (TF32 off) and bf16 (against the plain version run in float32
     on the same bf16 values), on the model's channel-first memory; bf16
     times at every mixer shape through the wrapper and of the kernel alone
-    (the launch of prepared arguments), beside the plain version's and the
-    bound."""
+    (the launch of its checked arguments), K8's also on the device with its
+    kernels a call (one: the wrapper runs no torch op on the device),
+    beside the plain version's and the bound."""
     import torch
 
     from dquartic_tpu_torch.ops import linear_attention as la
@@ -1591,22 +1622,47 @@ def phase_rows_kernels(gen, results):
                     for name, (op, two_call, label) in ops.items():
                         launch, _ = la.rows_launcher(name, x, *w, 4, 32, two_call)
                         row[label] = (cuda_time(lambda: op(x, *w), 20), cuda_time(launch, 20))
+                    _, per_call, kinds, once_ms = device_kernels(
+                        lambda: la.fused_linear_attention(x, *w), 20, 1)
+                    check(len(kinds) == 1 and kinds[0].startswith("linattn_rows_cluster"),
+                          f"K8 (34, {N}, {C}): kernels on the device {kinds}, not its one kernel")
+                    row["K8_device"] = (once_ms, per_call)
                     row["plain"] = cuda_time(lambda: la.linear_attention_rows_reference(x, *w), 5)
                     row["bound"] = linattn_bound(34, C, N, 2)
                     table.append(row)
                 del w, x, ref
             torch.cuda.empty_cache()
-    log("  bf16 (34, N, C) on channel-first memory, ms: K8 wrapper / kernel alone, K9 wrapper / "
-        "kernels alone, plain, bound:")
+    log("  bf16 (34, N, C) on channel-first memory, ms: K8 wrapper / kernel alone / on the "
+        "device (kernels a call), K9 wrapper / kernels alone, plain, bound:")
     for r in table:
-        log(f"    C {r['C']:2d} N {r['N']:5d}: K8 {r['K8'][0]:.4f} / {r['K8'][1]:.4f}, K9 "
-            f"{r['K9'][0]:.4f} / {r['K9'][1]:.4f}, plain {r['plain']:.4f}, bound "
-            f"{r['bound']['bound_ms']:.4f} ({r['bound']['bound_by']})")
+        log(f"    C {r['C']:2d} N {r['N']:5d}: K8 {r['K8'][0]:.4f} / {r['K8'][1]:.4f} / "
+            f"{r['K8_device'][0]:.4f} ({r['K8_device'][1]:.1f}), K9 {r['K9'][0]:.4f} / "
+            f"{r['K9'][1]:.4f}, plain {r['plain']:.4f}, bound {r['bound']['bound_ms']:.4f} "
+            f"({r['bound']['bound_by']})")
     top = table[0]  # the level-0 shape (34, 40000, 4)
+    log(f"  K8 (34, {MZ}, 4): exp floor {exp_floor(2 * 128 * 34 * MZ):.4f} ms")
+    # a row's columns all equal, float32: the plain version's own float32
+    # sums drift there (cuBLAS adds a row's like terms in turn), so K8 is
+    # held against the plain version in float64
+    C, N = ROWS_SHAPES[0]
+    w = [randn(C, 384, s=0.3), randn(128, C, s=0.1), randn(C, s=0.1), randn(C)]
+    x = randn(34, C, 1).expand(34, C, N).contiguous().transpose(1, 2)
+    ref = la.linear_attention_rows_reference(x.double(), *(t.double() for t in w)).float()
+    drift = float((la.linear_attention_rows_reference(x, *w) - ref).abs().max())
+    with torch.no_grad():
+        y = la.fused_linear_attention(x, *w)
+    log(f"  equal columns (34, {N}, {C}) float32: the plain version in float32 is max_abs "
+        f"{drift:.3e} from float64")
+    _compare(f"K8 equal columns float32 (34, {N}, {C}) vs the plain version in float64", y, ref,
+             F32_TOL)
+    del w, x, y, ref
     for name, (_, _, label) in ops.items():
         results[name].update(max_abs_err=errs[name], ms=top[label][0], kernel_ms=top[label][1],
                              plain_ms=top["plain"], library_ms=None, **top["bound"],
                              per_shape={f"{r['C']}x{r['N']}": r[label] for r in table})
+    results["fused_linear_attention"].update(
+        device_ms=top["K8_device"][0], kernels_a_call=top["K8_device"][1],
+        device_per_shape={f"{r['C']}x{r['N']}": r["K8_device"][0] for r in table})
 
 
 def phase_rows_sweep(gen):
@@ -1708,7 +1764,8 @@ def phase_rows(config, seed, gen, results):
     phase_rows_sweep(gen)
     cfg = _rows_config(config)
     phase_forward(cfg, seed, gen, ROWS_FORWARD, what="unfused UNet1d (linear_attn_impl pallas)")
-    counts, per_window = phase_sample(cfg, seed, gen, ROWS_FORWARD, what="unfused pallas")
+    counts, per_window = phase_sample(cfg, seed, gen, ROWS_FORWARD, what="unfused pallas",
+                                      results=results)
     results["fused_linear_attention"]["launches"] = counts["fused_linear_attention"]
     results["fused_linear_attention_two_call"]["launches"] = counts[
         "fused_linear_attention_two_call"]
@@ -1770,9 +1827,7 @@ def _hand_split(x, dy, w, size):
 
     with torch.no_grad():
         st = summed([la.linear_attention_sp_stats(xr, w_qkv, g_pre) for xr in xs])
-        _, _, m = la.sp_context(st, w_qkv, w_out, round_m=x.dtype == torch.bfloat16)
-        y = torch.cat([la.linear_attention_sp_apply(xr, m, w_qkv, b_out, g, g_pre)
-                       for xr in xs], 2)
+        y = torch.cat([la.linear_attention_sp_apply(xr, st, *w) for xr in xs], 2)
         local = [la.linear_attention_sp_stats(xr, w_qkv, g_pre, round_operands=False)
                  for xr in xs]
         st32 = summed(local)
@@ -1836,7 +1891,7 @@ def phase_sp_kernels(gen, results):
                         f"{'rounded' if rnd else 'float32'} operands", st, ref, SP_STATS_TOL,
                         float(ref.abs().max())))
                 _, _, m = la.sp_context(ref, w[0], w[1], round_m=dt == torch.bfloat16)
-                y = la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4])
+                y = la.linear_attention_sp_apply(x, ref, *w)
                 ref_y = la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4])
                 errs[names[1]] = max(errs[names[1]], _compare(
                     f"K6b sp_apply {tag} (34, {C}, {n})", y, ref_y, tol))
@@ -1852,8 +1907,12 @@ def phase_sp_kernels(gen, results):
                     "K6a float32 operands": (
                         lambda: la.linear_attention_sp_stats(x, w[0], w[4], round_operands=False),
                         lambda: la.sp_stats_reference(x, w[0], w[4], round_operands=False), 20),
-                    "K6b": (lambda: la.linear_attention_sp_apply(x, m, w[0], w[2], w[3], w[4]),
+                    "K6b": (lambda: la.linear_attention_sp_apply(x, ref, *w),
                             lambda: la.sp_apply_reference(x, m, w[0], w[2], w[3], w[4]), 20),
+                    "K6 forward": (
+                        lambda: la._LinearAttentionSpFn.apply(x, *w, 4, 32, no_sum),
+                        lambda: la.linear_attention_sp_apply(
+                            x, la.sp_stats_reference(x, w[0], w[4]), *w), 10),
                     "K6c": (lambda: la.linear_attention_sp_backward(dy, x, *w, st32, st32, no_sum),
                             lambda: la.sp_backward_reference(dy, x, *w, st32, st32, no_sum), 10),
                 }
@@ -1865,7 +1924,8 @@ def phase_sp_kernels(gen, results):
         torch.cuda.empty_cache()
     bounds = {"K6a": linattn_bound(34, *SP_SHAPES[0], 2, tensors=1, passes=2),
               "K6b": linattn_bound(34, *SP_SHAPES[0], 2, tensors=2, passes=2),
-              "K6c": linattn_bound(34, *SP_SHAPES[0], 2, tensors=3, passes=10)}
+              "K6c": linattn_bound(34, *SP_SHAPES[0], 2, tensors=3, passes=10),
+              "K6": linattn_bound(34, *SP_SHAPES[0], 2, tensors=2, passes=4)}
     for what, (ms, plain_ms, (dev_ms, per_call, kinds, once_ms)) in timing.items():
         bnd = bounds[what.split()[0]]
         log(f"  time {what} bf16 (34, {SP_SHAPES[0][0]}, {SP_SHAPES[0][1]}): wrapper {ms:.4f} ms, "
@@ -1876,13 +1936,11 @@ def phase_sp_kernels(gen, results):
             check(len(kinds) == SP_KERNELS_A_CALL[what],
                   f"{what}: {len(kinds)} kernels a call on the device, not "
                   f"{SP_KERNELS_A_CALL[what]} (a torch op beside the kernel, or a launch more)")
-    # device ms: K6a's and K6c's kernels run once a call (the kinds checked
-    # above), so each kernel's mean once stands where records drop; K6b's
-    # torch ops repeat kernels, so its records are summed
+    # device ms: every K6 kernel runs once a call (the kinds checked above),
+    # so each kernel's mean once stands where records drop
     def device(what):
-        _, _, (dev_ms, per_call, _, once_ms) = timing[what]
-        return dict(device_ms=once_ms if what in SP_KERNELS_A_CALL else dev_ms,
-                    kernels_a_call=per_call)
+        _, _, (_, per_call, _, once_ms) = timing[what]
+        return dict(device_ms=once_ms, kernels_a_call=per_call)
 
     for name, what in zip(names, ("K6a", "K6b", "K6c")):
         ms, plain_ms, _ = timing[what]
@@ -1890,6 +1948,9 @@ def phase_sp_kernels(gen, results):
                              **device(what), **bounds[what])
     results[names[0]].update(ms_float32_operands=timing["K6a float32 operands"][0],
                              device_ms_float32_operands=device("K6a float32 operands")["device_ms"])
+    results[names[1]].update(forward_ms=timing["K6 forward"][0],
+                             forward_device_ms=device("K6 forward")["device_ms"],
+                             forward_kernels_a_call=device("K6 forward")["kernels_a_call"])
 
     # the hand split: K1 / K4 on the whole N against K6 over 2 and 4 slices
     for dt in (torch.float32, torch.bfloat16):
@@ -2215,8 +2276,13 @@ def main(argv=None) -> int:
                                 replaces="dquartic_tpu/ops/flash_attention.py:99"),
         "flash_attention_backward": dict(source="dquartic_tpu_torch/csrc/flash_attention_bwd.cu",
                                          replaces="dquartic_tpu/ops/flash_attention.py:237"),
-        "fused_linear_attention": dict(source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
-                                       replaces="dquartic_tpu/ops/linear_attention.py:276"),
+        "fused_linear_attention": dict(
+            source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
+            replaces="dquartic_tpu/ops/linear_attention.py:276",
+            note="K8: one cluster launch a call that reads the weights as they are, running "
+                 "max per tile, bf16 products on tensor cores at float32 accuracy; times at "
+                 "(34, 40000, 4) bf16 on channel-first memory, launches per predict of the "
+                 "unfused pallas model (phase 9)"),
         "fused_linear_attention_two_call": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1139",
@@ -2231,7 +2297,10 @@ def main(argv=None) -> int:
         "linear_attention_sp_apply": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1589",
-            note="K6b; launches per rank of the sp=2 predict (phase 10)"),
+            note="K6b: one launch a call (K1's kernel in its apply mode, "
+                 "csrc/linear_attention.cu: M folded from the summed stats, no cluster); "
+                 "launches per rank of the sp=2 predict (phase 10); forward_*: a split "
+                 "mixer's forward, K6a and K6b (no collective)"),
         "linear_attention_sp_backward": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1797",

@@ -1,7 +1,7 @@
-// The weights, the slices and the cluster launches of the pre-norm
-// linear-attention kernels, shared by K1 (linear_attention.cu), K4
-// (linear_attention_bwd.cu) and K6 (linear_attention_sp.cu): the weights as
-// the caller holds them, a CTA's slice of a (B, C, N) tensor staged in
+// The weights, the slices and the cluster launches of the linear-attention
+// kernels, shared by K1 (linear_attention.cu), K4 (linear_attention_bwd.cu),
+// K6 (linear_attention_sp.cu) and K8 (linear_attention_rows.cu): the weights
+// as the caller holds them, a CTA's slice of a (B, C, N) tensor staged in
 // shared memory or read from device memory, the cluster size a launch takes,
 // and the host entry points through which K6 runs K1's and K4's cluster
 // kernels in their sequence-parallel modes.
@@ -54,6 +54,10 @@ struct Grads {
 // K6a, p and xh rounded to x's dtype (bf16), or float32 x: K1's phase 0.
 cudaError_t linattn_stats(const void* x, float* stats, const Weights& w, int B, int C, int N,
                           int heads, bool bf16, cudaStream_t s);
+// K6b, from the summed stats: y = RMSNorm_g(M q + b_out) + x on the rank's
+// columns, M folded from the stats: K1's apply.
+cudaError_t linattn_apply(const void* x, void* y, const float* stats, const Weights& w, int B,
+                          int C, int N, int heads, bool bf16, cudaStream_t s);
 // K6a, bf16 x with float32 operands (the backward's recompute): K4's pass 0.
 cudaError_t linattn_bwd_stats(const void* x, float* stats, const Weights& w, int B, int C,
                               int N, int heads, cudaStream_t s);
@@ -85,6 +89,25 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ float ld(const void* p, long long i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
+}
+
+// v = the CB float32 values at src (16-byte aligned, CB a multiple of 4)
+template <int CB>
+__device__ __forceinline__ void load_row(const float* src, float (&v)[CB]) {
+#pragma unroll
+  for (int c = 0; c < CB; c += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src + c);
+    v[c] = q.x, v[c + 1] = q.y, v[c + 2] = q.z, v[c + 3] = q.w;
+  }
+}
+
+// acc + w . v, the products added in channel order
+template <int CB>
+__device__ __forceinline__ float dot(const float (&w)[CB], const float (&v)[CB],
+                                     float acc = 0.0f) {
+#pragma unroll
+  for (int c = 0; c < CB; ++c) acc = fmaf(w[c], v[c], acc);
+  return acc;
 }
 
 // x of this CTA's slice: staged rows in shared memory, or device memory.

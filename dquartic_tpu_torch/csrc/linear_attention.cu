@@ -40,10 +40,14 @@
 //   5. apply: q, the per-head softmax and y = M q over the slice; for bf16
 //      x both products on tensor cores (apply_mma), for float32 one thread
 //      a column on CUDA cores (apply_fma).
-// In its stats mode (kStats) the same kernel is K6a on a rank's slice of a
-// sequence split over ranks (linear_attention_sp.cu): steps 1 and 2 and rank
-// 0's sum of the partials, written to device memory as each row's [A | s],
-// the cluster size from the card's occupancy.
+// Two more modes run the same kernel on a rank's slice of a sequence split
+// over ranks (linear_attention_sp.cu): kStats (K6a, the cluster size from
+// the card's occupancy) runs steps 1 and 2 and rank 0's sum of the
+// partials, written to device memory as each row's [A | s]; kApply (K6b)
+// skips step 2, and every CTA folds M in step 3 from the row's [A | s]
+// summed over the ranks (read from device memory) and runs step 5: its CTAs
+// share nothing, so it launches without a cluster, as many CTAs a row as
+// spread the grid evenly over the SMs in one wave (choose_grid).
 // The (H, N) q/k/v expansions never reach device memory: x is read once
 // and y written once. Per column the op does 4 H x C multiply-add passes
 // and 2 H exponentials, so at C = 4 it is bound by float32 operations and
@@ -144,24 +148,6 @@ __device__ __forceinline__ float column_den(const Slice<T>& x, int C, int j) {
       ss += v * v;
     }
   return fmaxf(sqrtf(ss), 1e-12f);
-}
-
-template <int CB>
-__device__ __forceinline__ void load_row(const float* src, float (&v)[CB]) {
-#pragma unroll
-  for (int c = 0; c < CB; c += 4) {
-    const float4 q = *reinterpret_cast<const float4*>(src + c);
-    v[c] = q.x, v[c + 1] = q.y, v[c + 2] = q.z, v[c + 3] = q.w;
-  }
-}
-
-// acc + w . v, the products added in channel order
-template <int CB>
-__device__ __forceinline__ float dot(const float (&w)[CB], const float (&v)[CB],
-                                     float acc = 0.0f) {
-#pragma unroll
-  for (int c = 0; c < CB; ++c) acc = fmaf(w[c], v[c], acc);
-  return acc;
 }
 
 // Phase 0 of a slice, float32 (CUDA cores): thread (group gi, feature d)
@@ -582,22 +568,26 @@ __device__ void apply_mma(const Slice<__nv_bfloat16>& xsl, const __nv_bfloat16* 
   }
 }
 
+// The kernel's modes: the whole op (K1); a rank's phase-0 partials of a
+// sequence split over ranks, written to stats (B, H, C + 1) as each row's
+// [A | s], with no apply and no y, reading only W_k and g_pre (kStats, K6a);
+// the apply from the row's [A | s] summed over the ranks, read from stats,
+// with no phase 0 and no W_k (kApply, K6b). The kernel takes the mode as
+// an int (profiles name its instances linattn_cluster<T, CB, mode>).
+enum Mode { kFull, kStats, kApply };
+
 // CTAs held on one SM: bf16 at C <= 8, 3 (<= 80 registers a thread; the
 // staged level-0 slice leaves room for 3 in shared memory), so that the 34
 // rows x 8 CTAs of the canonical level 0 run in one wave; otherwise 2
 // (float32's CUDA-core passes spill at 80).
-// kStats (K6a, a rank's phase-0 partials of a sequence split over ranks):
-// steps 1 and 2 and rank 0's sum of the partials, written to stats (B, H,
-// C + 1) as each row's [A | s]; no apply, no y, and only W_k and g_pre are
-// read.
-template <typename T, int CB, bool kStats>
+template <typename T, int CB, int kMode>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     linattn_cluster(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ stats,
                     Weights w, Plan p, int C, int N, int H) {
   constexpr bool kMma = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), cl = (int)cluster.num_blocks();
+  const int rank = blockIdx.x, cl = gridDim.x;  // a cluster's rank and size (grid (cl, B))
   const int t = threadIdx.x, b = blockIdx.y;
   const int nbeg = min(N, rank * p.chunk), cols = min(N, nbeg + p.chunk) - nbeg;
   float* wq = smem + p.wq;
@@ -628,8 +618,8 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   const bool bq = w.bf16 & 1, bo = w.bf16 & 2;
   if (t < CB) {
     const bool ok = t < C;
-    b_out[t] = ok && !kStats ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
-    g[t] = ok && !kStats ? ld(w.g, t * w.g_c, w.bf16 & 8) : 0.0f;
+    b_out[t] = ok && kMode != kStats ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
+    g[t] = ok && kMode != kStats ? ld(w.g, t * w.g_c, w.bf16 & 8) : 0.0f;
     gpre[t] = ok ? ld(w.g_pre, t * w.g_pre_c, w.bf16 & 16) : 0.0f;
     gp[t] = gpre[t] * rs;
   }
@@ -643,7 +633,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   cn *= rs;
   __nv_bfloat16* wqh = reinterpret_cast<__nv_bfloat16*>(wq);  // bf16 W_q' (hi, lo) rows
   __nv_bfloat16* wql = wqh + H * kXr;
-  for (int d = (kStats ? H : 0) + t; d < 2 * H; d += kThreads) {  // rows 0..H-1: W_q; H..2H-1: W_k
+  // rows 0..H-1: W_q; H..2H-1: W_k
+  for (int d = (kMode == kStats ? H : 0) + t; d < (kMode == kApply ? H : 2 * H);
+       d += kThreads) {
     float v[CB], nrm = 0.0f;
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
@@ -680,13 +672,15 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     for (int j = t; j < cols; j += kThreads) den[j] = column_den<T, CB>(xsl, C, j);
 
   // 2. phase 0: the CTA's partial (A, s)
-  if constexpr (kMma)
-    phase0_mma<CB>(xsl, gp, wk, ks, scratch, part, psum, C, H, cols);
-  else
-    phase0_fma<T, CB>(xsl, den, gp, wk, ks, scratch, part, psum, C, H, cols, p.staged);
-  cluster.sync();  // #1: every CTA's partial is visible to the cluster
+  if constexpr (kMode != kApply) {
+    if constexpr (kMma)
+      phase0_mma<CB>(xsl, gp, wk, ks, scratch, part, psum, C, H, cols);
+    else
+      phase0_fma<T, CB>(xsl, den, gp, wk, ks, scratch, part, psum, C, H, cols, p.staged);
+    cluster.sync();  // #1: every CTA's partial is visible to the cluster
+  }
 
-  if constexpr (kStats) {  // rank 0: the row's (A, s) in rank order, to stats
+  if constexpr (kMode == kStats) {  // rank 0: the row's (A, s) in rank order, to stats
     if (rank == 0 && t < H) {
       float a[CB], s = 0.0f;
 #pragma unroll
@@ -708,10 +702,12 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     return;
   }
 
-  // 3. rank 0: the row's (A, s) in rank order, then M = W_out^T ctx^T
+  // 3. rank 0: the row's (A, s) in rank order, then M = W_out^T ctx^T;
+  // kApply: every CTA folds M itself from the row's summed (A, s) in stats,
+  // so that the CTAs of a row share nothing (no cluster, no sync)
   constexpr int NB = kMma ? (CB + 7) / 8 * 8 : CB;
   __nv_bfloat16* mb = reinterpret_cast<__nv_bfloat16*>(ms);
-  if (rank == 0) {
+  if (rank == 0 || kMode == kApply) {
     float* wv = scratch;           // (H, CB)
     float* wo = scratch + H * CB;  // (H, CB)
     for (int i = t; i < H * CB; i += kThreads) {
@@ -721,7 +717,12 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     }
     const int d = t;
     float a[CB], s = 0.0f;
-    if (d < H) {
+    if (d < H && kMode == kApply) {
+      const float* src = stats + ((long long)b * H + d) * (C + 1);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) a[c] = c < C ? src[c] : 0.0f;
+      s = src[C];
+    } else if (d < H) {
 #pragma unroll
       for (int c = 0; c < CB; ++c) a[c] = 0.0f;
       for (int r = 0; r < cl; ++r) {
@@ -756,13 +757,17 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
       }
     }
   }
-  cluster.sync();  // #2: M is in rank 0's shared memory
-  if (rank != 0) {
-    const int words = kMma ? NB * (H + 8) / 2 : H * CB;
-    const float* m0 = cluster.map_shared_rank(ms, 0);
-    for (int i = t; i < words; i += kThreads) ms[i] = m0[i];
+  if constexpr (kMode == kApply) {
+    __syncthreads();  // M is in this CTA's shared memory
+  } else {
+    cluster.sync();  // #2: M is in rank 0's shared memory
+    if (rank != 0) {
+      const int words = kMma ? NB * (H + 8) / 2 : H * CB;
+      const float* m0 = cluster.map_shared_rank(ms, 0);
+      for (int i = t; i < words; i += kThreads) ms[i] = m0[i];
+    }
+    cluster.sync();  // #3: every CTA has its copy; rank 0 may go on and exit
   }
-  cluster.sync();  // #3: every CTA has its copy; rank 0 may go on and exit
 
   // 4. apply over the slice
   T* yb = y + (long long)b * C * N + nbeg;
@@ -772,35 +777,85 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     apply_fma<T, CB>(xsl, den, wq, qs, ms, b_out, g, gp, yb, N, C, H, cols, p.staged);
 }
 
+// CTAs a row of a launch without a cluster (kApply, whose CTAs share
+// nothing): the g of the fewest columns on the fullest SM, the grid's B g
+// CTAs spread evenly over the card's SMs, each CTA counted kColsPerCta / 2
+// columns more for what it does once (the weights, the fold of M); among
+// equals, the smaller g. A CTA has at least kColsPerCta / 2 columns, and
+// the grid fits the card at once where it can. Cached per kernel and shape.
+template <typename K, typename Make>
+cudaError_t choose_grid(K kernel, int B, int C, int N, int H, Make make, Plan* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, Plan> cache;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), B, C, N, H);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int most = std::max(1, std::min(dq::ceil_div(N, kColsPerCta / 2), 65535));
+  long long best = -1;
+  for (int g = 1; g <= most; ++g) {
+    const Plan p = make(g);
+    err = dq::allow_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, p.bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) continue;
+    if (g > 1 && (long long)B * g > (long long)sms * per_sm) break;  // past one wave
+    const long long cost =
+        (long long)dq::ceil_div(B * g, sms) * (p.chunk + kColsPerCta / 2);
+    if (best < 0 || cost < best) best = cost, *out = p;
+  }
+  if (best < 0) return cudaErrorInvalidConfiguration;
+  cache[key] = *out;
+  return cudaSuccess;
+}
+
 // K1: K1's cluster size. kStats (K6a): the cluster size from the card's
-// occupancy, as K4 takes it (choose_cluster).
-template <typename T, int CB, bool kStats>
+// occupancy, as K4 takes it (choose_cluster). kApply (K6b): a grid of
+// independent CTAs (choose_grid).
+template <typename T, int CB, int kMode>
 cudaError_t run_c(const void* x, void* y, float* stats, const Weights& w, int B, int C, int N,
                   int H, cudaStream_t s) {
-  auto kernel = linattn_cluster<T, CB, kStats>;
+  auto kernel = linattn_cluster<T, CB, kMode>;
+  const auto make = [&](int cl) { return make_plan(C, CB, H, N, sizeof(T), cl); };
+  const T* xt = static_cast<const T*>(x);
   Plan p;
-  if constexpr (kStats) {
-    const cudaError_t err = choose_cluster(
-        kernel, kThreads, B, C, N, H,
-        [&](int cl) { return make_plan(C, CB, H, N, sizeof(T), cl); }, &p);
+  if constexpr (kMode == kApply) {
+    cudaError_t err = choose_grid(kernel, B, C, N, H, make, &p);
+    if (err == cudaSuccess) err = dq::allow_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(p.cl, B), kThreads, p.bytes, s>>>(xt, static_cast<T*>(y), stats, w, p, C, N,
+                                                     H);
+    return cudaGetLastError();
+  }
+  if constexpr (kMode == kStats) {
+    const cudaError_t err = choose_cluster(kernel, kThreads, B, C, N, H, make, &p);
     if (err != cudaSuccess) return err;
   } else {
     p = make_plan(C, CB, H, N, sizeof(T), k1_cluster(N));
   }
-  return launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, static_cast<const T*>(x),
-                        static_cast<T*>(y), stats, w, p, C, N, H);
+  return launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, xt, static_cast<T*>(y), stats, w,
+                        p, C, N, H);
 }
 
 // The channel loops are unrolled to C rounded up to a multiple of 4, so the
 // level-0 width C = 4 runs 4-wide loops rather than 16-wide predicated ones.
-template <typename T, bool kStats>
+template <typename T, int kMode>
 cudaError_t run(const void* x, void* y, float* stats, const Weights& w, int B, int C, int N,
                 int H, cudaStream_t s) {
   switch ((C + 3) / 4) {
-    case 1: return run_c<T, 4, kStats>(x, y, stats, w, B, C, N, H, s);
-    case 2: return run_c<T, 8, kStats>(x, y, stats, w, B, C, N, H, s);
-    case 3: return run_c<T, 12, kStats>(x, y, stats, w, B, C, N, H, s);
-    default: return run_c<T, 16, kStats>(x, y, stats, w, B, C, N, H, s);
+    case 1: return run_c<T, 4, kMode>(x, y, stats, w, B, C, N, H, s);
+    case 2: return run_c<T, 8, kMode>(x, y, stats, w, B, C, N, H, s);
+    case 3: return run_c<T, 12, kMode>(x, y, stats, w, B, C, N, H, s);
+    default: return run_c<T, 16, kMode>(x, y, stats, w, B, C, N, H, s);
   }
 }
 
@@ -810,8 +865,17 @@ cudaError_t run(const void* x, void* y, float* stats, const Weights& w, int B, i
 cudaError_t dq::linattn_stats(const void* x, float* stats, const Weights& w, int B, int C, int N,
                               int heads, bool bf16, cudaStream_t s) {
   const int H = heads * kDimHead;
-  return bf16 ? run<__nv_bfloat16, true>(x, nullptr, stats, w, B, C, N, H, s)
-              : run<float, true>(x, nullptr, stats, w, B, C, N, H, s);
+  return bf16 ? run<__nv_bfloat16, kStats>(x, nullptr, stats, w, B, C, N, H, s)
+              : run<float, kStats>(x, nullptr, stats, w, B, C, N, H, s);
+}
+
+// K6b on K1's kernel (see linattn_common.cuh).
+cudaError_t dq::linattn_apply(const void* x, void* y, const float* stats, const Weights& w,
+                              int B, int C, int N, int heads, bool bf16, cudaStream_t s) {
+  const int H = heads * kDimHead;
+  float* st = const_cast<float*>(stats);  // read only in kApply
+  return bf16 ? run<__nv_bfloat16, kApply>(x, y, st, w, B, C, N, H, s)
+              : run<float, kApply>(x, y, st, w, B, C, N, H, s);
 }
 
 // x and y: contiguous (B, C, N), bf16 or float32 (x_bf16). The weights as
@@ -829,8 +893,8 @@ extern "C" int dq_linear_attention(const void* x, void* y, const void* wqkv, lon
                   g,    g_c,    g_pre,  g_pre_c, w_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int H = heads * kDimHead;
-  err = x_bf16 ? run<__nv_bfloat16, false>(x, y, nullptr, w, B, C, N, H, s)
-               : run<float, false>(x, y, nullptr, w, B, C, N, H, s);
+  err = x_bf16 ? run<__nv_bfloat16, kFull>(x, y, nullptr, w, B, C, N, H, s)
+               : run<float, kFull>(x, y, nullptr, w, B, C, N, H, s);
   return (int)err;
 }
 

@@ -17,8 +17,11 @@
 //       pass 0). Each CTA sums its slice and rank 0 of the cluster adds the
 //       CTAs' partials in rank order through distributed shared memory.
 //   K6b _fused_forward_sp_local (_kernel_sp1_t): phase 1 per local column
-//       given the folded context M = W_out^T ctx^T (C, H) formed from the
-//       all-reduced stats. Here: linattn_apply (linattn_apply.cuh).
+//       from the all-reduced stats. One cluster launch of K1's kernel in its
+//       apply mode (linear_attention.cu): each CTA reads the row's summed
+//       [A | s], folds W_v and W_out into M = W_out^T ctx^T (C, H) with K1's
+//       own code and rounding, and runs K1's apply pass over its slice (bf16
+//       on tensor cores, float32 on CUDA cores).
 //   K6c _fused_backward_sp_local (_kernel_sp_bwd_a/_b/_c): K4 cut at its one
 //       cross-rank coupling after (A, s). With bmat = A / s from the summed
 //       stats, T = rows of D2 . bmat needs no pass over the columns, so only
@@ -44,19 +47,9 @@
 // What bounds it: as K1 and K4 (see their files), the per-column passes
 // read x (and dy) once per pass and do ~4 H C multiply-adds a column per
 // pass; at C <= 16 and N_local ~ 20000 a launch is tens of microseconds.
-#include "linattn_apply.cuh"
+#include "linattn_common.cuh"
 
 namespace {
-
-template <typename T, int CB>
-cudaError_t apply_c(const void* x, const float* wq2, const float* qshift2, const float* g_pre,
-                    const float* m, const float* b_out, const float* g, void* y, int B, int C,
-                    int N, int heads, cudaStream_t s) {
-  linattn_apply<T, CB><<<dim3(dq::ceil_div(N, kApplyThreads), B), kApplyThreads, 0, s>>>(
-      static_cast<const T*>(x), wq2, qshift2, g_pre, m, b_out, g, static_cast<T*>(y), C, N,
-      heads);
-  return cudaGetLastError();
-}
 
 const float* cf(const void* p) { return static_cast<const float*>(p); }
 float* f(void* p) { return static_cast<float*>(p); }
@@ -82,30 +75,21 @@ extern "C" int dq_linear_attention_sp_stats(const void* x, const void* wqkv, lon
   return (int)dq::linattn_stats(x, f(stats), w, B, C, N, heads, x_bf16, s);
 }
 
-// K6b. y = RMSNorm_g(M q + b_out) + x per local column; m (B, C, H).
-extern "C" int dq_linear_attention_sp_apply(const void* x, const void* wq2, const void* qshift2,
-                                            const void* g_pre, const void* m, const void* b_out,
-                                            const void* g, void* y, int B, int C, int N,
-                                            int heads, int bf16, int device, void* stream) {
+// K6b. y = RMSNorm_g(M q + b_out) + x per local column of x (B, C, N), y
+// in x's dtype, M folded from stats (B, H, C + 1), the all-reduced [A | s];
+// the weights as dq_linear_attention takes them.
+extern "C" int dq_linear_attention_sp_apply(
+    const void* x, void* y, const void* stats, const void* wqkv, long long wqkv_c,
+    long long wqkv_h, const void* wout, long long wout_h, long long wout_c, const void* b_out,
+    long long b_out_c, const void* g, long long g_c, const void* g_pre, long long g_pre_c, int B,
+    int C, int N, int heads, int w_bf16, int x_bf16, int device, void* stream) {
   if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cb = (C + 3) / 4;  // the unrolled channel loops: C rounded up to a multiple of 4
-#define DQ_APPLY(T, CB)                                                                       \
-  return (int)apply_c<T, CB>(x, cf(wq2), cf(qshift2), cf(g_pre), cf(m), cf(b_out), cf(g), y, \
-                             B, C, N, heads, s)
-  if (bf16) {
-    if (cb == 1) DQ_APPLY(__nv_bfloat16, 4);
-    if (cb == 2) DQ_APPLY(__nv_bfloat16, 8);
-    if (cb == 3) DQ_APPLY(__nv_bfloat16, 12);
-    DQ_APPLY(__nv_bfloat16, 16);
-  }
-  if (cb == 1) DQ_APPLY(float, 4);
-  if (cb == 2) DQ_APPLY(float, 8);
-  if (cb == 3) DQ_APPLY(float, 12);
-  DQ_APPLY(float, 16);
-#undef DQ_APPLY
+  const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
+                  g,    g_c,    g_pre,  g_pre_c, w_bf16};
+  return (int)dq::linattn_apply(x, y, cf(stats), w, B, C, N, heads, x_bf16,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K6c, launch 1, from the all-reduced stats (B, H, C + 1): z (B, H, C) the

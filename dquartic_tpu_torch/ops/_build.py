@@ -71,14 +71,20 @@ _SIGNATURES = {
     "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     # q, k, v, o (float32), lse, dO, D, dq, dk, dv, BH, n, m, scale, bf16, device, stream
     "dq_flash_attention_bwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # x, y, x's and y's (b, n, c) strides, then w_qkv, w_out, b_out, g as
+    # dq_linear_attention takes them, B, C, N, heads, w_bf16, x_bf16,
+    # device, stream
+    "dq_linear_attention_rows_fused": ([_P] * 2 + [_L] * 6 + ([_P] + [_L] * 2) * 2 + [_P, _L] * 2
+                                       + [_I] * 7 + [_P]),
     # x, y, stride_b, stride_n, stride_c, wq, wk, wv, wout, b_out, g, m,
-    # B, C, N, heads, two_call, bf16, device, stream
-    "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 7 + [_P],
+    # B, C, N, heads, bf16, device, stream
+    "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 6 + [_P],
     # x, w_qkv, its (c, h) strides, g_pre, its stride, stats, B, C, N, heads,
     # w_bf16, round, x_bf16, device, stream
     "dq_linear_attention_sp_stats": [_P] * 2 + [_L] * 2 + [_P, _L, _P] + [_I] * 8 + [_P],
-    # x, wq2, qshift2, g_pre, m, b_out, g, y, B, C, N, heads, bf16, device, stream
-    "dq_linear_attention_sp_apply": [_P] * 8 + [_I] * 6 + [_P],
+    # x, y, stats, the five weights as dq_linear_attention takes them, B, C,
+    # N, heads, w_bf16, x_bf16, device, stream
+    "dq_linear_attention_sp_apply": [_P] * 3 + _WEIGHTS + [_I] * 7 + [_P],
     # x, dy, the five weights as dq_linear_attention takes them, stats, z,
     # rowpart, B, C, N, heads, w_bf16, x_bf16, device, stream
     "dq_linear_attention_sp_bwd_z": [_P] * 2 + _WEIGHTS + [_P] * 3 + [_I] * 7 + [_P],

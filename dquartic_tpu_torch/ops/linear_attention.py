@@ -23,7 +23,8 @@ The row-blocked ops of ``impl="pallas"`` (port of
 :func:`dquartic_tpu.ops.linear_attention.fused_linear_attention`) compute
 ``RMSNorm_g(W_out · attn(x) + b_out)`` on (B, N, C), without pre-norm or
 residual and with a running max for the k-softmax:
-:func:`fused_linear_attention` (K8, one launch) and
+:func:`fused_linear_attention` (K8, one cluster launch that reads the
+weights as they are) and
 :func:`fused_linear_attention_two_call` (K9, two launches), both in
 ``csrc/linear_attention_rows.cu``, with :func:`linear_attention_rows_reference`
 as their plain version.
@@ -44,28 +45,36 @@ MAX_C = 16
 DIM_HEAD = 32  # the kernel maps one head onto one warp
 
 
+def _inner(x: torch.Tensor) -> torch.dtype:
+    """The dtype the plain versions compute in: float32, or float64 for
+    float64 x (an oracle whose own rounding is out of the way)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rmsnorm_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """float32 RMSNorm over the channel axis (dim 1), 1e-12 norm clamp."""
-    x32 = x.to(torch.float32)
+    """float32 RMSNorm over the channel axis (dim 1), 1e-12 norm clamp
+    (float64 for float64 x)."""
+    ct = _inner(x)
+    x32 = x.to(ct)
     norm = torch.sqrt(torch.sum(x32 * x32, dim=1, keepdim=True))
-    return x32 / torch.clamp(norm, min=1e-12) * g.to(torch.float32).reshape(1, -1, 1) * (
-        x.shape[1] ** 0.5
-    )
+    return x32 / torch.clamp(norm, min=1e-12) * g.to(ct).reshape(1, -1, 1) * (x.shape[1] ** 0.5)
 
 
 def linear_attention_reference(x, w_qkv, w_out, b_out, g, heads, dim_head):
     """Plain linear attention + out-projection + RMSNorm on (B, C, N), in
-    float32 (``linear_attention_reference`` of the JAX package)."""
+    float32 (``linear_attention_reference`` of the JAX package; float64 for
+    float64 x)."""
     B, C, N = x.shape
     H = heads * dim_head
-    qkv = torch.einsum("bcn,ch->bhn", x.to(torch.float32), w_qkv.to(torch.float32))
+    ct = _inner(x)
+    qkv = torch.einsum("bcn,ch->bhn", x.to(ct), w_qkv.to(ct))
     q, k, v = (t.reshape(B, heads, dim_head, N) for t in qkv.split(H, dim=1))
     q = torch.softmax(q, dim=2) * (dim_head**-0.5)  # over each head's features
     k = torch.softmax(k, dim=3)  # over the sequence
     context = torch.einsum("bhdn,bhen->bhde", k, v)
     out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(B, H, N)
-    y = torch.einsum("bhn,hc->bcn", out, w_out.to(torch.float32))
-    y = y + b_out.to(torch.float32).reshape(1, -1, 1)
+    y = torch.einsum("bhn,hc->bcn", out, w_out.to(ct))
+    y = y + b_out.to(ct).reshape(1, -1, 1)
     return rmsnorm_reference(y, g).to(x.dtype)
 
 
@@ -117,16 +126,15 @@ def _check_kernel_args(op, x, w_qkv, w_out, heads, dim_head):
 
 
 def _kernel_weights(x, w_qkv, g_pre, heads):
-    """float32 (wq, wk, wv) as (H, C) rows, g_pre, and the log2(e)-scaled
-    wq/wk and shifts that the exp2 softmax of the partials takes."""
+    """float32 (wq, wk, wv) as (H, C) rows, g_pre and the static shifts
+    (kshift, qshift) of the plain sequence-parallel versions."""
     dev = x.device
     H = w_qkv.shape[1] // 3
     wt = w_qkv.to(device=dev, dtype=torch.float32).t()
-    wq, wk, wv = (wt[i * H : (i + 1) * H].contiguous() for i in range(3))
-    gp = g_pre.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+    wq, wk, wv = (wt[i * H : (i + 1) * H] for i in range(3))
+    gp = g_pre.to(device=dev, dtype=torch.float32).reshape(-1)
     kshift, qshift = static_shifts(wq, wk, gp, heads)
-    scaled = [(t * _LOG2E).contiguous() for t in (wq, wk, kshift, qshift)]
-    return wq, wk, wv, gp, kshift.contiguous(), qshift.contiguous(), scaled
+    return wq, wk, wv, gp, kshift, qshift
 
 
 def _f32(t, dev):
@@ -315,17 +323,11 @@ def linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads=4, dim_head
         x.transpose(1, 2), w_qkv, w_out, b_out, g, heads, dim_head).transpose(1, 2)
 
 
-def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
-    """Check the arguments of K8 (``two_call=False``) or K9 on a (B, N, C)
-    CUDA tensor, prepare the kernel's weights and output, and return
-    ``(launch, y)``: ``launch()`` runs the kernel into ``y`` and nothing
-    else (no allocation, no count), so it can be timed alone. x's memory is
-    either layout's: row-major, or the model's channel-first (B, C, N) seen
-    through ``transpose(1, 2)``; y gets x's strides."""
-    B, N, C = x.shape
-    H = heads * dim_head
+def _check_rows_args(op, x, w_qkv, w_out, heads, dim_head):
     if x.device.type != "cuda":
         raise RuntimeError(f"{op}: unsupported device {x.device}")
+    B, N, C = x.shape
+    H = heads * dim_head
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{op}: x must be float32 or bfloat16")
     if not 1 <= C <= MAX_C or dim_head != DIM_HEAD or H > 256 or 256 % H or N < 1:
@@ -335,6 +337,46 @@ def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
         )
     if w_qkv.shape != (C, 3 * H) or w_out.shape != (H, C):
         raise ValueError(f"w_qkv must be ({C}, {3 * H}) and w_out ({H}, {C})")
+
+
+def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
+    """Check the arguments of K8 (``two_call=False``) or K9 on a (B, N, C)
+    CUDA tensor, allocate the output and return ``(launch, y)``:
+    ``launch()`` runs the kernel into ``y`` and nothing else (no allocation,
+    no count), so it can be timed alone. x's memory is either layout's:
+    row-major, or the model's channel-first (B, C, N) seen through
+    ``transpose(1, 2)``."""
+    _check_rows_args(op, x, w_qkv, w_out, heads, dim_head)
+    if two_call:
+        return _k9_launcher(x, w_qkv, w_out, b_out, g, heads, dim_head)
+    return _k8_launcher(x, w_qkv, w_out, b_out, g, heads)
+
+
+def _k8_launcher(x, w_qkv, w_out, b_out, g, heads):
+    """K8 on checked arguments: one cluster launch of
+    ``csrc/linear_attention_rows.cu`` that reads x, y and the weights
+    through their strides, in their own dtypes; the only torch op is y's
+    allocation (``empty_like``: x's strides where x is dense)."""
+    B, N, C = x.shape
+    wargs, bits = _tensor_args((w_qkv, w_out, b_out, g), C, x.device, "weights")
+    y = torch.empty_like(x)
+    lib, stream, dev = _build.library(), _build.stream_of(x), x.device.index or 0
+    args = (x.data_ptr(), y.data_ptr(), *x.stride(), *y.stride(), *wargs, B, C, N, heads, bits,
+            int(x.dtype == torch.bfloat16), dev, stream)
+
+    def launch():
+        _build.check(lib.dq_linear_attention_rows_fused(*args), "dq_linear_attention_rows_fused")
+
+    launch.tensors = (x, y, w_qkv, w_out, b_out, g)  # alive while the closure may launch
+    return launch, y
+
+
+def _k9_launcher(x, w_qkv, w_out, b_out, g, heads, dim_head):
+    """K9 on checked arguments: float32 weight rows (W_q, W_k scaled by
+    log2(e)) and M's scratch prepared by torch ops, then two launches; y gets
+    x's strides."""
+    B, N, C = x.shape
+    H = heads * dim_head
     if not (x.is_contiguous() or x.transpose(1, 2).is_contiguous()):
         x = x.contiguous()
     dev = x.device
@@ -342,14 +384,14 @@ def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
     wt = w_qkv.to(device=dev, dtype=torch.float32).t()
     wq, wk = ((wt[i * H : (i + 1) * H] * _LOG2E).contiguous() for i in range(2))
     wv = wt[2 * H :].contiguous()
-    m = torch.empty((B, C, H) if two_call else (1,), dtype=torch.float32, device=dev)
+    m = torch.empty((B, C, H), dtype=torch.float32, device=dev)
     args = (wq, wk, wv, _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C), m)
     ptrs = [a.data_ptr() for a in args]
     lib, stream = _build.library(), _build.stream_of(x)
 
     def launch():
         code = lib.dq_linear_attention_rows(
-            x.data_ptr(), y.data_ptr(), *x.stride(), *ptrs, B, C, N, heads, int(two_call),
+            x.data_ptr(), y.data_ptr(), *x.stride(), *ptrs, B, C, N, heads,
             int(x.dtype == torch.bfloat16), dev.index or 0, stream,
         )
         _build.check(code, "dq_linear_attention_rows")
@@ -358,19 +400,24 @@ def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
     return launch, y
 
 
+def _rows_kernel(x, w_qkv, w_out, b_out, g, heads, dim_head):
+    """Launch K8 once and count it."""
+    launch, y = rows_launcher("fused_linear_attention", x, w_qkv, w_out, b_out, g, heads,
+                              dim_head, two_call=False)
+    launch()
+    fused_linear_attention.launches += 1
+    return y
+
+
 class _RowsFn(torch.autograd.Function):
     """K8 forward; the gradient is the vjp of the recomputed reference, as
     the JAX ``_fused`` custom_vjp's backward is. Saves only ``(x, weights)``."""
 
     @staticmethod
     def forward(ctx, x, w_qkv, w_out, b_out, g, heads, dim_head):
-        launch, y = rows_launcher("fused_linear_attention", x, w_qkv, w_out, b_out, g, heads,
-                                  dim_head, two_call=False)
-        launch()
-        fused_linear_attention.launches += 1
         ctx.save_for_backward(x, w_qkv, w_out, b_out, g)
         ctx.heads, ctx.dim_head = heads, dim_head
-        return y
+        return _rows_kernel(x, w_qkv, w_out, b_out, g, heads, dim_head)
 
     @staticmethod
     def backward(ctx, dy):
@@ -389,15 +436,19 @@ def fused_linear_attention(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD
 
     CPU tensors run :func:`linear_attention_rows_reference`, which autograd
     differentiates. CUDA tensors launch K8, one launch per call (C <= 16,
-    dim_head 32, heads·32 dividing 256), with or without autograd. There
-    is no K8 backward kernel, in JAX or here: the gradient recomputes the
-    reference from the saved ``(x, weights)`` and takes its vjp, as the
-    backward of JAX's ``_fused`` custom_vjp does. (JAX's ``_fused_fwd``
-    also runs the reference as the primal under differentiation, a choice
-    timed on a TPU; the port keeps the kernel, see PERF.md.)"""
+    dim_head 32, heads·32 dividing 256), with or without autograd; the
+    kernel reads the weights as they are. There is no K8 backward kernel,
+    in JAX or here: the gradient recomputes the reference from the saved
+    ``(x, weights)`` and takes its vjp, as the backward of JAX's ``_fused``
+    custom_vjp does. (JAX's ``_fused_fwd`` also runs the reference as the
+    primal under differentiation, a choice timed on a TPU; the port keeps
+    the kernel, see PERF.md.)"""
     if x.device.type == "cpu":
         return linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads, dim_head)
-    return _RowsFn.apply(x, w_qkv, w_out, b_out, g, heads, dim_head)
+    args = (x, w_qkv, w_out, b_out, g)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in args)):
+        return _rows_kernel(*args, heads, dim_head)  # untracked: no autograd node
+    return _RowsFn.apply(*args, heads, dim_head)
 
 
 def fused_linear_attention_two_call(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD):
@@ -444,7 +495,7 @@ def sp_stats_reference(x, w_qkv, g_pre, heads=4, dim_head=DIM_HEAD, round_operan
     p = exp(W_k x̂ - kshift). ``round_operands`` rounds p and x̂ to x's dtype
     before the product, as the forward kernels do (K1, JAX ``_kernel_sp0_t``);
     the backward's recompute keeps them float32, as K4 does."""
-    _, wk, _, gp, kshift, _, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    _, wk, _, gp, kshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
     xh = rmsnorm_reference(x, gp)
     p = torch.exp(torch.einsum("hc,bcn->bhn", wk, xh) - kshift[:, None])
     s = p.sum(2)
@@ -478,7 +529,7 @@ def sp_apply_reference(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD)
     per-head softmax of W_q x̂ times dh^-½ (rounded to x's dtype, as K1 and
     JAX ``_kernel_sp1_t`` round the operand); y in x's dtype."""
     B, C, N = x.shape
-    wq, _, _, gp, _, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    wq, _, _, gp, _, qshift = _kernel_weights(x, w_qkv, g_pre, heads)
     xh = rmsnorm_reference(x, gp)
     q = torch.einsum("hc,bcn->bhn", wq, xh) - qshift[:, None]
     qn = torch.softmax(q.reshape(B, heads, DIM_HEAD, N), dim=2).reshape(B, -1, N)
@@ -500,7 +551,7 @@ def sp_backward_reference(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_loc
     B, C, N = x.shape
     H = heads * dim_head
     rc = C**0.5
-    wq, wk, wv, gp, kshift, qshift, _ = _kernel_weights(x, w_qkv, g_pre, heads)
+    wq, wk, wv, gp, kshift, qshift = _kernel_weights(x, w_qkv, g_pre, heads)
     wv, wo = wv.reshape(heads, DIM_HEAD, C), w_out.float().reshape(heads, DIM_HEAD, C)
     _, inv_s, m = sp_context(stats, w_qkv, w_out, heads)
     bmat = stats[..., :C] * inv_s[..., None]
@@ -573,23 +624,38 @@ def _sp_stats_kernel(x, w_qkv, g_pre, heads, dim_head, round_operands):
     return stats
 
 
-def linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre, heads=4, dim_head=DIM_HEAD):
+def linear_attention_sp_apply(x, stats, w_qkv, w_out, b_out, g, g_pre, heads=4,
+                              dim_head=DIM_HEAD):
     """K6b: ``RMSNorm_g(M q̂ + b_out) + x`` per local column of x (B, C,
-    N_local), given the folded context M (B, C, H) of the all-reduced stats
-    (:func:`sp_context`). CPU tensors run :func:`sp_apply_reference`; CUDA
-    tensors launch ``dq_linear_attention_sp_apply``."""
+    N_local), M the folded context of ``stats`` (B, H, C + 1), the float32
+    ``[A | s]`` summed over the ranks. CPU tensors run
+    :func:`sp_apply_reference` on :func:`sp_context`'s M (rounded to bf16 for
+    bf16 x, as K1 rounds it). CUDA tensors launch
+    ``dq_linear_attention_sp_apply``: one cluster launch of K1's kernel in
+    its apply mode, which folds M from the stats and reads the weights as
+    they are (the wrapper allocates y and launches)."""
     if x.device.type == "cpu":
+        _, _, m = sp_context(stats, w_qkv, w_out, heads, round_m=x.dtype == torch.bfloat16)
         return sp_apply_reference(x, m, w_qkv, b_out, g, g_pre, heads, dim_head)
-    _check_kernel_args("linear_attention_sp_apply", x, w_qkv, None, heads, dim_head)
+    _check_kernel_args("linear_attention_sp_apply", x, w_qkv, w_out, heads, dim_head)
+    return _sp_apply_kernel(x, stats, w_qkv, w_out, b_out, g, g_pre, heads, dim_head)
+
+
+def _check_stats(op, t, what, B, H, C, dev):
+    if t.shape != (B, H, C + 1) or t.dtype != torch.float32 or t.device != dev \
+            or not t.is_contiguous():
+        raise ValueError(f"{op}: {what} must be contiguous float32 {(B, H, C + 1)} on {dev}")
+
+
+def _sp_apply_kernel(x, stats, w_qkv, w_out, b_out, g, g_pre, heads, dim_head):
+    """Launch K6b on checked arguments: y's allocation and one launch."""
     B, C, N = x.shape
     dev = x.device
-    if m.shape != (B, C, heads * dim_head):
-        raise ValueError(f"linear_attention_sp_apply: M must be {(B, C, heads * dim_head)}")
-    _, _, _, gp, _, _, (wq2, _, _, qshift2) = _kernel_weights(x, w_qkv, g_pre, heads)
+    _check_stats("linear_attention_sp_apply", stats, "stats", B, heads * dim_head, C, dev)
+    wargs, bits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
     y = torch.empty_like(x)
-    args = (wq2, qshift2, gp, _f32(m, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C))
     code = _build.library().dq_linear_attention_sp_apply(
-        x.data_ptr(), *[a.data_ptr() for a in args], y.data_ptr(), B, C, N, heads,
+        x.data_ptr(), y.data_ptr(), stats.data_ptr(), *wargs, B, C, N, heads, bits,
         int(x.dtype == torch.bfloat16), dev.index or 0, _build.stream_of(x),
     )
     _build.check(code, "dq_linear_attention_sp_apply")
@@ -628,10 +694,7 @@ def _sp_backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local
     H = heads * dim_head
     dev = x.device
     for t, what in ((stats, "stats"), (stats_local, "stats_local")):
-        if t.shape != (B, H, C + 1) or t.dtype != torch.float32 or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"linear_attention_sp_backward: {what} must be contiguous float32 "
-                             f"{(B, H, C + 1)} on {dev}")
+        _check_stats("linear_attention_sp_backward", t, what, B, H, C, dev)
     if dy.dtype != x.dtype or not dy.is_contiguous():
         dy = dy.to(x.dtype).contiguous()
     wargs, wbits = _weight_args(x, w_qkv, w_out, b_out, g, g_pre)
@@ -655,9 +718,10 @@ def _sp_backward_kernel(dy, x, w_qkv, w_out, b_out, g, g_pre, stats, stats_local
 
 
 class _LinearAttentionSpFn(torch.autograd.Function):
-    """K6a -> reduce(A, s) -> context -> K6b; the backward recomputes the
-    stats (K6a, float32 operands), keeps the rank's own, reduces them and
-    runs K6c (which reduces Z). Saves only ``(x, weights)``."""
+    """K6a -> reduce(A, s) -> K6b (which folds the context from the summed
+    stats); the backward recomputes the stats (K6a, float32 operands), keeps
+    the rank's own, reduces them and runs K6c (which reduces Z). Saves only
+    ``(x, weights)``."""
 
     @staticmethod
     def forward(ctx, x, w_qkv, w_out, b_out, g, g_pre, heads, dim_head, reduce):
@@ -665,8 +729,8 @@ class _LinearAttentionSpFn(torch.autograd.Function):
         ctx.heads, ctx.dim_head, ctx.reduce = heads, dim_head, reduce
         stats = linear_attention_sp_stats(x, w_qkv, g_pre, heads, dim_head)
         reduce(stats)
-        _, _, m = sp_context(stats, w_qkv, w_out, heads, round_m=x.dtype == torch.bfloat16)
-        return linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre, heads, dim_head)
+        return linear_attention_sp_apply(x, stats, w_qkv, w_out, b_out, g, g_pre, heads,
+                                         dim_head)
 
     @staticmethod
     def backward(ctx, dy):
@@ -689,8 +753,8 @@ def linear_attention_sp(x, w_qkv, w_out, b_out, g, g_pre, heads=4, dim_head=DIM_
     (:func:`dquartic_tpu.ops.linear_attention.fused_linear_attention_t`
     with ``sp_axis``).
 
-    The forward is K6a, the sum of (A, s) over the ranks, the context, K6b:
-    one collective. The backward is K6a again, the sum, and K6c, with the
+    The forward is K6a, the sum of (A, s) over the ranks, K6b: two launches
+    and one collective. The backward is K6a again, the sum, and K6c, with the
     sum of Z between its launches: two collectives. The weight gradients
     are this rank's partials (:func:`linear_attention_sp_backward`). On CPU
     tensors the bodies run their plain versions; the sums are the same

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times of the sequence-parallel linear-attention kernels K6a and K6c of the
-PyTorch port, with K1 and K4 beside them, for one or more checkouts on one
-CUDA card.
+"""Times of the sequence-parallel linear-attention kernels K6a-c and of the
+row-blocked K8 of the PyTorch port, with K1 and K4 beside them, for one or
+more checkouts on one CUDA card.
 
     python3 scripts/time_k6.py [--reps N] [TREE ...]
 
@@ -18,12 +18,25 @@ For each tree the script times, in bf16 with float32 weights (as phase 10 of
   operands (the forward) and with float32 operands (the backward's
   recompute), and K6c (``linear_attention_sp_backward``) at the same shape
   with a reduce that does nothing (one slice: its partials are the sums);
+* K6b (``linear_attention_sp_apply``) at the same shape as the tree's op
+  takes it (from the summed stats; in a tree whose op takes the folded
+  context M, from M), and the forward's whole step from the summed stats to
+  y (there: ``sp_context`` and the op);
 * K1 (``linear_attention``) and K4 (``linear_attention_backward``) at
   (34, 4, 40000), the level-0 shape of one process;
+* K8 (``fused_linear_attention``) at the (C, N) of every mixer of the
+  canonical model with B = 34, on channel-first memory (the model's), and
+  at (34, 40000, 4) also the kernel alone (``rows_launcher``'s launch) and
+  on row-major memory;
 
 each around the wrapper (CUDA events over back-to-back calls, the mean) and
 on the device (``torch.profiler`` over whole calls: the device time of every
-kernel a call runs, and how many kernels that is). It prints the card
+kernel a call runs, and how many kernels that is). With ``--window`` it
+also times, in each tree, the path on which K8 runs: the canonical model
+unfused with ``tpu.linear_attn_impl = "pallas"`` (bf16, int8 mid convs,
+seeded random weights), 50-step ``DDIMSampler.sample`` of one (34, 40000)
+window (CUDA events, the median of 3 after one warm-up), and one of its
+forwards on the device (K8's kernels and all). It prints the card
 (``nvidia-smi`` name and power limit) and one JSON line a tree.
 """
 
@@ -37,6 +50,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (C, N) of the 14 mixers of the canonical model (chip_smoke.py's ROWS_SHAPES)
+ROWS_SHAPES = ((4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
+               (16, 625), (16, 1250), (12, 5000), (8, 20000))
 
 
 def _events_ms(fn, reps, warmup=3):
@@ -54,8 +70,10 @@ def _events_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps):
-    """(device ms a call, kernels a call) over every kernel the calls ran."""
+def _device_ms(fn, reps, name=None):
+    """(device ms a call, kernels a call) over every kernel the calls ran;
+    with ``name``, also the device ms a call of the kernels whose names hold
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,17 +83,48 @@ def _device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, n = 0.0, 0
+    us = named = 0.0
+    n = 0
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count:
             continue
         t = getattr(e, "self_device_time_total", None)
-        us += e.self_cuda_time_total if t is None else t
+        t = e.self_cuda_time_total if t is None else t
+        us += t
+        named += t if name and name in e.key else 0.0
         n += e.count
-    return us / 1e3 / reps, n / reps
+    out = (us / 1e3 / reps, n / reps)
+    return out + (named / 1e3 / reps,) if name else out
 
 
-def time_tree(reps):
+def time_window(out):
+    """The unfused "pallas" path's ms/window and one forward's device time."""
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.utils.builder import build_model, build_process
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    cfg = load_train_config(os.path.join(os.getcwd(), "dquartic_train_config.json"))
+    cfg["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=False,
+                      linear_attn_impl="pallas")
+    model = build_model(cfg, device="cuda", seed=0)
+    sampler = DDIMSampler(model, build_process(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x_t = torch.randn((1, 34, 40000), generator=gen, device="cuda")
+    ms2 = torch.rand((1, 34, 40000), generator=gen, device="cuda")
+    ms1 = torch.rand((1, 34), generator=gen, device="cuda")
+    runs = sorted(_events_ms(lambda: sampler.sample(x_t, ms2, ms1, 50), 1, warmup=w)
+                  for w in (1, 0, 0))
+    t = torch.full((1,), 500, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        every, _, k8 = _device_ms(lambda: model(x_t, t, ms2 * 2 - 1, ms1 * 2 - 1), 5,
+                                  "linattn_rows")
+    out["window"] = dict(ms_per_window=runs[1], ms_runs=runs, forward_device_ms=every,
+                         forward_k8_device_ms=k8)
+
+
+def time_tree(reps, window=False):
     """Times of the checkout this process imports (run by ``--child``)."""
     import torch
 
@@ -99,6 +148,16 @@ def time_tree(reps):
 
     x, dy = randn(34, C, 20000).to(torch.bfloat16), randn(34, C, 20000).to(torch.bfloat16)
     with torch.no_grad():
+        st = la.linear_attention_sp_stats(x, w[0], w[4])
+        if "stats" in inspect.signature(la.linear_attention_sp_apply).parameters:
+            k6b = lambda: la.linear_attention_sp_apply(x, st, *w)  # noqa: E731
+            both("K6b", k6b)
+            both("K6b_from_stats", k6b)
+        else:  # the op takes M, which the forward folds with sp_context first
+            m = la.sp_context(st, w[0], w[1], round_m=True)[2]
+            both("K6b", lambda: la.linear_attention_sp_apply(x, m, w[0], *w[2:]))
+            both("K6b_from_stats", lambda: la.linear_attention_sp_apply(
+                x, la.sp_context(st, w[0], w[1], round_m=True)[2], w[0], *w[2:]))
         both("K6a_rounded", lambda: la.linear_attention_sp_stats(x, w[0], w[4]))
         both("K6a_float32", lambda: la.linear_attention_sp_stats(x, w[0], w[4],
                                                                  round_operands=False))
@@ -113,6 +172,19 @@ def time_tree(reps):
     with torch.no_grad():
         both("K1", lambda: la.linear_attention(x, *w))
     both("K4", lambda: la.linear_attention_backward(dy, x, *w))
+    del x, dy
+    with torch.no_grad():
+        for C, N in ROWS_SHAPES:
+            wr = [randn(C, 384, s=0.3), randn(128, C, s=0.1), randn(C, s=0.1), randn(C)]
+            xr = randn(34, C, N).to(torch.bfloat16).transpose(1, 2)  # (B, N, C) view
+            both(f"K8_{C}x{N}", lambda: la.fused_linear_attention(xr, *wr))
+            if (C, N) == ROWS_SHAPES[0]:
+                launch, _ = la.rows_launcher("fused_linear_attention", xr, *wr, 4, 32, False)
+                both("K8_alone", launch)
+                xm = xr.contiguous()
+                both("K8_row_major", lambda: la.fused_linear_attention(xm, *wr))
+    if window:
+        time_window(out)
     return out
 
 
@@ -120,10 +192,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", default=[HERE])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--window", action="store_true",
+                    help="also time the unfused pallas path's 50-step sample")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:  # in a tree: its package is on sys.path
-        print(json.dumps(time_tree(args.reps)), flush=True)
+        print(json.dumps(time_tree(args.reps, args.window)), flush=True)
         return 0
     import torch
 
@@ -142,8 +216,9 @@ def main(argv=None) -> int:
         print("time_k6: a build failed", file=sys.stderr)
         return 1
     for tree in trees:
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "--reps",
-                             str(args.reps)], cwd=tree, env=dict(os.environ, PYTHONPATH=tree)).returncode
+        child = [sys.executable, os.path.abspath(__file__), "--child", "--reps", str(args.reps)]
+        rc = subprocess.run(child + ["--window"] * args.window, cwd=tree,
+                            env=dict(os.environ, PYTHONPATH=tree)).returncode
         if rc:
             return rc
     return 0

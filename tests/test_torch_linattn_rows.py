@@ -23,6 +23,8 @@ import dquartic_tpu_torch.models.attention as tatt
 import dquartic_tpu_torch.ops.linear_attention as tla
 from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.models.fused_blocks import ResnetBlockT
+from test_torch_ops import _AtenLog
+from test_torch_train_ops import _ALLOCATIONS
 
 try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
     import jax
@@ -171,6 +173,48 @@ def test_k8_function_gradient_is_the_reference_vjp(monkeypatch, x_grad):
     for t, g in zip(ts, jg):
         if t.requires_grad:
             np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channel_first", "row_major"])
+def test_k8_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype, layout):
+    """K8's wrapper runs no aten op but y's allocation: one launch, which
+    gets x's and y's own memory and strides (the model's channel-first
+    memory through its transposed view, or row-major x) and the weights'
+    own memory, strides and dtypes (the module's views of its conv weights
+    in the compute dtype, float32 gains: no cast, transpose or scaling on
+    the host), and the counter advances by one."""
+    calls = []
+
+    class FakeLibrary:
+        def dq_linear_attention_rows_fused(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tla, "_check_rows_args", lambda *a: None)
+    monkeypatch.setattr(tla._build, "library", FakeLibrary)
+    monkeypatch.setattr(tla._build, "stream_of", lambda t: 0)
+    dt = getattr(torch, dtype)
+    B, N, C, H = 2, 10, 4, 128
+    w_qkv, w_out, b_out, g = map(_t, _weights(C, seed=140))
+    conv_qkv, conv_out = w_qkv.t().contiguous().to(dt), w_out.t().contiguous().to(dt)
+    w = [conv_qkv.t(), conv_out.t(), b_out.to(dt).reshape(1, C, 1), g]
+    xc = _t(np.random.default_rng(141).normal(size=(B, C, N))).to(dt)
+    x = xc.transpose(1, 2) if layout == "channel_first" else xc.transpose(1, 2).contiguous()
+    before = tla.fused_linear_attention.launches
+    with _AtenLog() as log:
+        y = tla._rows_kernel(x, *w, 4, 32)
+    assert set(log.ops) <= _ALLOCATIONS, log.ops
+    assert tla.fused_linear_attention.launches == before + 1
+    (args,) = calls
+    assert args[:2] == (x.data_ptr(), y.data_ptr())
+    assert args[2:8] == (*x.stride(), *y.stride()) and y.stride() == x.stride()
+    assert args[8:14] == (conv_qkv.data_ptr(), 1, C, conv_out.data_ptr(), 1, H)
+    assert args[14:18] == (w[2].data_ptr(), 1, g.data_ptr(), 1)
+    bits = 0b0111 if dtype == "bfloat16" else 0  # w_qkv, w_out, b_out in the compute dtype
+    # B, C, N, heads, weight dtype bits, bf16 x, device
+    assert args[18:25] == (B, C, N, 4, bits, int(dtype == "bfloat16"), 0)
+    assert y.shape == x.shape and y.dtype == dt
 
 
 # --------------------------------------------------------------------- #
@@ -526,6 +570,16 @@ def test_entry_points_need_the_card_unless_told(monkeypatch):
 CARD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
+def _rows_oracle(xc, w):
+    """The plain version on the values of x (B, C, N) and the weights in
+    float64, in (B, N, C) float32: run in float32 on the card, its own sums
+    over 40000 equal columns drift from float64 past the card tolerance
+    (cuBLAS adds a row's like terms in turn; ``chip_smoke.py`` phase 9 logs
+    the drift beside K8's error)."""
+    return tla.linear_attention_rows_reference(
+        xc.double().transpose(1, 2), *(t.double() for t in w)).float()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("C,N", [(4, 4096), (16, 1), (8, 700), (12, 1025)])
@@ -546,6 +600,66 @@ def test_rows_kernels_on_card(cuda, dtype, C, N, two_call):
         torch.cuda.synchronize()
         assert op.launches == before + 1
         assert y.dtype == x.dtype and y.stride() == x.stride()
+        torch.testing.assert_close(y.float(), ref, rtol=tol, atol=tol)
+
+
+def _rows_card_case(C, N, dtype, dev, seed, case="random"):
+    """x (34, C, N) in ``dtype`` on ``dev`` and the weights, float32: random;
+    "late_max", a row whose largest k of every feature sits in the last
+    tile of each CTA's slice (so phase 0 rescales what it summed); "equal",
+    columns all equal within each row."""
+    rng = np.random.default_rng(seed)
+    w = [_t(a, device=dev) for a in _weights(C, seed=seed + 1)]
+    x = rng.normal(size=(34, C, N)).astype(np.float32)
+    if case == "late_max":  # small columns, then large ones at the end of each 1/8 of N
+        x *= 0.1
+        for r in range(8):
+            end = min(N, (r + 1) * -(-N // 8))
+            x[:, :, max(0, end - 5):end] *= 30.0
+    elif case == "equal":
+        x[:] = x[:, :, :1]
+    return _t(x, dtype, dev), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [4, 8, 12, 16])
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 700, 1025, 40000])
+def test_k8_kernel_on_card(cuda, dtype, C, N):
+    """K8 on channel-first memory (the model's) and on row-major memory at
+    every width the model runs and N across the tile and slice edges,
+    against the plain version in float64 on the same values; y keeps x's
+    strides; one launch and one count a call; two calls bitwise equal."""
+    xc, w = _rows_card_case(C, N, dtype, cuda, seed=150 + C + N)
+    ref = _rows_oracle(xc, w)
+    tol = CARD_TOL[dtype]
+    for x in (xc.transpose(1, 2), xc.transpose(1, 2).contiguous()):
+        before = tla.fused_linear_attention.launches
+        with torch.no_grad():
+            y = tla.fused_linear_attention(x, *w)
+            again = tla.fused_linear_attention(x, *w)
+        torch.cuda.synchronize()
+        assert tla.fused_linear_attention.launches == before + 2
+        assert y.dtype == x.dtype and y.stride() == x.stride()
+        torch.testing.assert_close(y.float(), ref, rtol=tol, atol=tol)
+        assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["late_max", "equal"])
+@pytest.mark.parametrize("C,N", [(4, 40000), (12, 2500), (16, 129)])
+def test_k8_kernel_running_max_on_card(cuda, dtype, case, C, N):
+    """K8 where phase 0's running max grows in the last tile of each CTA's
+    slice (the rescale path) and where a row's columns are all equal (every
+    p is 1), both layouts, against the plain version in float64."""
+    xc, w = _rows_card_case(C, N, dtype, cuda, seed=170 + C, case=case)
+    ref = _rows_oracle(xc, w)
+    tol = CARD_TOL[dtype]
+    for x in (xc.transpose(1, 2), xc.transpose(1, 2).contiguous()):
+        with torch.no_grad():
+            y = tla.fused_linear_attention(x, *w)
+        torch.cuda.synchronize()
         torch.testing.assert_close(y.float(), ref, rtol=tol, atol=tol)
 
 

@@ -390,6 +390,54 @@ def test_sp_stats_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_apply_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype):
+    """K6b's wrapper runs no aten op but y's allocation: one launch, which
+    gets the summed stats as they are and the five weights' own memory,
+    strides and dtypes (no context, no static shifts, no casts on the host),
+    and the counter advances by one."""
+    calls = _recording_sp_library(monkeypatch, "dq_linear_attention_sp_apply")
+    dt = getattr(torch, dtype)
+    B, C, N, H = 2, 4, 10, 128
+    x = _t(np.random.default_rng(5).normal(size=(B, C, N)).astype(np.float32)).to(dt)
+    w = _module_weights(C, dt, seed=5)
+    stats = torch.rand(B, H, C + 1)
+    before = tla.linear_attention_sp_apply.launches
+    with _AtenLog() as log:
+        y = tla._sp_apply_kernel(x, stats, *w, 4, 32)
+    assert set(log.ops) <= _ALLOCATIONS, log.ops
+    assert tla.linear_attention_sp_apply.launches == before + 1
+    ((entry, args),) = calls
+    assert args[:3] == (x.data_ptr(), y.data_ptr(), stats.data_ptr())
+    assert args[3:15] == (w[0].data_ptr(), 1, C, w[1].data_ptr(), 1, H, w[2].data_ptr(), 1,
+                          w[3].data_ptr(), 1, w[4].data_ptr(), 1)
+    bits = 0b00111 if dtype == "bfloat16" else 0  # w_qkv, w_out, b_out in the compute dtype
+    # B, C, N, heads, weight dtype bits, bf16 x, device
+    assert args[15:22] == (B, C, N, 4, bits, int(dtype == "bfloat16"), 0)
+    assert y.shape == x.shape and y.dtype == dt
+    with pytest.raises(ValueError, match="stats must be"):
+        tla._sp_apply_kernel(x, stats[:, :, :C], *w, 4, 32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_apply_plain_version_folds_the_stats(dtype):
+    """On CPU tensors K6b's op is the plain apply on the context that
+    ``sp_context`` folds from the summed stats, M rounded to bf16 for bf16
+    x as K1 rounds it: the call the kernel is held against on the card."""
+    dt = getattr(torch, dtype)
+    B, C, N = 2, 8, 33
+    w_qkv, w_out, b_out, g, g_pre = map(_t, _op_weights(C, seed=6))
+    x = _t(np.random.default_rng(6).normal(size=(B, C, N)).astype(np.float32)).to(dt)
+    stats = tla.sp_stats_reference(x, w_qkv, g_pre)
+    y = tla.linear_attention_sp_apply(x, stats, w_qkv, w_out, b_out, g, g_pre)
+    _, _, m = tla.sp_context(stats, w_qkv, w_out, round_m=dtype == "bfloat16")
+    assert torch.equal(y, tla.sp_apply_reference(x, m, w_qkv, b_out, g, g_pre))
+    # one slice holding the whole sequence: the op without sequence parallelism
+    ref = tla.linear_attention_nr_reference(x.float(), w_qkv, w_out, b_out, g, g_pre, 4, 32)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(y.float().numpy(), ref.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sp_backward_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype):
     """K6c's wrapper runs no aten op but allocations: launch 1 (Z), one
     ``reduce`` of Z, launches 2 and 3 in one entry point, each given the
@@ -725,7 +773,7 @@ def test_k6_kernels_match_plain(cuda, dtype, C, N):
         ref = tla.sp_stats_reference(x, w_qkv, g_pre, round_operands=rnd)
         torch.testing.assert_close(st, ref, rtol=1e-4, atol=1e-3 * float(ref.abs().max()))
     _, _, m = tla.sp_context(st, w_qkv, w_out, round_m=dt == torch.bfloat16)
-    y = tla.linear_attention_sp_apply(x, m, w_qkv, b_out, g, g_pre)
+    y = tla.linear_attention_sp_apply(x, st, w_qkv, w_out, b_out, g, g_pre)
     torch.testing.assert_close(y.float(), tla.sp_apply_reference(x, m, w_qkv, b_out, g, g_pre)
                                .float(), **tol)
     # one slice: its own stats are the sums
