@@ -35,7 +35,11 @@ CUDA card with sm_90a). Phases, each of which must pass:
      give bitwise equal gradients, and time both at the level-0 shape (K4
      and K5 also on the device);
      time K4 at the ten mixer shapes and K5 at the 29 ResnetBlock shapes
-     of a training step, around the wrapper and on the device;
+     of a training step, around the wrapper and on the device; K7b at the
+     RT lengths 34 and 340 around the wrapper and on the device, with its
+     kernels a call (the one launch of ``flash_backward_plan``), beside
+     the backward of ``scaled_dot_product_attention``, and at n = 16384
+     (two launches) beside that library backward;
   6. full-width training of the canonical model through ``build_trainer``
      (bf16 compute on float32 master weights, AdamW + EMA, batch 1):
      (a) one step's gradients on the kernels against the plain path on the
@@ -44,8 +48,8 @@ CUDA card with sm_90a). Phases, each of which must pass:
      K2/K5 29, K7a/K7b 1 launches per step; (c) median ms/step of 5 on the kernel and
      the plain path, and the peak device memory; (d) one step under
      ``torch.profiler``: K4's and K5's device ms and launches a step (at
-     most two a call), the device's busy and idle share of the step timed
-     in (c), the largest kernels;
+     most two a call), K7b's (one a call), the device's busy and idle share
+     of the step timed in (c), the largest kernels;
   7. ``Trainer.train`` for 2 epochs of a 3-level model (m/z 256) writing
      latest and best checkpoints and ``build_trainer``'s ``metrics.jsonl``
      to a temporary directory, a resumed run from them, and a 10-step
@@ -57,15 +61,17 @@ CUDA card with sm_90a). Phases, each of which must pass:
      ``predict`` (K1 750, K2 1450, K3 200, K7a 400 launches) and ms/window
      on both paths; training through ``build_trainer``: one step's
      gradients on the kernels against the plain path (in bf16 each path
-     also against the float32 gradient, see BF16_TOWER), then ``train_step``
-     1 + 5 times on each path with K7a/K7b 8, K1/K4 15, K2/K5 29 launches
-     per step on the kernel path, ms/step and peak memory;
+     also against the float32 gradient, see BF16_TOWER; the bf16 gate's
+     reading is logged), then ``train_step`` 1 + 5 times on each path with
+     K7a/K7b 8, K1/K4 15, K2/K5 29 launches per step on the kernel path,
+     ms/step and peak memory, and one kernel-path step under
+     ``torch.profiler`` (K7b one launch a call);
   9. the row-blocked linear attention and the unfused UNet1d
      (``tpu.fused_resnet = false``, ``tpu.linear_attn_impl = "pallas"``):
      K8 and K9 against their plain version at every mixer shape of the
      path, a ragged N and N = 1, float32 and bf16, timed through the
-     wrapper and alone, K8 also on the device with its kernels a call (1:
-     no torch op beside it); the sweep of K1, K8 and the "xla" path, whose
+     wrapper and alone, and on the device with their kernels a call (K8 1,
+     K9 2: no torch op beside them); the sweep of K1, K8 and the "xla" path, whose
      crossover must be ``LINATTN_MIN_SEQ``; the full-width forward on the
      kernels against the plain path; a 50-step ``predict`` (K8 700, K1 0, K2 0, K3 200, K7a 50 launches)
      and ms/window; full-width training (no int8): one step's gradients
@@ -102,7 +108,8 @@ one exists (``library_ms``), and ``bound_ms``: the least time for the
 same work on an H100 SXM at 700 W, the larger of its bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
-cores); K1-K5 and K7a also carry ``device_ms`` (``torch.profiler``). The
+cores); K1-K5, K7a, K7b, K8 and K9 also carry ``device_ms``
+(``torch.profiler``). The
 log also gives K1's and K7a's exp floor, their exponentials at 16 a clock
 per SM, beside the bound; the JSON line holds only measured times and
 ``bound_ms``.
@@ -178,6 +185,8 @@ STEP_LAUNCHES = {"linear_attention": 14, "linear_attention_backward": 14,
 # ragged case; d = 32.
 FLASH_SHAPES = ((1, 4, 34, 34), (1, 4, 340, 340), (8, 4, 34, 34), (1, 4, 130, 257))
 FLASH_SWEEP = (34, 340, 1024, 2048, 5120, 8192, 16384)
+# K7b past its one-launch limit (phase 5): the sweep's longest length
+FLASH_BWD_LONG = FLASH_SWEEP[-1]
 # launches per forward of the canonical (simple=True) model; its one softmax
 # attention (the mid attention over the RT axis, n = 34) is K7a under
 # attn_impl "auto" (FLASH_MIN_SEQ = 34)
@@ -296,11 +305,12 @@ def resnet_bound(B, c_in, c_out, N, itemsize, backward=False) -> dict:
 
 def flash_bound(b, h, n, m, d, itemsize, backward=False) -> dict:
     """Softmax attention (K7a; K7b with ``backward``): q, k, v in and o out
-    (and dO, lse in, dq, dk, dv out), two n x m x d products (five in the
-    backward) on bf16 tensor cores."""
+    (K7b: q, k, v, dO in, with o and lse in float32, and dq, dk, dv out),
+    two n x m x d products (five in the backward) on bf16 tensor cores."""
     moved = (b * h * (n + 2 * m) * d) * (2 if backward else 1) + b * h * n * d
-    return bound(moved * itemsize + (4 * b * h * n if backward else 0),
-                 (10 if backward else 4) * b * h * n * m * d, "bfloat16")
+    extra = 4 * b * h * n * (d + 1) if backward else 0  # o and lse in float32
+    return bound(moved * itemsize + extra, (10 if backward else 4) * b * h * n * m * d,
+                 "bfloat16")
 
 
 def exp_floor(exps: float) -> float:
@@ -1177,8 +1187,11 @@ def phase_k5_shapes(gen, results):
 def phase_flash_backward(gen, results):
     """K7b against autograd of the flash op's plain version, run in float32
     on the same values, at the FLASH_SHAPES; determinism; times at the RT
-    lengths 34 and 340 against the plain backward from the same saved
-    (float32 out, lse)."""
+    lengths 34 and 340 around the wrapper and on the device (its kernels a
+    call, which must be flash_backward_plan's one launch), against the plain
+    backward from the same saved (float32 out, lse) and the backward of
+    ``scaled_dot_product_attention``; then at n = m = FLASH_BWD_LONG (two
+    launches) against that library backward alone."""
     import torch
 
     from dquartic_tpu_torch.ops import flash_attention as fa
@@ -1203,25 +1216,54 @@ def phase_flash_backward(gen, results):
                 f"K7b flash_attention_backward {tag} ({b}, {h}, {n}, 32) x m {m}", got, ref,
                 GRAD_TOL[tag]))
             if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
+                def call():
+                    return fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+
+                plan = fa.flash_backward_plan(b, h, n, m)
+                _, per_call, kinds, dev_ms = device_kernels(call, 50, plan["launches"])
+                log(f"  K7b (1, 4, {n}, 32) bf16 on the device: kernels {kinds}, "
+                    f"{per_call:g} a call as the profiler counted them (plan: "
+                    f"{plan['launches']}, {plan['cluster']} CTAs a cluster)")
+                check(len(kinds) == plan["launches"] and all("flash_bwd" in k for k in kinds),
+                      f"K7b (1, 4, {n}): kernels on the device {kinds}, not its plan's")
                 # the library call: autograd's backward of
                 # scaled_dot_product_attention from its saved forward
                 ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
                 lo = torch.nn.functional.scaled_dot_product_attention(*ls)
                 times[n] = (
-                    cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, lse, do, scale), 50),
+                    cuda_time(call, 50),
                     cuda_time(lambda: fa.flash_attention_backward_reference(
                         q, k, v, out, lse, do, scale), 50),
                     cuda_time(lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), 50),
+                    dev_ms, len(kinds), flash_bound(b, h, n, m, 32, 2, backward=True),
                 )
                 del ls, lo
             del got, again, ref
-    for n, (ms, plain_ms, lib_ms) in times.items():
-        log(f"  time flash_attention_backward bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention backward {lib_ms:.4f} ms")
+    for n, (ms, plain_ms, lib_ms, dev_ms, launches, bnd) in times.items():
+        log(f"  time flash_attention_backward bf16 (1, 4, {n}, 32): kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms in {launches} launch(es), torch.profiler), plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention backward {lib_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.3e} ms ({bnd['bound_by']})")
+    n = FLASH_BWD_LONG
+    q, k, v = _flash_inputs(gen, 1, 4, n, n, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    _, lse, out = fa._launch_forward(q, k, v, scale)
+    long_ms = cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, lse, do, scale), 5)
+    ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    lo = torch.nn.functional.scaled_dot_product_attention(*ls)
+    long_lib = cuda_time(lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), 5)
+    log(f"  time flash_attention_backward bf16 (1, 4, {n}, 32), "
+        f"{fa.flash_backward_plan(1, 4, n, n)['launches']} launches: kernel {long_ms:.4f} ms, "
+        f"scaled_dot_product_attention backward {long_lib:.4f} ms, bound "
+        f"{flash_bound(1, 4, n, n, 32, 2, backward=True)['bound_ms']:.4f} ms")
+    del q, k, v, do, lse, out, ls, lo
+    torch.cuda.empty_cache()
     results["flash_attention_backward"].update(
         max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], library_ms=times[34][2],
-        ms_340=times[340][0], plain_ms_340=times[340][1], library_ms_340=times[340][2],
-        **flash_bound(1, 4, 34, 34, 32, 2, backward=True))
+        device_ms=times[34][3], kernels_a_call=times[34][4], ms_340=times[340][0],
+        plain_ms_340=times[340][1], library_ms_340=times[340][2], device_ms_340=times[340][3],
+        kernels_a_call_340=times[340][4], bound_ms_340=times[340][5]["bound_ms"],
+        ms_long=long_ms, library_ms_long=long_lib, **times[34][5])
 
 
 def _train_config(config, **tpu):
@@ -1267,11 +1309,11 @@ def compare_step_grads(model, process, batch, t, eps, what="full-width", bf16_vs
     of the kernel path's gradients; the plain path's stay in ``.grad``.
     ``bf16_vs_f32`` also keeps the float32 gradient and, in bf16, holds
     both paths against it and the per-tensor cosine outside BF16_TOWER
-    (see there)."""
+    (see there). Returns each dtype's readings against its gate."""
     import torch
 
     names = [n for n, _ in model.named_parameters()]
-    g32 = None
+    g32, readings = None, {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         model.compute_dtype = dtype
@@ -1305,10 +1347,13 @@ def compare_step_grads(model, process, batch, t, eps, what="full-width", bf16_vs
                   f"plain path's")
         check(rel <= rel_tol and worst[0] >= cos_tol,
               f"{tag}: {what} gradients on the kernels disagree with the plain path")
+        readings[tag] = dict(rel_l2=rel, worst_cosine=worst[0], worst_tensor=worst[1],
+                             cosine_gate=cos_tol)
         if bf16_vs_f32 and dtype == torch.float32:
             g32 = gk
         del gk, gp
         model.zero_grad(set_to_none=True)
+    return readings
 
 
 def timed_steps(trainer, batch, gen, kernels, lr=1e-4):
@@ -1370,13 +1415,28 @@ def profile_step(step, step_ms):
         hits = [v for k, v in by_name.items() if name in k]
         return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
-    k4, k5 = of("linattn_bwd"), of("resnet_bwd")
+    k4, k5, k7b = of("linattn_bwd"), of("resnet_bwd"), of("flash_bwd")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(step_ms=step_ms, profiled_step_ms=wall, device_ms=busy,
                 busy_share=busy / step_ms, idle_share=1 - busy / step_ms,
                 profiled_busy_share=busy / wall,
                 k4_device_ms=k4[0], k4_launches=k4[1], k5_device_ms=k5[0], k5_launches=k5[1],
+                k7b_device_ms=k7b[0], k7b_launches=k7b[1],
                 top=[(k[:60], round(ms, 4), n) for k, (ms, n) in top])
+
+
+def check_k7b_launches(prof, calls, what):
+    """K7b's launches in a profiled step: ``calls`` calls at the RT axis, each
+    the one launch of flash_backward_plan."""
+    from dquartic_tpu_torch.ops import flash_attention as fa
+
+    per_call = fa.flash_backward_plan(1, 4, RT, RT)["launches"]
+    log(f"  {what}: K7b {prof['k7b_device_ms']:.4f} ms on the device in "
+        f"{prof['k7b_launches']} launches for {calls} calls (plan: {per_call} a call)")
+    check(prof["k7b_launches"] == calls * per_call,
+          f"{what}: K7b ran {prof['k7b_launches']} launches for {calls} calls, not "
+          f"{per_call} a call")
+    return prof["k7b_launches"] / calls
 
 
 def phase_train(config, seed, gen, results):
@@ -1442,6 +1502,8 @@ def phase_train(config, seed, gen, results):
     for name, key in (("linear_attention_backward", "k4_launches"),
                       ("fused_resnet_backward", "k5_launches")):
         results[name]["launches_call"] = prof[key] / STEP_LAUNCHES[name]
+    results["flash_attention_backward"]["launches_call"] = check_k7b_launches(
+        prof, STEP_LAUNCHES["flash_attention_backward"], "the step's profile")
     results["train"]["profile"] = prof
     log(f"  losses over the {len(losses)} steps: {[round(v, 6) for v in losses]}")
     check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
@@ -1545,10 +1607,15 @@ def phase_tfer_train(config, seed, gen, results):
     cfg = _train_config(_tfer_config(config), compute_dtype="float32")
     model = build_model(cfg, device=dev, seed=seed, trainable=True)
     torch.cuda.reset_peak_memory_stats()
-    compare_step_grads(model, build_process(cfg), batch, t, eps,
-                       what=f"simple=False (tfer_depth {TFER_DEPTH})", bf16_vs_f32=True)
+    readings = compare_step_grads(model, build_process(cfg), batch, t, eps,
+                                  what=f"simple=False (tfer_depth {TFER_DEPTH})",
+                                  bf16_vs_f32=True)
+    gate = readings["bfloat16"]
     log(f"  peak device memory of the gradient comparison "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the bf16 gate reads a worst "
+        f"per-tensor cosine of {gate['worst_cosine']:.6f} ({gate['worst_tensor']}) against "
+        f"its {gate['cosine_gate']:g}")
+    results["tfer"]["bf16_gradient_gate"] = gate
     del model
     torch.cuda.empty_cache()
 
@@ -1572,6 +1639,9 @@ def phase_tfer_train(config, seed, gen, results):
             check(counts == expect, f"train launches {counts} != {expect}")
             for name, n in counts.items():
                 results[name]["tfer_train_launches"] = n
+            prof = profile_step(lambda: trainer.train_step(batch, 1e-4, generator=gen), median)
+            results["flash_attention_backward"]["tfer_launches_call"] = check_k7b_launches(
+                prof, TFER_STEP["flash_attention_backward"], "a simple=False step's profile")
         per_path[path] = dict(ms_per_step=median, peak_gib=peak, params=n_params)
         del trainer
         torch.cuda.empty_cache()
@@ -1590,9 +1660,9 @@ def phase_rows_kernels(gen, results):
     float32 (TF32 off) and bf16 (against the plain version run in float32
     on the same bf16 values), on the model's channel-first memory; bf16
     times at every mixer shape through the wrapper and of the kernel alone
-    (the launch of its checked arguments), K8's also on the device with its
-    kernels a call (one: the wrapper runs no torch op on the device),
-    beside the plain version's and the bound."""
+    (the launch of its checked arguments) and on the device with their
+    kernels a call (K8 one, K9 two: the wrappers run no torch op on the
+    device), beside the plain version's and the bound."""
     import torch
 
     from dquartic_tpu_torch.ops import linear_attention as la
@@ -1622,23 +1692,28 @@ def phase_rows_kernels(gen, results):
                     for name, (op, two_call, label) in ops.items():
                         launch, _ = la.rows_launcher(name, x, *w, 4, 32, two_call)
                         row[label] = (cuda_time(lambda: op(x, *w), 20), cuda_time(launch, 20))
-                    _, per_call, kinds, once_ms = device_kernels(
-                        lambda: la.fused_linear_attention(x, *w), 20, 1)
-                    check(len(kinds) == 1 and kinds[0].startswith("linattn_rows_cluster"),
-                          f"K8 (34, {N}, {C}): kernels on the device {kinds}, not its one kernel")
-                    row["K8_device"] = (once_ms, per_call)
+                    for label, op, n_kernels in (("K8", la.fused_linear_attention, 1),
+                                                 ("K9", la.fused_linear_attention_two_call, 2)):
+                        _, per_call, kinds, once_ms = device_kernels(lambda: op(x, *w), 20,
+                                                                     n_kernels)
+                        check(len(kinds) == n_kernels and
+                              all(k.startswith("linattn_rows_cluster") for k in kinds),
+                              f"{label} (34, {N}, {C}): kernels on the device {kinds}, not "
+                              f"its {n_kernels} modes of linattn_rows_cluster")
+                        row[f"{label}_device"] = (once_ms, per_call)
                     row["plain"] = cuda_time(lambda: la.linear_attention_rows_reference(x, *w), 5)
                     row["bound"] = linattn_bound(34, C, N, 2)
                     table.append(row)
                 del w, x, ref
             torch.cuda.empty_cache()
-    log("  bf16 (34, N, C) on channel-first memory, ms: K8 wrapper / kernel alone / on the "
-        "device (kernels a call), K9 wrapper / kernels alone, plain, bound:")
+    log("  bf16 (34, N, C) on channel-first memory, ms: K8 and K9 each wrapper / kernels "
+        "alone / on the device (kernels a call), K9 / K8 on the device, plain, bound:")
     for r in table:
         log(f"    C {r['C']:2d} N {r['N']:5d}: K8 {r['K8'][0]:.4f} / {r['K8'][1]:.4f} / "
             f"{r['K8_device'][0]:.4f} ({r['K8_device'][1]:.1f}), K9 {r['K9'][0]:.4f} / "
-            f"{r['K9'][1]:.4f}, plain {r['plain']:.4f}, bound {r['bound']['bound_ms']:.4f} "
-            f"({r['bound']['bound_by']})")
+            f"{r['K9'][1]:.4f} / {r['K9_device'][0]:.4f} ({r['K9_device'][1]:.1f}), "
+            f"{r['K9_device'][0] / r['K8_device'][0]:.3f}, plain {r['plain']:.4f}, bound "
+            f"{r['bound']['bound_ms']:.4f} ({r['bound']['bound_by']})")
     top = table[0]  # the level-0 shape (34, 40000, 4)
     log(f"  K8 (34, {MZ}, 4): exp floor {exp_floor(2 * 128 * 34 * MZ):.4f} ms")
     # a row's columns all equal, float32: the plain version's own float32
@@ -1660,9 +1735,10 @@ def phase_rows_kernels(gen, results):
         results[name].update(max_abs_err=errs[name], ms=top[label][0], kernel_ms=top[label][1],
                              plain_ms=top["plain"], library_ms=None, **top["bound"],
                              per_shape={f"{r['C']}x{r['N']}": r[label] for r in table})
-    results["fused_linear_attention"].update(
-        device_ms=top["K8_device"][0], kernels_a_call=top["K8_device"][1],
-        device_per_shape={f"{r['C']}x{r['N']}": r["K8_device"][0] for r in table})
+    for name, (_, _, label) in ops.items():
+        results[name].update(
+            device_ms=top[f"{label}_device"][0], kernels_a_call=top[f"{label}_device"][1],
+            device_per_shape={f"{r['C']}x{r['N']}": r[f"{label}_device"][0] for r in table})
 
 
 def phase_rows_sweep(gen):
@@ -2274,8 +2350,12 @@ def main(argv=None) -> int:
                                       replaces="dquartic_tpu/ops/fused_resnet.py:500"),
         "flash_attention": dict(source="dquartic_tpu_torch/csrc/flash_attention.cu",
                                 replaces="dquartic_tpu/ops/flash_attention.py:99"),
-        "flash_attention_backward": dict(source="dquartic_tpu_torch/csrc/flash_attention_bwd.cu",
-                                         replaces="dquartic_tpu/ops/flash_attention.py:237"),
+        "flash_attention_backward": dict(
+            source="dquartic_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="dquartic_tpu/ops/flash_attention.py:237",
+            note="K7b: one cluster launch a call at n, m <= 512 (bf16 on tensor cores), "
+                 "two past it; times at (1, 4, 34, 32) bf16, *_340 at n = 340, *_long at "
+                 "n = 16384"),
         "fused_linear_attention": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:276",
@@ -2286,8 +2366,9 @@ def main(argv=None) -> int:
         "fused_linear_attention_two_call": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_rows.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1139",
-            note="no model path reaches it, in JAX either; held against its plain version "
-                 "in phase 9"),
+            note="K9: two launches a call, K8's kernel in its context mode (a cluster "
+                 "launch writing each row's M) and its apply mode (a plain grid); no model "
+                 "path reaches it, in JAX either; held against its plain version in phase 9"),
         "linear_attention_sp_stats": dict(
             source="dquartic_tpu_torch/csrc/linear_attention_sp.cu",
             replaces="dquartic_tpu/ops/linear_attention.py:1555",

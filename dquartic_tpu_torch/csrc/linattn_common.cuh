@@ -2,9 +2,10 @@
 // kernels, shared by K1 (linear_attention.cu), K4 (linear_attention_bwd.cu),
 // K6 (linear_attention_sp.cu) and K8 (linear_attention_rows.cu): the weights
 // as the caller holds them, a CTA's slice of a (B, C, N) tensor staged in
-// shared memory or read from device memory, the cluster size a launch takes,
-// and the host entry points through which K6 runs K1's and K4's cluster
-// kernels in their sequence-parallel modes.
+// shared memory or read from device memory, the cluster size a launch takes
+// (choose_cluster) or the CTAs a row of a launch without a cluster
+// (choose_grid), and the host entry points through which K6 runs K1's and
+// K4's cluster kernels in their sequence-parallel modes.
 #pragma once
 
 #include <map>
@@ -76,7 +77,9 @@ cudaError_t linattn_sp_bwd_x(const void* x, const void* dy, void* dx, const Weig
 
 namespace {
 
+using dq::cluster_config;
 using dq::Grads;
+using dq::launch_cluster;
 using dq::Weights;
 
 constexpr int kMaxC = 16;
@@ -148,35 +151,6 @@ __device__ void stage_rows(char* dst, int row_bytes, const T* src, long long N, 
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-inline cudaLaunchConfig_t cluster_config(int cl, int B, int threads, int smem, cudaStream_t s,
-                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, B);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Launches `kernel` over grid (cl, B), a cluster of cl CTAs per row.
-template <typename K, typename... Args>
-cudaError_t launch_cluster(K kernel, int cl, int B, int threads, int smem, cudaStream_t s,
-                           Args... args) {
-  cudaError_t err = dq::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(cl, B, threads, smem, s, attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
 // CTAs per cluster for a launch of `kernel` over B rows of N columns: the
 // fewest waves of clusters the card holds at once times the columns of a
 // CTA; among equals, the smaller cluster. make(cl) is the launch's plan at
@@ -207,6 +181,47 @@ cudaError_t choose_cluster(K kernel, int threads, int B, int C, int N, int H, Ma
     if (err != cudaSuccess) return err;
     if (clusters < 1) continue;
     const long long cost = (long long)dq::ceil_div(B, clusters) * p.chunk;
+    if (best < 0 || cost < best) best = cost, *out = p;
+  }
+  if (best < 0) return cudaErrorInvalidConfiguration;
+  cache[key] = *out;
+  return cudaSuccess;
+}
+
+// CTAs a row of a launch without a cluster (K6b and K9's apply, whose CTAs
+// share nothing): the g of the fewest columns on the fullest SM, the grid's
+// B g CTAs spread evenly over the card's SMs, each CTA counted kColsPerCta /
+// 2 columns more for what it does once (the weights, M); among equals, the
+// smaller g. A CTA has at least kColsPerCta / 2 columns, and
+// the grid fits the card at once where it can. Cached per kernel and shape.
+template <typename P, typename K, typename Make>
+cudaError_t choose_grid(K kernel, int threads, int B, int C, int N, int H, Make make, P* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, P> cache;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), B, C, N, H);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int most = std::max(1, std::min(dq::ceil_div(N, kColsPerCta / 2), 65535));
+  long long best = -1;
+  for (int g = 1; g <= most; ++g) {
+    const P p = make(g);
+    err = dq::allow_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, p.bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) continue;
+    if (g > 1 && (long long)B * g > (long long)sms * per_sm) break;  // past one wave
+    const long long cost =
+        (long long)dq::ceil_div(B * g, sms) * (p.chunk + kColsPerCta / 2);
     if (best < 0 || cost < best) best = cost, *out = p;
   }
   if (best < 0) return cudaErrorInvalidConfiguration;

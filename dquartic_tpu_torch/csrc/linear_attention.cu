@@ -777,47 +777,6 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     apply_fma<T, CB>(xsl, den, wq, qs, ms, b_out, g, gp, yb, N, C, H, cols, p.staged);
 }
 
-// CTAs a row of a launch without a cluster (kApply, whose CTAs share
-// nothing): the g of the fewest columns on the fullest SM, the grid's B g
-// CTAs spread evenly over the card's SMs, each CTA counted kColsPerCta / 2
-// columns more for what it does once (the weights, the fold of M); among
-// equals, the smaller g. A CTA has at least kColsPerCta / 2 columns, and
-// the grid fits the card at once where it can. Cached per kernel and shape.
-template <typename K, typename Make>
-cudaError_t choose_grid(K kernel, int B, int C, int N, int H, Make make, Plan* out) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int, int>, Plan> cache;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), B, C, N, H);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second;
-    return cudaSuccess;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const int most = std::max(1, std::min(dq::ceil_div(N, kColsPerCta / 2), 65535));
-  long long best = -1;
-  for (int g = 1; g <= most; ++g) {
-    const Plan p = make(g);
-    err = dq::allow_smem(kernel, p.bytes);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, p.bytes);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) continue;
-    if (g > 1 && (long long)B * g > (long long)sms * per_sm) break;  // past one wave
-    const long long cost =
-        (long long)dq::ceil_div(B * g, sms) * (p.chunk + kColsPerCta / 2);
-    if (best < 0 || cost < best) best = cost, *out = p;
-  }
-  if (best < 0) return cudaErrorInvalidConfiguration;
-  cache[key] = *out;
-  return cudaSuccess;
-}
-
 // K1: K1's cluster size. kStats (K6a): the cluster size from the card's
 // occupancy, as K4 takes it (choose_cluster). kApply (K6b): a grid of
 // independent CTAs (choose_grid).
@@ -829,7 +788,7 @@ cudaError_t run_c(const void* x, void* y, float* stats, const Weights& w, int B,
   const T* xt = static_cast<const T*>(x);
   Plan p;
   if constexpr (kMode == kApply) {
-    cudaError_t err = choose_grid(kernel, B, C, N, H, make, &p);
+    cudaError_t err = choose_grid(kernel, kThreads, B, C, N, H, make, &p);
     if (err == cudaSuccess) err = dq::allow_smem(kernel, p.bytes);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(p.cl, B), kThreads, p.bytes, s>>>(xt, static_cast<T*>(y), stats, w, p, C, N,

@@ -52,11 +52,15 @@
 // values read and C written: at C <= 16 operations and the SFU bound it,
 // not memory traffic (see chip_smoke.py's bound_ms and exp floor).
 //
-// K9 (two launches, this file's first design): the same cluster kernel
-// with a running max per column on CUDA cores (context_of_row) writes M to
-// device memory, then a per-column kernel over grid (ceil(N/128), B) writes
-// y. Its weights arrive float32 (H, C) rows, W_q and W_k pre-scaled by
-// log2(e).
+// K9 is two launches of the same kernel, with M through device memory as
+// the TPU's K9 carries its context through HBM: in its context mode
+// (kContext) the cluster runs steps 1-3 (only W_k, W_v and W_out read) and
+// rank 0 writes the row's M (C x H, float32) to device memory; in its apply
+// mode (kApply) a plain grid of independent CTAs, as many a row as spread
+// evenly over the SMs in one wave (choose_grid), each reads M, stages its
+// slice and runs step 4 (only W_q, b_out and g read). The mode is a
+// template argument (kFused: K8), instantiated for x's two dtypes and the
+// four channel widths CB.
 #include <cooperative_groups.h>
 #include <math_constants.h>
 
@@ -76,245 +80,6 @@ struct Strides {
   long long b, n, c;
 };
 
-// ----------------------------------------------------------------------
-// K9
-// ----------------------------------------------------------------------
-
-constexpr int kCluster = 8;         // K9: CTAs per row (one cluster)
-constexpr int kApplyThreads = 128;  // K9's output pass
-
-// y for one column from its float32 values xv: per-head softmax of
-// W_q' xv (log2(e)-scaled), y = RMSNorm_g(M q^ + b_out).
-template <typename T, int CB>
-__device__ __forceinline__ void apply_column(const float (&xv)[CB], const float* wqs,
-                                             const float* ms, const float* b_out,
-                                             const float* g, T* yp, long long sc, int C,
-                                             int H) {
-  float acc[CB];
-#pragma unroll
-  for (int c = 0; c < CB; ++c) acc[c] = 0.0f;
-  for (int h0 = 0; h0 < H; h0 += kDimHead) {
-    float e[kDimHead];
-    float mx = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < kDimHead; ++i) {
-      const int d = h0 + i;
-      float q = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c < C) q = fmaf(wqs[d * C + c], xv[c], q);
-      e[i] = q;
-      mx = fmaxf(mx, q);
-    }
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kDimHead; ++i) {
-      e[i] = exp2f(e[i] - mx);
-      sum += e[i];
-    }
-    const float inv = kDhScale / fmaxf(sum, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < kDimHead; ++i) {
-      const int d = h0 + i;
-      const float qn = e[i] * inv;
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c < C) acc[c] = fmaf(ms[c * H + d], qn, acc[c]);
-    }
-  }
-  float ss = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CB; ++c) {
-    acc[c] = c < C ? acc[c] + b_out[c] : 0.0f;
-    ss += acc[c] * acc[c];
-  }
-  const float scale = sqrtf((float)C) / fmaxf(sqrtf(ss), 1e-12f);
-#pragma unroll
-  for (int c = 0; c < CB; ++c)
-    if (c < C) yp[c * sc] = dq::from_f32<T>(acc[c] * scale * g[c]);
-}
-
-template <typename T, int CB>
-__device__ __forceinline__ void load_column(const T* xp, long long sc, int C, float (&xv)[CB]) {
-#pragma unroll
-  for (int c = 0; c < CB; ++c) xv[c] = c < C ? dq::to_f32(xp[c * sc]) : 0.0f;
-}
-
-// Phase 0, the merge and the fold, shared by K8 and K9's first launch.
-// Shared memory: partials pm, ps (kThreads floats each) and pa (kThreads
-// x C), then a scratch region: the x tile in phase 0, W_q' and M after it.
-// Returns with M (C x H) in ms_out (K8: this CTA's shared memory; K9: the
-// row's slot in device memory, written by rank 0 only).
-template <typename T, int CB>
-__device__ void context_of_row(const T* __restrict__ x, Strides st, const float* __restrict__ wk,
-                               const float* __restrict__ wv, const float* __restrict__ wout,
-                               float* smem, float* ms_out, bool write_m, int C, int N, int H,
-                               int nbeg, int nend) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int t = threadIdx.x;
-  const int groups = kThreads / H;
-  const int gi = t / H, d = t % H;
-  float* pm = smem;
-  float* ps = pm + kThreads;
-  float* pa = ps + kThreads;
-  float* xs = pa + kThreads * C;
-
-  float w[CB], a[CB];
-#pragma unroll
-  for (int c = 0; c < CB; ++c) {
-    w[c] = c < C ? wk[d * C + c] : 0.0f;
-    a[c] = 0.0f;
-  }
-  float m = -CUDART_INF_F, s = 0.0f;
-  const T* xb = x + (long long)blockIdx.y * st.b;
-  for (int t0 = nbeg; t0 < nend; t0 += kTile) {
-    const int cnt = min(kTile, nend - t0);
-    for (int i = t; i < CB * kTile; i += kThreads) {
-      const int c = i / kTile, j = i % kTile;
-      xs[i] = (c < C && j < cnt) ? dq::to_f32(xb[(t0 + j) * st.n + c * st.c]) : 0.0f;
-    }
-    __syncthreads();
-    for (int j = gi; j < cnt; j += groups) {
-      float k = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c < C) k = fmaf(w[c], xs[c * kTile + j], k);
-      if (k > m) {  // a new running max: rescale what was summed
-        const float r = exp2f(m - k);
-        s *= r;
-#pragma unroll
-        for (int c = 0; c < CB; ++c) a[c] *= r;
-        m = k;
-      }
-      const float p = exp2f(k - m);
-      s += p;
-#pragma unroll
-      for (int c = 0; c < CB; ++c)
-        if (c < C) a[c] = fmaf(p, xs[c * kTile + j], a[c]);
-    }
-    __syncthreads();
-  }
-  pm[t] = m;
-  ps[t] = s;
-#pragma unroll
-  for (int c = 0; c < CB; ++c)
-    if (c < C) pa[t * C + c] = a[c];
-  cluster.sync();  // every CTA's partials are visible to the cluster
-
-  const bool merges = t < H && write_m;
-  if (merges) {  // slots in a fixed order: rank, then column group
-    m = -CUDART_INF_F;
-    for (int r = 0; r < kCluster; ++r) {
-      const float* rpm = cluster.map_shared_rank(pm, r);
-      for (int gg = 0; gg < groups; ++gg) m = fmaxf(m, rpm[gg * H + d]);
-    }
-    s = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CB; ++c) a[c] = 0.0f;
-    for (int r = 0; r < kCluster; ++r) {
-      const float* rpm = cluster.map_shared_rank(pm, r);
-      const float* rps = cluster.map_shared_rank(ps, r);
-      const float* rpa = cluster.map_shared_rank(pa, r);
-      for (int gg = 0; gg < groups; ++gg) {
-        const int slot = gg * H + d;
-        const float f = exp2f(rpm[slot] - m);  // 0 for an empty slot (m_i = -inf)
-        s = fmaf(rps[slot], f, s);
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          if (c < C) a[c] = fmaf(rpa[slot * C + c], f, a[c]);
-      }
-    }
-  }
-  cluster.sync();  // the remote reads are done: shared memory may be reused
-  if (!merges) return;
-  // fold: ctx[e, d] = (A_d . W_v[e]) / s for e in d's head, M[c, d] =
-  // sum_e W_out[e, c] ctx[e, d]
-  const float inv_s = 1.0f / fmaxf(s, 1e-30f);
-  float mc[CB];
-#pragma unroll
-  for (int c = 0; c < CB; ++c) mc[c] = 0.0f;
-  const int h0 = (d / kDimHead) * kDimHead;
-  for (int e = h0; e < h0 + kDimHead; ++e) {
-    float ctx = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CB; ++c)
-      if (c < C) ctx = fmaf(a[c], wv[e * C + c], ctx);
-    ctx *= inv_s;
-#pragma unroll
-    for (int c = 0; c < CB; ++c)
-      if (c < C) mc[c] = fmaf(wout[e * C + c], ctx, mc[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < CB; ++c)
-    if (c < C) ms_out[c * H + d] = mc[c];
-}
-
-// K9, first launch: grid (kCluster, B); rank 0 of each cluster writes the
-// row's M (C x H) to m_out.
-template <typename T, int CB>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-    linattn_rows_context(const T* __restrict__ x, Strides st, const float* __restrict__ wk,
-                         const float* __restrict__ wv, const float* __restrict__ wout,
-                         float* __restrict__ m_out, int C, int N, int H, int chunk) {
-  extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int nbeg = min(N, rank * chunk), nend = min(N, nbeg + chunk);
-  context_of_row<T, CB>(x, st, wk, wv, wout, smem, m_out + (size_t)blockIdx.y * C * H,
-                        rank == 0, C, N, H, nbeg, nend);
-}
-
-// K9, second launch: grid (ceil(N / 128), B), one thread per column.
-template <typename T, int CB>
-__global__ void __launch_bounds__(kApplyThreads)
-    linattn_rows_apply(const T* __restrict__ x, T* __restrict__ y, Strides st,
-                       const float* __restrict__ wq, const float* __restrict__ m_in,
-                       const float* __restrict__ b_out, const float* __restrict__ g, int C,
-                       int N, int H) {
-  __shared__ float wqs[kMaxH * kMaxC];
-  __shared__ float ms[kMaxC * kMaxH];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < H * C; i += kApplyThreads) {
-    wqs[i] = wq[i];
-    ms[i] = m_in[(size_t)b * C * H + i];
-  }
-  __syncthreads();
-  const int n = blockIdx.x * kApplyThreads + threadIdx.x;
-  if (n >= N) return;
-  const long long off = (long long)b * st.b + (long long)n * st.n;
-  float xv[CB];
-  load_column<T, CB>(x + off, st.c, C, xv);
-  apply_column<T, CB>(xv, wqs, ms, b_out, g, y + off, st.c, C, H);
-}
-
-size_t cluster_smem_bytes(int C, int H) {
-  const int scratch = std::max(kMaxC * kTile, 2 * H * C);
-  return sizeof(float) * ((size_t)kThreads * (C + 2) + scratch);
-}
-
-template <typename T, int CB>
-cudaError_t run_k9_c(const void* x, void* y, Strides st, const float* wq, const float* wk,
-                     const float* wv, const float* wout, const float* b_out, const float* g,
-                     float* m, int B, int C, int N, int H, cudaStream_t s) {
-  const int chunk = dq::ceil_div(N, kCluster);
-  const size_t smem = cluster_smem_bytes(C, H);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  cudaError_t err = dq::allow_smem(linattn_rows_context<T, CB>, smem);
-  if (err != cudaSuccess) return err;
-  linattn_rows_context<T, CB><<<dim3(kCluster, B), kThreads, smem, s>>>(
-      xt, st, wk, wv, wout, m, C, N, H, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  linattn_rows_apply<T, CB><<<dim3(dq::ceil_div(N, kApplyThreads), B), kApplyThreads, 0, s>>>(
-      xt, yt, st, wq, m, b_out, g, C, N, H);
-  return cudaGetLastError();
-}
-
-// ----------------------------------------------------------------------
-// K8
-// ----------------------------------------------------------------------
-
 constexpr int kStageBudget = 100 * 1024;  // bytes of a CTA's staged slice
 constexpr int kXr = 24;  // row stride (bf16) of 16-channel rows: ldmatrix rows on distinct banks
 
@@ -330,25 +95,38 @@ struct RowsPlan {
   int bytes;
 };
 
-RowsPlan rows_plan(int C, int CB, int H, int N, int elt, int cl) {
+// The kernel's modes: the whole op, one cluster launch (kFused, K8); the
+// context of K9's two launches, a cluster launch whose rank 0 writes the
+// row's M to device memory (kContext); their apply, a launch of independent
+// CTAs that read M (kApply).
+enum Mode { kFused, kContext, kApply };
+
+// The plan of a launch in mode `mode` with `cl` CTAs a row: a region a mode
+// does not use takes no room.
+RowsPlan rows_plan(int mode, int C, int CB, int H, int N, int elt, int cl) {
   RowsPlan p{};
   p.cl = cl;
   p.chunk = dq::ceil_div(N, cl);
   const bool mma = elt == 2;  // bf16 runs the tensor-core passes
+  const bool sums = mode != kApply, applies = mode != kContext;
   const int nb = (CB + 7) / 8 * 8;
   int off = 0;
   p.wq = off;                     // W_q' rows, log2(e)-scaled: bf16 (hi, lo) rows of 16
-  off += mma ? H * kXr : H * CB;  //   channels, stride kXr, or float32 (d, CB)
-  p.wk = off, off += H * CB;      // W_k' rows (d, CB), log2(e)-scaled
+  if (applies) off += mma ? H * kXr : H * CB;  // channels, stride kXr, or float32 (d, CB)
+  p.wk = off;                     // W_k' rows (d, CB), log2(e)-scaled
+  if (sums) off += H * CB;
   p.ms = off;                     // M: bf16 (hi, lo) channel rows (nb, H + 8), or float32 (d, CB)
-  off += mma ? nb * (H + 8) : H * CB;
-  p.part = off, off += H * CB;    // the CTA's partial A (d, CB), s and m
-  p.psum = off, off += H;
-  p.pmax = off, off += H;
+  if (applies) off += mma ? nb * (H + 8) : H * CB;
+  p.part = off;                   // the CTA's partial A (d, CB), s and m
+  if (sums) off += H * CB;
+  p.psum = off;
+  if (sums) off += H;
+  p.pmax = off;
+  if (sums) off += H;
   p.vec = off, off += 2 * CB;     // b_out, g
   p.scratch = off;                // phase-0 tile; partials of warps or groups; W_v, W_out
   const int tile = mma ? kTile * kXr / 2 : kTile * CB;
-  off += std::max(std::max(tile, (kThreads - 32) * (CB + 2)), 2 * H * CB);
+  if (sums) off += std::max(std::max(tile, (kThreads - 32) * (CB + 2)), 2 * H * CB);
   off = (off + 3) & ~3;
   p.row_span = (p.chunk * elt + 16 + 15) & ~15;
   // channel-first rows of row_span plus a phase below 16, or one row-major
@@ -883,17 +661,20 @@ __device__ void rows_apply_mma(const RowSlice<__nv_bfloat16>& xsl, const __nv_bf
   }
 }
 
-// K8's kernel: grid (cl, B), a cluster of cl CTAs per row. CTAs held on one
-// SM: bf16 at C <= 8, 3, otherwise 2, as K1.
-template <typename T, int CB>
+// The kernel, in the mode kMode: kFused (K8) and kContext (K9's first
+// launch) over grid (cl, B), a cluster of cl CTAs per row; kApply (K9's
+// second) over grid (g, B) of independent CTAs. m_io is the rows' M, (B, C,
+// H) float32, that kContext writes and kApply reads (null for kFused). CTAs
+// held on one SM: bf16 at C <= 8, 3, otherwise 2, as K1.
+template <typename T, int CB, int kMode>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     linattn_rows_cluster(const T* __restrict__ x, T* __restrict__ y, Strides xs, Strides ys,
-                         Weights w, RowsPlan p, int C, int N, int H) {
+                         Weights w, float* __restrict__ m_io, RowsPlan p, int C, int N, int H) {
   constexpr bool kMma = sizeof(T) == 2;
+  constexpr bool kSums = kMode != kApply, kApplies = kMode != kContext;
   constexpr int NB = kMma ? (CB + 7) / 8 * 8 : CB;
   extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), cl = (int)cluster.num_blocks();
+  const int rank = blockIdx.x, cl = gridDim.x;  // a cluster's rank and size (grid (cl, B))
   const int t = threadIdx.x, b = blockIdx.y;
   const int nbeg = min(N, rank * p.chunk), cols = min(N, nbeg + p.chunk) - nbeg;
   float* wq = smem + p.wq;
@@ -922,14 +703,15 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
       xsl = RowSlice<T>{reinterpret_cast<const T*>(dst), C, 1};
     }
   }
-  if (t < CB) {
+  if (kApplies && t < CB) {
     b_out[t] = t < C ? ld(w.b_out, t * w.b_out_c, w.bf16 & 4) : 0.0f;
     g[t] = t < C ? ld(w.g, t * w.g_c, w.bf16 & 8) : 0.0f;
   }
   const bool bq = w.bf16 & 1, bo = w.bf16 & 2;
   __nv_bfloat16* wqh = reinterpret_cast<__nv_bfloat16*>(wq);  // bf16 W_q' (hi, lo) rows
   __nv_bfloat16* wql = wqh + H * kXr;
-  for (int d = t; d < 2 * H; d += kThreads) {  // rows 0..H-1: W_q; H..2H-1: W_k
+  // rows 0..H-1: W_q (the apply's); H..2H-1: W_k (phase 0's)
+  for (int d = (kApplies ? 0 : H) + t; d < (kSums ? 2 * H : H); d += kThreads) {
     float v[CB];
 #pragma unroll
     for (int c = 0; c < CB; ++c)
@@ -952,75 +734,101 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
   __syncthreads();  // the weights (and the staged slice) are in
 
   // 2. phase 0: the CTA's partial (m, s, A)
-  if constexpr (kMma)
-    rows_phase0_mma<CB>(xsl, wk, scratch, part, psum, pmax, C, H, cols);
-  else
-    rows_phase0_fma<CB>(xsl, wk, scratch, part, psum, pmax, C, H, cols);
-  cluster.sync();  // #1: every CTA's partial is visible to the cluster
+  if constexpr (kSums) {
+    if constexpr (kMma)
+      rows_phase0_mma<CB>(xsl, wk, scratch, part, psum, pmax, C, H, cols);
+    else
+      rows_phase0_fma<CB>(xsl, wk, scratch, part, psum, pmax, C, H, cols);
+    cg::this_cluster().sync();  // #1: every CTA's partial is visible to the cluster
+  }
 
-  // 3. rank 0: the row's (m, s, A) merged in rank order, then M = W_out^T ctx^T
+  // 3. rank 0: the row's (m, s, A) merged in rank order, then M = W_out^T
+  // ctx^T, to its shared memory (kFused) or to device memory (kContext);
+  // kApply: M from device memory
   __nv_bfloat16* mbh = reinterpret_cast<__nv_bfloat16*>(ms);  // M's (hi, lo) channel rows
   __nv_bfloat16* mbl = mbh + NB * (H + 8);
-  if (rank == 0) {
-    float* wv = scratch;           // (H, CB)
-    float* wo = scratch + H * CB;  // (H, CB)
-    for (int i = t; i < H * CB; i += kThreads) {
-      const int e = i / CB, c = i % CB;
-      wv[i] = c < C ? ld(w.wqkv, c * w.wqkv_c + (2 * H + e) * w.wqkv_h, bq) : 0.0f;
-      wo[i] = c < C ? ld(w.wout, e * w.wout_h + c * w.wout_c, bo) : 0.0f;
-    }
-    const int d = t;
-    float a[CB], s = 0.0f;
-    if (d < H) {
-      float m = -CUDART_INF_F;
-      for (int r = 0; r < cl; ++r) m = fmaxf(m, cluster.map_shared_rank(pmax, r)[d]);
-#pragma unroll
-      for (int c = 0; c < CB; ++c) a[c] = 0.0f;
-      for (int r = 0; r < cl; ++r) {
-        const float f = carry(cluster.map_shared_rank(pmax, r)[d], m);
-        float pr[CB];
-        load_row<CB>(cluster.map_shared_rank(part, r) + d * CB, pr);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) a[c] = fmaf(pr[c], f, a[c]);
-        s = fmaf(cluster.map_shared_rank(psum, r)[d], f, s);
-      }
-    }
-    __syncthreads();
-    if (d < H) {
-      const float inv_s = 1.0f / fmaxf(s, 1e-30f);
-      float mc[CB];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) mc[c] = 0.0f;
-      const int h0 = (d / kDimHead) * kDimHead;
-      for (int e = h0; e < h0 + kDimHead; ++e) {
-        float wr[CB];
-        load_row<CB>(wv + e * CB, wr);
-        const float ctx = dot<CB>(a, wr) * inv_s;
-        load_row<CB>(wo + e * CB, wr);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) mc[c] = fmaf(wr[c], ctx, mc[c]);
-      }
+  float* mrow = kMode == kFused ? nullptr : m_io + (long long)b * C * H;  // the row's M (C, H)
+  if constexpr (kMode == kApply) {
+    for (int i = t; i < (kMma ? NB : CB) * H; i += kThreads) {
+      const int c = i / H, d = i % H;
+      const float v = c < C ? mrow[c * H + d] : 0.0f;
       if constexpr (kMma) {
-#pragma unroll
-        for (int c = 0; c < NB; ++c) {
-          const float v = c < CB ? mc[c] : 0.0f;
-          const __nv_bfloat16 hi = __float2bfloat16(v);
-          mbh[c * (H + 8) + d] = hi;
-          mbl[c * (H + 8) + d] = __float2bfloat16(v - __bfloat162float(hi));
-        }
+        const __nv_bfloat16 hi = __float2bfloat16(v);
+        mbh[c * (H + 8) + d] = hi;
+        mbl[c * (H + 8) + d] = __float2bfloat16(v - __bfloat162float(hi));
       } else {
-#pragma unroll
-        for (int c = 0; c < CB; ++c) ms[d * CB + c] = mc[c];
+        ms[d * CB + c] = v;
       }
     }
+    __syncthreads();  // M is in
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (rank == 0) {
+      float* wv = scratch;           // (H, CB)
+      float* wo = scratch + H * CB;  // (H, CB)
+      for (int i = t; i < H * CB; i += kThreads) {
+        const int e = i / CB, c = i % CB;
+        wv[i] = c < C ? ld(w.wqkv, c * w.wqkv_c + (2 * H + e) * w.wqkv_h, bq) : 0.0f;
+        wo[i] = c < C ? ld(w.wout, e * w.wout_h + c * w.wout_c, bo) : 0.0f;
+      }
+      const int d = t;
+      float a[CB], s = 0.0f;
+      if (d < H) {
+        float m = -CUDART_INF_F;
+        for (int r = 0; r < cl; ++r) m = fmaxf(m, cluster.map_shared_rank(pmax, r)[d]);
+#pragma unroll
+        for (int c = 0; c < CB; ++c) a[c] = 0.0f;
+        for (int r = 0; r < cl; ++r) {
+          const float f = carry(cluster.map_shared_rank(pmax, r)[d], m);
+          float pr[CB];
+          load_row<CB>(cluster.map_shared_rank(part, r) + d * CB, pr);
+#pragma unroll
+          for (int c = 0; c < CB; ++c) a[c] = fmaf(pr[c], f, a[c]);
+          s = fmaf(cluster.map_shared_rank(psum, r)[d], f, s);
+        }
+      }
+      __syncthreads();
+      if (d < H) {
+        const float inv_s = 1.0f / fmaxf(s, 1e-30f);
+        float mc[CB];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) mc[c] = 0.0f;
+        const int h0 = (d / kDimHead) * kDimHead;
+        for (int e = h0; e < h0 + kDimHead; ++e) {
+          float wr[CB];
+          load_row<CB>(wv + e * CB, wr);
+          const float ctx = dot<CB>(a, wr) * inv_s;
+          load_row<CB>(wo + e * CB, wr);
+#pragma unroll
+          for (int c = 0; c < CB; ++c) mc[c] = fmaf(wr[c], ctx, mc[c]);
+        }
+        if constexpr (kMode == kContext) {
+#pragma unroll
+          for (int c = 0; c < CB; ++c)
+            if (c < C) mrow[c * H + d] = mc[c];
+        } else if constexpr (kMma) {
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            const float v = c < CB ? mc[c] : 0.0f;
+            const __nv_bfloat16 hi = __float2bfloat16(v);
+            mbh[c * (H + 8) + d] = hi;
+            mbl[c * (H + 8) + d] = __float2bfloat16(v - __bfloat162float(hi));
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < CB; ++c) ms[d * CB + c] = mc[c];
+        }
+      }
+    }
+    cluster.sync();  // #2: M is in rank 0's shared memory (kContext: the partials are read)
+    if constexpr (kMode == kContext) return;
+    if (rank != 0) {
+      const int words = kMma ? NB * (H + 8) : H * CB;
+      const float* m0 = cluster.map_shared_rank(ms, 0);
+      for (int i = t; i < words; i += kThreads) ms[i] = m0[i];
+    }
+    cluster.sync();  // #3: every CTA has its copy; rank 0 may go on and exit
   }
-  cluster.sync();  // #2: M is in rank 0's shared memory
-  if (rank != 0) {
-    const int words = kMma ? NB * (H + 8) : H * CB;
-    const float* m0 = cluster.map_shared_rank(ms, 0);
-    for (int i = t; i < words; i += kThreads) ms[i] = m0[i];
-  }
-  cluster.sync();  // #3: every CTA has its copy; rank 0 may go on and exit
 
   // 4. apply over the slice
   T* yb = y + b * ys.b + nbeg * ys.n;
@@ -1030,42 +838,68 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && CB <= 8 ? 3 : 2)
     rows_apply_fma<CB>(xsl, wq, ms, b_out, g, yb, ys.n, ys.c, C, H, cols);
 }
 
-// K8: the cluster size from the card's occupancy (choose_cluster).
-template <typename T, int CB>
-cudaError_t run_k8_c(const void* x, void* y, Strides xs, Strides ys, const Weights& w, int B,
-                     int C, int N, int H, cudaStream_t s) {
-  auto kernel = linattn_rows_cluster<T, CB>;
+// kFused and kContext: the cluster size from the card's occupancy
+// (choose_cluster); kApply: a grid of independent CTAs (choose_grid).
+template <typename T, int CB, int kMode>
+cudaError_t run_c(const void* x, void* y, Strides xs, Strides ys, const Weights& w, float* m,
+                  int B, int C, int N, int H, cudaStream_t s) {
+  auto kernel = linattn_rows_cluster<T, CB, kMode>;
+  const auto make = [&](int cl) { return rows_plan(kMode, C, CB, H, N, sizeof(T), cl); };
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
   RowsPlan p;
-  const cudaError_t err = choose_cluster(
-      kernel, kThreads, B, C, N, H,
-      [&](int cl) { return rows_plan(C, CB, H, N, sizeof(T), cl); }, &p);
+  if constexpr (kMode == kApply) {
+    cudaError_t err = choose_grid(kernel, kThreads, B, C, N, H, make, &p);
+    if (err == cudaSuccess) err = dq::allow_smem(kernel, p.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(p.cl, B), kThreads, p.bytes, s>>>(xt, yt, xs, ys, w, m, p, C, N, H);
+    return cudaGetLastError();
+  }
+  const cudaError_t err = choose_cluster(kernel, kThreads, B, C, N, H, make, &p);
   if (err != cudaSuccess) return err;
-  return launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, static_cast<const T*>(x),
-                        static_cast<T*>(y), xs, ys, w, p, C, N, H);
+  return launch_cluster(kernel, p.cl, B, kThreads, p.bytes, s, xt, yt, xs, ys, w, m, p, C, N,
+                        H);
 }
 
 // Channel loops unrolled to C rounded up to a multiple of 4, as in K1.
-#define DQ_BY_CB(F, T, ...)                    \
-  switch ((C + 3) / 4) {                       \
-    case 1: return F<T, 4>(__VA_ARGS__);       \
-    case 2: return F<T, 8>(__VA_ARGS__);       \
-    case 3: return F<T, 12>(__VA_ARGS__);      \
-    default: return F<T, 16>(__VA_ARGS__);     \
+template <typename T, int kMode>
+cudaError_t run(const void* x, void* y, Strides xs, Strides ys, const Weights& w, float* m,
+                int B, int C, int N, int H, cudaStream_t s) {
+  switch ((C + 3) / 4) {
+    case 1: return run_c<T, 4, kMode>(x, y, xs, ys, w, m, B, C, N, H, s);
+    case 2: return run_c<T, 8, kMode>(x, y, xs, ys, w, m, B, C, N, H, s);
+    case 3: return run_c<T, 12, kMode>(x, y, xs, ys, w, m, B, C, N, H, s);
+    default: return run_c<T, 16, kMode>(x, y, xs, ys, w, m, B, C, N, H, s);
   }
-
-template <typename T>
-cudaError_t run_k8(const void* x, void* y, Strides xs, Strides ys, const Weights& w, int B,
-                   int C, int N, int H, cudaStream_t s) {
-  DQ_BY_CB(run_k8_c, T, x, y, xs, ys, w, B, C, N, H, s)
 }
 
+// K8 (m null) or K9 (m the rows' M): the modes' launches in order.
 template <typename T>
-cudaError_t run_k9(const void* x, void* y, Strides st, const float* wq, const float* wk,
-                   const float* wv, const float* wout, const float* b_out, const float* g,
-                   float* m, int B, int C, int N, int H, cudaStream_t s) {
-  DQ_BY_CB(run_k9_c, T, x, y, st, wq, wk, wv, wout, b_out, g, m, B, C, N, H, s)
+cudaError_t run_rows(const void* x, void* y, Strides xs, Strides ys, const Weights& w, float* m,
+                     int B, int C, int N, int H, cudaStream_t s) {
+  if (!m) return run<T, kFused>(x, y, xs, ys, w, m, B, C, N, H, s);
+  const cudaError_t err = run<T, kContext>(x, y, xs, ys, w, m, B, C, N, H, s);
+  if (err != cudaSuccess) return err;
+  return run<T, kApply>(x, y, xs, ys, w, m, B, C, N, H, s);
 }
-#undef DQ_BY_CB
+
+int rows_entry(const void* x, void* y, long long xb, long long xn, long long xc, long long yb,
+               long long yn, long long yc, const void* wqkv, long long wqkv_c, long long wqkv_h,
+               const void* wout, long long wout_h, long long wout_c, const void* b_out,
+               long long b_out_c, const void* g, long long g_c, float* m, int B, int C, int N,
+               int heads, int w_bf16, int x_bf16, int device, void* stream) {
+  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
+                  g,    g_c,    nullptr, 0, w_bf16};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Strides xs{xb, xn, xc}, ys{yb, yn, yc};
+  const int H = heads * kDimHead;
+  err = x_bf16 ? run_rows<__nv_bfloat16>(x, y, xs, ys, w, m, B, C, N, H, s)
+               : run_rows<float>(x, y, xs, ys, w, m, B, C, N, H, s);
+  return (int)err;
+}
 
 }  // namespace
 
@@ -1079,39 +913,21 @@ extern "C" int dq_linear_attention_rows_fused(
     const void* wout, long long wout_h, long long wout_c, const void* b_out, long long b_out_c,
     const void* g, long long g_c, int B, int C, int N, int heads, int w_bf16, int x_bf16,
     int device, void* stream) {
-  if (!linattn_valid(B, C, N, heads)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const Weights w{wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c, b_out, b_out_c,
-                  g,    g_c,    nullptr, 0, w_bf16};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides xs{xb, xn, xc}, ys{yb, yn, yc};
-  const int H = heads * kDimHead;
-  err = x_bf16 ? run_k8<__nv_bfloat16>(x, y, xs, ys, w, B, C, N, H, s)
-               : run_k8<float>(x, y, xs, ys, w, B, C, N, H, s);
-  return (int)err;
+  return rows_entry(x, y, xb, xn, xc, yb, yn, yc, wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c,
+                    b_out, b_out_c, g, g_c, nullptr, B, C, N, heads, w_bf16, x_bf16, device,
+                    stream);
 }
 
-// K9. x and y share the strides (sb, sn, sc) of a (B, N, C) tensor; wq, wk
-// (log2(e)-scaled), wv and wout are float32 (H, C) rows; m is float32
-// (B, C, H) scratch for the row's M.
-extern "C" int dq_linear_attention_rows(const void* x, void* y, long long sb, long long sn,
-                                        long long sc, const void* wq, const void* wk,
-                                        const void* wv, const void* wout, const void* b_out,
-                                        const void* g, void* m, int B, int C, int N, int heads,
-                                        int bf16, int device, void* stream) {
-  const int H = heads * kDimHead;
-  if (C < 1 || C > kMaxC || H > kMaxH || kThreads % H != 0 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st{sb, sn, sc};
-  float* mf = static_cast<float*>(m);
-  err = bf16 ? run_k9<__nv_bfloat16>(x, y, st, f(wq), f(wk), f(wv), f(wout), f(b_out), f(g),
-                                     mf, B, C, N, H, s)
-             : run_k9<float>(x, y, st, f(wq), f(wk), f(wv), f(wout), f(b_out), f(g), mf, B, C,
-                             N, H, s);
-  return (int)err;
+// K9: the arguments of K8, and m, float32 (B, C, H) device memory for the
+// rows' M between the two launches.
+extern "C" int dq_linear_attention_rows(
+    const void* x, void* y, long long xb, long long xn, long long xc, long long yb,
+    long long yn, long long yc, const void* wqkv, long long wqkv_c, long long wqkv_h,
+    const void* wout, long long wout_h, long long wout_c, const void* b_out, long long b_out_c,
+    const void* g, long long g_c, void* m, int B, int C, int N, int heads, int w_bf16,
+    int x_bf16, int device, void* stream) {
+  if (!m) return (int)cudaErrorInvalidValue;
+  return rows_entry(x, y, xb, xn, xc, yb, yn, yc, wqkv, wqkv_c, wqkv_h, wout, wout_h, wout_c,
+                    b_out, b_out_c, g, g_c, static_cast<float*>(m), B, C, N, heads, w_bf16,
+                    x_bf16, device, stream);
 }

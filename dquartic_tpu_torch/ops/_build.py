@@ -69,16 +69,18 @@ _SIGNATURES = {
                             + [_P] + [_I] * 9 + [_P]),
     # q, k, v, out, out32, lse, BH, n, m, scale, bf16, device, stream
     "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
-    # q, k, v, o (float32), lse, dO, D, dq, dk, dv, BH, n, m, scale, bf16, device, stream
-    "dq_flash_attention_bwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+    # q, k, v, o (float32), lse, dO, dq, dk, dv, BH, n, m, scale, bf16,
+    # cluster (CTAs of the one cluster launch, 0: two launches), device, stream
+    "dq_flash_attention_bwd": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # x, y, x's and y's (b, n, c) strides, then w_qkv, w_out, b_out, g as
     # dq_linear_attention takes them, B, C, N, heads, w_bf16, x_bf16,
     # device, stream
     "dq_linear_attention_rows_fused": ([_P] * 2 + [_L] * 6 + ([_P] + [_L] * 2) * 2 + [_P, _L] * 2
                                        + [_I] * 7 + [_P]),
-    # x, y, stride_b, stride_n, stride_c, wq, wk, wv, wout, b_out, g, m,
-    # B, C, N, heads, bf16, device, stream
-    "dq_linear_attention_rows": [_P] * 2 + [_L] * 3 + [_P] * 7 + [_I] * 6 + [_P],
+    # the arguments of dq_linear_attention_rows_fused with m, the rows' M
+    # between K9's two launches, after the weights
+    "dq_linear_attention_rows": ([_P] * 2 + [_L] * 6 + ([_P] + [_L] * 2) * 2 + [_P, _L] * 2
+                                 + [_P] + [_I] * 7 + [_P]),
     # x, w_qkv, its (c, h) strides, g_pre, its stride, stats, B, C, N, heads,
     # w_bf16, round, x_bf16, device, stream
     "dq_linear_attention_sp_stats": [_P] * 2 + [_L] * 2 + [_P, _L, _P] + [_I] * 8 + [_P],

@@ -13,7 +13,8 @@ says what such an error does to the gradients).
 :func:`flash_attention` is a ``torch.autograd.Function`` on both devices.
 On CUDA tensors its forward launches ``csrc/flash_attention.cu`` (bf16 on
 tensor cores, float32 on CUDA cores) and its backward
-``csrc/flash_attention_bwd.cu``; a call that autograd does not track
+``csrc/flash_attention_bwd.cu`` (one cluster launch at the model's lengths,
+:func:`flash_backward_plan`); a call that autograd does not track
 launches the forward alone, writing only the output. On CPU tensors they
 run the plain versions :func:`flash_attention_reference` and
 :func:`flash_attention_backward_reference`, which compute the same
@@ -31,6 +32,10 @@ import torch
 from . import _build
 
 HEAD_DIM = 32  # the kernels map one head row onto one warp's lanes
+# n and m up to which K7b is one cluster launch (kOneLaunch in
+# csrc/flash_attention_bwd.cu), and the kv rows of one of its CTAs
+FLASH_BWD_ONE_LAUNCH = 512
+_KV_BLOCK = 64
 
 
 def _reference_f32(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,7 +96,7 @@ def _check_kernel_args(op: str, q, k, v) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous, at a 16-byte aligned address (a view with an odd
-    offset is copied): the bf16 kernel reads rows with 16-byte copies."""
+    offset is copied): the kernels read rows with 16-byte copies."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -125,27 +130,48 @@ def _plain(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def flash_backward_plan(b: int, h: int, n: int, m: int, bf16: bool = True) -> dict:
+    """K7b's launches for q (b, h, n, 32) and k, v (b, h, m, 32): where n and
+    m are at most FLASH_BWD_ONE_LAUNCH (the UNet's RT axis, 34 or 340), one
+    cluster launch a call, ``cluster`` = ceil(m / 64) CTAs a head, each
+    owning 64 kv rows and summing dq over the cluster in rank order; past
+    it, two (dq over q blocks, then dk and dv over kv blocks), ``cluster``
+    0. ``tensor_cores``: bf16 runs ``mma.sync``, float32 CUDA cores."""
+    if min(b, h, n, m) < 1:
+        raise ValueError(f"flash_backward_plan: needs b, h, n, m >= 1 (got {(b, h, n, m)})")
+    one = n <= FLASH_BWD_ONE_LAUNCH and m <= FLASH_BWD_ONE_LAUNCH
+    return dict(launches=1 if one else 2, cluster=-(-m // _KV_BLOCK) if one else 0,
+                tensor_cores=bool(bf16))
+
+
 def flash_attention_backward(q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) of :func:`flash_attention` for the output cotangent
     ``do``, each in its input's dtype; ``o`` is the forward's output, best
     the float32 one (``D`` is formed from it). CPU tensors run
     :func:`flash_attention_backward_reference`; CUDA tensors launch K7b
-    (``csrc/flash_attention_bwd.cu``: D and dq over the q blocks, then dk
-    and dv over the kv blocks; no atomics, so deterministic)."""
+    (``csrc/flash_attention_bwd.cu``) as :func:`flash_backward_plan` says:
+    one cluster launch at the model's lengths, D formed inside, no atomics,
+    so deterministic. The only allocations are dq, dk and dv (and copies of
+    inputs that are not dense, aligned or of the kernel's dtype)."""
     if _plain(q):
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
     _check_kernel_args("flash_attention_backward", q, k, v)
     b, h, n, _ = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = o.to(torch.float32).contiguous()
-    do = do.to(q.dtype).contiguous()
-    lse = lse.to(torch.float32).contiguous()
-    d_scratch = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    m = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError("flash_attention_backward: o and do must have q's shape, lse "
+                         f"(b, h, n); got {tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    do = _aligned(do if do.dtype == q.dtype else do.to(q.dtype))
+    o = _aligned(o if o.dtype == torch.float32 else o.to(torch.float32))
+    lse = _aligned(lse if lse.dtype == torch.float32 else lse.to(torch.float32))
+    bf16 = q.dtype == torch.bfloat16
+    plan = flash_backward_plan(b, h, n, m, bf16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ptrs = (q, k, v, o, lse, do, d_scratch, dq, dk, dv)
+    ptrs = (q, k, v, o, lse, do, dq, dk, dv)
     code = _build.library().dq_flash_attention_bwd(
-        *[t.data_ptr() for t in ptrs], b * h, n, k.shape[2], scale,
-        int(q.dtype == torch.bfloat16), q.device.index or 0, _build.stream_of(q),
+        *[t.data_ptr() for t in ptrs], b * h, n, m, scale, int(bf16), plan["cluster"],
+        q.device.index or 0, _build.stream_of(q),
     )
     _build.check(code, "dq_flash_attention_bwd")
     flash_attention_backward.launches += 1

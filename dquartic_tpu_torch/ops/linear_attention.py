@@ -25,7 +25,8 @@ The row-blocked ops of ``impl="pallas"`` (port of
 residual and with a running max for the k-softmax:
 :func:`fused_linear_attention` (K8, one cluster launch that reads the
 weights as they are) and
-:func:`fused_linear_attention_two_call` (K9, two launches), both in
+:func:`fused_linear_attention_two_call` (K9, two launches of K8's kernel:
+its context mode, then its apply mode), both in
 ``csrc/linear_attention_rows.cu``, with :func:`linear_attention_rows_reference`
 as their plain version.
 """
@@ -40,7 +41,6 @@ import torch
 from ..parallel.sequence import sp_all_reduce
 from . import _build
 
-_LOG2E = 1.4426950408889634
 MAX_C = 16
 DIM_HEAD = 32  # the kernel maps one head onto one warp
 
@@ -135,10 +135,6 @@ def _kernel_weights(x, w_qkv, g_pre, heads):
     gp = g_pre.to(device=dev, dtype=torch.float32).reshape(-1)
     kshift, qshift = static_shifts(wq, wk, gp, heads)
     return wq, wk, wv, gp, kshift, qshift
-
-
-def _f32(t, dev):
-    return t.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def _vec_stride(t, C):
@@ -323,6 +319,37 @@ def linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads=4, dim_head
         x.transpose(1, 2), w_qkv, w_out, b_out, g, heads, dim_head).transpose(1, 2)
 
 
+def rows_context_reference(x, w_qkv, w_out, heads=4, dim_head=DIM_HEAD):
+    """Plain version of K9's first launch (K8's kernel in its context mode):
+    each row's folded context ``M = W_outᵀ ctxᵀ``, (B, C, H) float32 (float64
+    for float64 x), ctx the per-head ``context`` of
+    :func:`linear_attention_reference`, from x (B, N, C)."""
+    B, N, C = x.shape
+    H = heads * dim_head
+    ct = _inner(x)
+    w = w_qkv.to(ct)
+    k, v = (torch.einsum("bnc,ch->bhn", x.to(ct), w[:, i * H:(i + 1) * H])
+            .reshape(B, heads, dim_head, N) for i in (1, 2))
+    context = torch.einsum("bhdn,bhen->bhde", torch.softmax(k, dim=3), v)
+    wo = w_out.to(ct).reshape(heads, dim_head, C)
+    return torch.einsum("hec,bhde->bchd", wo, context).reshape(B, C, H)
+
+
+def rows_apply_reference(x, m, w_qkv, b_out, g, heads=4, dim_head=DIM_HEAD):
+    """Plain version of K9's second launch (its apply mode): ``y =
+    RMSNorm_g(M q^ + b_out)`` on (B, N, C) from each row's M (B, C, H), q^ the
+    per-head softmax of ``W_q x`` times ``dim_head ** -0.5``; float32 inside,
+    the result in x's dtype. Composed with :func:`rows_context_reference` it
+    is :func:`linear_attention_rows_reference`."""
+    B, N, C = x.shape
+    H = heads * dim_head
+    ct = _inner(x)
+    q = torch.einsum("bnc,ch->bhn", x.to(ct), w_qkv.to(ct)[:, :H]).reshape(B, heads, dim_head, N)
+    q = torch.softmax(q, dim=2) * (dim_head**-0.5)
+    y = torch.einsum("bch,bhn->bcn", m.to(ct), q.reshape(B, H, N)) + b_out.to(ct).reshape(1, -1, 1)
+    return rmsnorm_reference(y, g).to(x.dtype).transpose(1, 2)
+
+
 def _check_rows_args(op, x, w_qkv, w_out, heads, dim_head):
     if x.device.type != "cuda":
         raise RuntimeError(f"{op}: unsupported device {x.device}")
@@ -345,58 +372,32 @@ def rows_launcher(op, x, w_qkv, w_out, b_out, g, heads, dim_head, two_call):
     ``launch()`` runs the kernel into ``y`` and nothing else (no allocation,
     no count), so it can be timed alone. x's memory is either layout's:
     row-major, or the model's channel-first (B, C, N) seen through
-    ``transpose(1, 2)``."""
+    ``transpose(1, 2)``. Both read x, y and the weights through their
+    strides, in their own dtypes (``csrc/linear_attention_rows.cu``). K8 is
+    one cluster launch; K9 is K8's kernel in its context mode (a cluster
+    launch whose rank 0 writes each row's M, float32 (B, C, H), to device
+    memory), then in its apply mode (a grid of independent CTAs that read
+    M). The only torch ops are the allocations of y (``empty_like``: x's
+    strides where x is dense) and, for K9, of M."""
     _check_rows_args(op, x, w_qkv, w_out, heads, dim_head)
-    if two_call:
-        return _k9_launcher(x, w_qkv, w_out, b_out, g, heads, dim_head)
-    return _k8_launcher(x, w_qkv, w_out, b_out, g, heads)
-
-
-def _k8_launcher(x, w_qkv, w_out, b_out, g, heads):
-    """K8 on checked arguments: one cluster launch of
-    ``csrc/linear_attention_rows.cu`` that reads x, y and the weights
-    through their strides, in their own dtypes; the only torch op is y's
-    allocation (``empty_like``: x's strides where x is dense)."""
     B, N, C = x.shape
     wargs, bits = _tensor_args((w_qkv, w_out, b_out, g), C, x.device, "weights")
     y = torch.empty_like(x)
     lib, stream, dev = _build.library(), _build.stream_of(x), x.device.index or 0
-    args = (x.data_ptr(), y.data_ptr(), *x.stride(), *y.stride(), *wargs, B, C, N, heads, bits,
-            int(x.dtype == torch.bfloat16), dev, stream)
+    tail = (B, C, N, heads, bits, int(x.dtype == torch.bfloat16), dev, stream)
+    m = None
+    if two_call:
+        m = torch.empty((B, C, heads * dim_head), dtype=torch.float32, device=x.device)
+        name, tail = "dq_linear_attention_rows", (m.data_ptr(), *tail)
+    else:
+        name = "dq_linear_attention_rows_fused"
+    args = (x.data_ptr(), y.data_ptr(), *x.stride(), *y.stride(), *wargs, *tail)
+    fn = getattr(lib, name)
 
     def launch():
-        _build.check(lib.dq_linear_attention_rows_fused(*args), "dq_linear_attention_rows_fused")
+        _build.check(fn(*args), name)
 
-    launch.tensors = (x, y, w_qkv, w_out, b_out, g)  # alive while the closure may launch
-    return launch, y
-
-
-def _k9_launcher(x, w_qkv, w_out, b_out, g, heads, dim_head):
-    """K9 on checked arguments: float32 weight rows (W_q, W_k scaled by
-    log2(e)) and M's scratch prepared by torch ops, then two launches; y gets
-    x's strides."""
-    B, N, C = x.shape
-    H = heads * dim_head
-    if not (x.is_contiguous() or x.transpose(1, 2).is_contiguous()):
-        x = x.contiguous()
-    dev = x.device
-    y = torch.empty_like(x)  # dense input: the same strides
-    wt = w_qkv.to(device=dev, dtype=torch.float32).t()
-    wq, wk = ((wt[i * H : (i + 1) * H] * _LOG2E).contiguous() for i in range(2))
-    wv = wt[2 * H :].contiguous()
-    m = torch.empty((B, C, H), dtype=torch.float32, device=dev)
-    args = (wq, wk, wv, _f32(w_out, dev), _f32(b_out, dev).reshape(C), _f32(g, dev).reshape(C), m)
-    ptrs = [a.data_ptr() for a in args]
-    lib, stream = _build.library(), _build.stream_of(x)
-
-    def launch():
-        code = lib.dq_linear_attention_rows(
-            x.data_ptr(), y.data_ptr(), *x.stride(), *ptrs, B, C, N, heads,
-            int(x.dtype == torch.bfloat16), dev.index or 0, stream,
-        )
-        _build.check(code, "dq_linear_attention_rows")
-
-    launch.args = args  # keeps the prepared weights alive with the closure
+    launch.tensors = (x, y, m, w_qkv, w_out, b_out, g)  # alive while the closure may launch
     return launch, y
 
 
@@ -453,8 +454,9 @@ def fused_linear_attention(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD
 
 def fused_linear_attention_two_call(x, w_qkv, w_out, b_out, g, heads=4, dim_head=DIM_HEAD):
     """The function of :func:`fused_linear_attention` in two launches (K9;
-    ``_fused_forward`` of the JAX package): the context of each row to
-    device memory, then the output pass. Forward only, as in JAX, where no
+    ``_fused_forward`` of the JAX package): each row's folded context M to
+    device memory (K8's kernel in its context mode), then the output pass
+    (its apply mode). Forward only, as in JAX, where no
     model path reaches it. CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return linear_attention_rows_reference(x, w_qkv, w_out, b_out, g, heads, dim_head)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times of the sequence-parallel linear-attention kernels K6a-c and of the
-row-blocked K8 of the PyTorch port, with K1 and K4 beside them, for one or
-more checkouts on one CUDA card.
+"""Times of the sequence-parallel linear-attention kernels K6a-c, of the
+row-blocked K8 and K9 and of the flash-attention K7a and K7b of the PyTorch
+port, with K1 and K4 beside them, for one or more checkouts on one CUDA
+card.
 
     python3 scripts/time_k6.py [--reps N] [TREE ...]
 
@@ -24,13 +25,19 @@ For each tree the script times, in bf16 with float32 weights (as phase 10 of
   y (there: ``sp_context`` and the op);
 * K1 (``linear_attention``) and K4 (``linear_attention_backward``) at
   (34, 4, 40000), the level-0 shape of one process;
-* K8 (``fused_linear_attention``) at the (C, N) of every mixer of the
+* K8 (``fused_linear_attention``) and K9
+  (``fused_linear_attention_two_call``) at the (C, N) of every mixer of the
   canonical model with B = 34, on channel-first memory (the model's), and
-  at (34, 40000, 4) also the kernel alone (``rows_launcher``'s launch) and
-  on row-major memory;
+  at (34, 40000, 4) also the kernels alone (``rows_launcher``'s launch) and
+  K8 on row-major memory;
+* K7a (``flash_attention``, untracked) at (1, 4, 34, 32) and K7b
+  (``flash_attention_backward``, from the float32 output and lse) at
+  (1, 4, 34, 32), (8, 4, 34, 32), (1, 4, 340, 32) and (1, 4, 16384, 32),
+  with the backward of ``scaled_dot_product_attention`` at the last;
 
 each around the wrapper (CUDA events over back-to-back calls, the mean) and
-on the device (``torch.profiler`` over whole calls: the device time of every
+on the device (``torch.profiler`` over whole calls, padded by a 2 ms spin
+of the card before and after that is not counted: the device time of every
 kernel a call runs, and how many kernels that is). With ``--window`` it
 also times, in each tree, the path on which K8 runs: the canonical model
 unfused with ``tpu.linear_attn_impl = "pallas"`` (bf16, int8 mid convs,
@@ -43,6 +50,7 @@ forwards on the device (K8's kernels and all). It prints the card
 from __future__ import annotations
 
 import argparse
+import functools
 import inspect
 import json
 import os
@@ -53,6 +61,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (C, N) of the 14 mixers of the canonical model (chip_smoke.py's ROWS_SHAPES)
 ROWS_SHAPES = ((4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
                (16, 625), (16, 1250), (12, 5000), (8, 20000))
+# (b, h, n) of K7b: the RT axis at 34 and 340, batch 8, and a long sequence
+FLASH_BWD_SHAPES = ((1, 4, 34), (8, 4, 34), (1, 4, 340), (1, 4, 16384))
+PAD_S = 2e-3  # the spin before and after a profiled window (chip_smoke.py's PROFILE_PAD_S)
 
 
 def _events_ms(fn, reps, warmup=3):
@@ -70,6 +81,15 @@ def _events_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def _pad_cycles() -> int:
+    """PAD_S in cycles of the card's highest SM clock (nvidia-smi)."""
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.split()[0]
+    return int(PAD_S * float(clk) * 1e6)
+
+
 def _device_ms(fn, reps, name=None):
     """(device ms a call, kernels a call) over every kernel the calls ran;
     with ``name``, also the device ms a call of the kernels whose names hold
@@ -79,14 +99,18 @@ def _device_ms(fn, reps, name=None):
 
     fn()
     torch.cuda.synchronize()
+    pad = _pad_cycles()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(pad)
         for _ in range(reps):
             fn()
+        torch.cuda._sleep(pad)
         torch.cuda.synchronize()
     us = named = 0.0
     n = 0
     for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count:
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count \
+                or "spin_kernel" in e.key:
             continue
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
@@ -124,6 +148,34 @@ def time_window(out):
                          forward_k8_device_ms=k8)
 
 
+def time_flash(out, both, gen, reps):
+    """K7a at (1, 4, 34, 32) and K7b at FLASH_BWD_SHAPES, bf16; the backward
+    of ``scaled_dot_product_attention`` at the longest."""
+    import torch
+
+    from dquartic_tpu_torch.ops import flash_attention as fa
+
+    scale = 32 ** -0.5
+    for b, h, n in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn((b, h, n, 32), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        if n == 34 and b == 1:
+            with torch.no_grad():
+                both("K7a_1x34", lambda: fa.flash_attention(q, k, v))
+        _, lse, o32 = fa._launch_forward(q, k, v, scale)
+        out_reps = reps if n <= 512 else 5
+        both(f"K7b_{b}x{n}", lambda: fa.flash_attention_backward(q, k, v, o32, lse, do, scale),
+             out_reps)
+        if n > 512:
+            ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            lo = torch.nn.functional.scaled_dot_product_attention(*ls)
+            both(f"sdpa_backward_{b}x{n}",
+                 lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), out_reps)
+            del ls, lo
+        del q, k, v, do, lse, o32
+        torch.cuda.empty_cache()
+
+
 def time_tree(reps, window=False):
     """Times of the checkout this process imports (run by ``--child``)."""
     import torch
@@ -141,9 +193,9 @@ def time_tree(reps, window=False):
          1.0 + randn(C, s=0.2)]
     out = {"tree": os.getcwd()}
 
-    def both(name, fn):
-        ms = _events_ms(fn, reps)
-        dev, kernels = _device_ms(fn, reps)
+    def both(name, fn, n=reps):
+        ms = _events_ms(fn, n)
+        dev, kernels = _device_ms(fn, n)
         out[name] = dict(wrapper_ms=ms, device_ms=dev, kernels_a_call=kernels)
 
     x, dy = randn(34, C, 20000).to(torch.bfloat16), randn(34, C, 20000).to(torch.bfloat16)
@@ -178,11 +230,16 @@ def time_tree(reps, window=False):
             wr = [randn(C, 384, s=0.3), randn(128, C, s=0.1), randn(C, s=0.1), randn(C)]
             xr = randn(34, C, N).to(torch.bfloat16).transpose(1, 2)  # (B, N, C) view
             both(f"K8_{C}x{N}", lambda: la.fused_linear_attention(xr, *wr))
+            both(f"K9_{C}x{N}", lambda: la.fused_linear_attention_two_call(xr, *wr))
             if (C, N) == ROWS_SHAPES[0]:
                 launch, _ = la.rows_launcher("fused_linear_attention", xr, *wr, 4, 32, False)
                 both("K8_alone", launch)
+                launch, _ = la.rows_launcher("fused_linear_attention_two_call", xr, *wr, 4, 32,
+                                             True)
+                both("K9_alone", launch)
                 xm = xr.contiguous()
                 both("K8_row_major", lambda: la.fused_linear_attention(xm, *wr))
+    time_flash(out, both, gen, reps)
     if window:
         time_window(out)
     return out

@@ -20,6 +20,7 @@ import torch
 
 import dquartic_tpu_torch.ops.flash_attention as tfa
 from dquartic_tpu_torch.ops import attention_dispatch as tad
+from test_torch_ops import _AtenLog
 
 try:  # the JAX reference; a CUDA machine without JAX runs only `-m cuda`
     import jax
@@ -169,6 +170,61 @@ def test_flash_backward_gets_the_float32_output(monkeypatch):
     assert passed == [(False, False), (False, False), (True, True)]
 
 
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("b,n", [(1, 34), (8, 34), (1, 340), (8, 340)])
+def test_flash_backward_plan_is_one_launch_at_the_model_shapes(b, n, bf16):
+    """K7b at the UNet's RT lengths (34 canonical, 340 production) and
+    batches 1 and 8: one cluster launch a call, ceil(m / 64) CTAs a head."""
+    plan = tfa.flash_backward_plan(b, 4, n, n, bf16)
+    assert plan == dict(launches=1, cluster=-(-n // 64), tensor_cores=bf16)
+
+
+@pytest.mark.parametrize("n,m", [(513, 34), (34, 513), (16384, 16384)])
+def test_flash_backward_plan_is_two_launches_past_the_limit(n, m):
+    """Past FLASH_BWD_ONE_LAUNCH rows on either side: dq, then dk and dv."""
+    assert tfa.FLASH_BWD_ONE_LAUNCH == 512
+    assert tfa.flash_backward_plan(1, 4, 512, 512)["launches"] == 1
+    assert tfa.flash_backward_plan(1, 4, n, m) == dict(launches=2, cluster=0, tensor_cores=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,m", [(34, 34), (600, 130)])
+def test_flash_backward_wrapper_allocates_only_the_gradients(monkeypatch, dtype, n, m):
+    """K7b's wrapper, with the kernel library faked: given dense, aligned
+    inputs in the kernel's dtypes (the float32 output autograd saves), it
+    runs no aten op but the allocations of dq, dk and dv, hands the kernel
+    the inputs' own memory and the cluster size of flash_backward_plan, and
+    counts one call."""
+    passed = []
+
+    class FakeLibrary:
+        def dq_flash_attention_bwd(self, *args):
+            passed.append(args)
+            return 0
+
+    monkeypatch.setattr(tfa, "_plain", lambda t: False)
+    monkeypatch.setattr(tfa, "_check_kernel_args", lambda *a: None)
+    monkeypatch.setattr(tfa._build, "library", FakeLibrary)
+    monkeypatch.setattr(tfa._build, "stream_of", lambda t: 0)
+    q, k, v = (_t(a, dtype) for a in _qkv(1, 2, n, m, seed=17))
+    o = _t(np.random.default_rng(18).normal(size=q.shape))
+    lse = _t(np.random.default_rng(19).normal(size=q.shape[:3]))
+    do = _t(np.random.default_rng(20).normal(size=q.shape), dtype)
+    before = tfa.flash_attention_backward.launches
+    with _AtenLog() as log:
+        dq, dk, dv = tfa.flash_attention_backward(q, k, v, o, lse, do, 0.25)
+    assert log.ops == ["aten.empty_like"] * 3, log.ops
+    assert tfa.flash_attention_backward.launches == before + 1
+    (args,) = passed
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv))
+    plan = tfa.flash_backward_plan(1, 2, n, m, dtype == "bfloat16")
+    assert args[:9] == ptrs
+    assert args[9:12] == (2, n, m) and args[12] == 0.25
+    assert args[13:16] == (int(dtype == "bfloat16"), plan["cluster"], 0)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == dk.dtype == dv.dtype == q.dtype
+
+
 # --------------------------------------------------------------------- #
 # dispatch                                                              #
 # --------------------------------------------------------------------- #
@@ -307,6 +363,39 @@ def test_flash_backward_kernel_on_card(cuda, dtype, b, h, n, m):
 
 
 _EDGES = (1, 15, 17, 63, 65)  # around the 16-row warp block and the 64-row kv tile
+# chip_smoke.py's FLASH_SHAPES: the RT axis at 34 and 340, batch 8, ragged
+FLASH_SHAPES = ((1, 4, 34, 34), (1, 4, 340, 340), (8, 4, 34, 34), (1, 4, 130, 257))
+# both sides of K7b's one-launch limit (512 rows of q and of k)
+_LIMIT = ((1, 2, 512, 512), (1, 2, 513, 512), (1, 2, 512, 513), (1, 2, 700, 100),
+          (1, 2, 100, 700), (1, 2, 1000, 1300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,m", FLASH_SHAPES + _LIMIT
+                         + tuple((2, 3, n, m) for n in _EDGES for m in _EDGES))
+def test_flash_backward_kernel_every_edge_on_card(cuda, dtype, b, h, n, m):
+    """K7b (bf16 on tensor cores) at the UNet's shapes, around its tile and
+    warp edges and on both sides of the one-launch limit, against autograd
+    of the plain version run in float32 on the same values: max |error|
+    over the largest entry of the three gradients (at m = 1 dq and dk are
+    zero: P = 1 and dS = dP - D = 0); two identical calls bitwise equal."""
+    q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=n * 1000 + m))
+    do = _t(np.random.default_rng(n + m).normal(size=q.shape).astype(np.float32), dtype, cuda)
+    _, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    before = tfa.flash_attention_backward.launches
+    got = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    again = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ts = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(tfa.flash_attention_plain(*ts), ts, do.float())
+    scale = max(float(r.abs().max()) for r in ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == q.dtype and g.shape == r.shape
+        err = float((g.float() - r).abs().max()) / scale
+        assert err < (1e-5 if dtype == "float32" else 1e-2), err
 
 
 @pytest.mark.cuda

@@ -116,6 +116,21 @@ def test_k9_op_matches_jax(N, C):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **OP_TOL)
 
 
+@pytest.mark.parametrize("N,C", [(700, 4), (1025, 16)])
+def test_k9_plain_launches_compose_to_jax(N, C):
+    """The plain versions of K9's two launches, the context mode's M then
+    the apply mode's y, composed, against JAX ``_fused_forward`` with
+    512-row blocks (interpret mode)."""
+    w = _weights(C, seed=40 + C)
+    x = _x(2, N, C, seed=40 + N)
+    ref = jla._fused_forward(_j(x), *map(_j, w), 4, 32, 512, None)
+    m = tla.rows_context_reference(_t(x), w_qkv=_t(w[0]), w_out=_t(w[1]))
+    assert m.shape == (2, C, 128) and m.dtype == torch.float32
+    out = tla.rows_apply_reference(_t(x), m, _t(w[0]), _t(w[2]), _t(w[3]))
+    assert out.shape == (2, N, C) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **OP_TOL)
+
+
 @pytest.mark.parametrize("two_call", [False, True])
 def test_rows_ops_bf16_match_jax(two_call):
     """bf16 inputs, float32 weights: the output in bf16, against the JAX
@@ -214,6 +229,47 @@ def test_k8_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype, layou
     bits = 0b0111 if dtype == "bfloat16" else 0  # w_qkv, w_out, b_out in the compute dtype
     # B, C, N, heads, weight dtype bits, bf16 x, device
     assert args[18:25] == (B, C, N, 4, bits, int(dtype == "bfloat16"), 0)
+    assert y.shape == x.shape and y.dtype == dt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["channel_first", "row_major"])
+def test_k9_wrapper_hands_the_weights_over_as_they_are(monkeypatch, dtype, layout):
+    """K9's launch runs no aten op but the allocations of y and of the rows'
+    M, float32 (B, C, H): one call of its entry point, which gets K8's
+    arguments (x's and y's own memory and strides, the weights' own
+    memory, strides and dtypes) and M after the weights."""
+    calls = []
+
+    class FakeLibrary:
+        def dq_linear_attention_rows(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tla, "_check_rows_args", lambda *a: None)
+    monkeypatch.setattr(tla._build, "library", FakeLibrary)
+    monkeypatch.setattr(tla._build, "stream_of", lambda t: 0)
+    dt = getattr(torch, dtype)
+    B, N, C, H = 2, 10, 4, 128
+    w_qkv, w_out, b_out, g = map(_t, _weights(C, seed=142))
+    conv_qkv, conv_out = w_qkv.t().contiguous().to(dt), w_out.t().contiguous().to(dt)
+    w = [conv_qkv.t(), conv_out.t(), b_out.to(dt).reshape(1, C, 1), g]
+    xc = _t(np.random.default_rng(143).normal(size=(B, C, N))).to(dt)
+    x = xc.transpose(1, 2) if layout == "channel_first" else xc.transpose(1, 2).contiguous()
+    with _AtenLog() as log:
+        launch, y = tla.rows_launcher("fused_linear_attention_two_call", x, *w, 4, 32,
+                                      two_call=True)
+        launch()
+    assert set(log.ops) <= _ALLOCATIONS and len(log.ops) == 2, log.ops
+    (args,) = calls
+    assert args[:2] == (x.data_ptr(), y.data_ptr())
+    assert args[2:8] == (*x.stride(), *y.stride()) and y.stride() == x.stride()
+    assert args[8:14] == (conv_qkv.data_ptr(), 1, C, conv_out.data_ptr(), 1, H)
+    assert args[14:18] == (w[2].data_ptr(), 1, g.data_ptr(), 1)
+    m = launch.tensors[2]
+    assert m.shape == (B, C, H) and m.dtype == torch.float32 and args[18] == m.data_ptr()
+    bits = 0b0111 if dtype == "bfloat16" else 0
+    assert args[19:26] == (B, C, N, 4, bits, int(dtype == "bfloat16"), 0)
     assert y.shape == x.shape and y.dtype == dt
 
 
@@ -661,6 +717,43 @@ def test_k8_kernel_running_max_on_card(cuda, dtype, case, C, N):
             y = tla.fused_linear_attention(x, *w)
         torch.cuda.synchronize()
         torch.testing.assert_close(y.float(), ref, rtol=tol, atol=tol)
+
+
+# (C, N) of the 14 mixers of the canonical model, then ragged N and N = 1
+# (chip_smoke.py's ROWS_SHAPES and ROWS_EXTRA)
+ROWS_SHAPES = ((4, 40000), (4, 20000), (8, 10000), (8, 5000), (12, 2500), (12, 1250),
+               (16, 625), (16, 1250), (12, 5000), (8, 20000))
+ROWS_EXTRA = ((8, 700), (12, 1025), (8, 1), (16, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,N", ROWS_SHAPES + ROWS_EXTRA)
+def test_k9_kernel_on_card(cuda, dtype, C, N):
+    """K9 (K8's kernel in its context mode, then its apply mode) at every
+    mixer shape of the canonical model, ragged N and N = 1, on channel-first
+    and row-major memory, against the plain version in float64 on the same
+    values; its M against the plain context launch's in float64; y keeps
+    x's strides; one count a call; two calls bitwise equal."""
+    xc, w = _rows_card_case(C, N, dtype, cuda, seed=190 + C + N)
+    ref = _rows_oracle(xc, w)
+    tol = CARD_TOL[dtype]
+    m_ref = tla.rows_context_reference(xc.double().transpose(1, 2), w[0].double(),
+                                       w[1].double()).float()
+    for x in (xc.transpose(1, 2), xc.transpose(1, 2).contiguous()):
+        before = tla.fused_linear_attention_two_call.launches
+        with torch.no_grad():
+            y = tla.fused_linear_attention_two_call(x, *w)
+            again = tla.fused_linear_attention_two_call(x, *w)
+        launch, y3 = tla.rows_launcher("fused_linear_attention_two_call", x, *w, 4, 32,
+                                       two_call=True)
+        launch()
+        torch.cuda.synchronize()
+        assert tla.fused_linear_attention_two_call.launches == before + 2
+        assert y.dtype == x.dtype and y.stride() == x.stride()
+        torch.testing.assert_close(y.float(), ref, rtol=tol, atol=tol)
+        assert torch.equal(y, again) and torch.equal(y, y3)
+        torch.testing.assert_close(launch.tensors[2], m_ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
