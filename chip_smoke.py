@@ -99,7 +99,23 @@ CUDA card with sm_90a). Phases, each of which must pass:
      the same call in one process (whose two mixers at N = 625 take the
      "xla" path, as at sp = 2); ms/window, ms/step and peak memory per
      rank, which say nothing of the speed of sequence parallelism (two
-     ranks share one card).
+     ranks share one card);
+ 11. the port's command line (``dquartic_tpu_torch.cli``), run in this
+     process: ``generate-config``; ``train`` at phase 7's depth (bf16,
+     fused ResnetBlocks) on NPY windows made from ``--seed`` for 2 epochs
+     (both checkpoints and ``metrics.jsonl``, K1, K2, K4, K5 launched),
+     then for 3, resuming after epoch 1; ``predict --quantize-mid
+     --fused-resnet --use-ema`` for 10 steps from that run's checkpoint;
+     then the main path through the entry point: the canonical config
+     (full width, bf16) over NPY windows of 34 x 40000, a params-only
+     checkpoint of a seeded float32 model in the layout
+     ``convert-checkpoint`` writes (4.8 GB), and ``predict --quantize-mid
+     --fused-resnet --num-steps 50 --num-batches 1`` to npz, with phase 4's
+     launches (K1 700, K2 1450, K3 200, K7a 50) and its ``pred`` bitwise
+     equal to ``DDIMSampler.predict_batch`` in this process on the model
+     built from the same file, the npz's mixture and MS1 and the same
+     seed; the command's wall seconds, its sampling's device ms (CUDA
+     events), and the seconds to write and to load the checkpoint.
 
 Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
@@ -262,6 +278,11 @@ SP_PREDICT_TOL = 1e-3
 # "xla" path there too, and K1 (the arithmetic of K6) at every other one,
 # so that the comparison sees the split alone.
 SP_REF_MIN_SEQ = MZ // 2**6 + 1
+# phase 11: windows in each NPY dataset of the command-line runs, the m/z
+# of its small-depth training, and the steps of its small predict
+CLI_WINDOWS = 4
+CLI_MZ = 256
+CLI_STEPS = 10
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device memory
 # bytes/s, and FLOP/s by the type of the operations.
 HBM_BYTES_PER_S = 3.35e12
@@ -2308,6 +2329,199 @@ def phase_sp(config, seed, gen, results):
         train={d: [r[f"train_{d}"] for r in ranks] for d in ("float32", "bfloat16")})
 
 
+def _cli(args):
+    """Run one command of the port's CLI in this process; wall seconds."""
+    from dquartic_tpu_torch.cli import cli
+
+    log(f"  $ python -m dquartic_tpu_torch.cli {' '.join(args)}")
+    t0 = time.perf_counter()
+    cli.main(args, standalone_mode=False)
+    return time.perf_counter() - t0
+
+
+def _npy_windows(directory, seed, mz):
+    """CLI_WINDOWS MS2 windows (RT x mz) and their MS1 traces from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(directory, f"{k}.npy") for k in ("ms2", "ms1")}
+    np.save(paths["ms2"], rng.uniform(0, 100, (CLI_WINDOWS, RT, mz)).astype(np.float32))
+    np.save(paths["ms1"], rng.uniform(0, 50, (CLI_WINDOWS, RT)).astype(np.float32))
+    return paths
+
+
+def _write_json(path, cfg):
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def phase_cli(seed, results):
+    """generate-config, train + resume and a short predict at small depth,
+    then the full-width predict of the shipping config from a checkpoint."""
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.infer import sampler as sampler_mod
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.train import (
+        checkpoint_params, latest_path_for, load_checkpoint, save_checkpoint,
+    )
+    from dquartic_tpu_torch.utils.builder import build_model, build_process
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    with tempfile.TemporaryDirectory(prefix="dq_cli_") as tmp:
+        free = subprocess.run(["df", "-h", tmp], capture_output=True, text=True, timeout=60)
+        log(f"  free space where the checkpoints go: {free.stdout.strip().splitlines()[-1]}")
+        cfg_path = os.path.join(tmp, "generated.json")
+        _cli(["generate-config", cfg_path])
+        generated = load_train_config(cfg_path)
+        check(generated["model"]["UNet1d"]["downsample_dim"] == MZ
+              and generated["tpu"]["optimizer"] == "adamw", "generate-config wrote another config")
+
+        # small depth: train 2 epochs, resume to 3, predict from the EMA
+        small = os.path.join(tmp, "small")
+        os.makedirs(small)
+        cfg = json.loads(json.dumps(generated))
+        paths = _npy_windows(small, seed + 1, CLI_MZ)
+        cfg["data"].update(parquet_directory=None, ms2_data_path=paths["ms2"],
+                           ms1_data_path=paths["ms1"])
+        best = os.path.join(small, "ckpt", "best_model.ckpt")
+        cfg["model"].update(checkpoint_path=best, num_epochs=2, warmup_epochs=1, batch_size=1,
+                            learning_rate=1e-3)
+        cfg["model"]["UNet1d"].update(dim_mults=[1, 2, 2], downsample_dim=CLI_MZ)
+        cfg["wandb"]["use_wandb"] = False
+        cfg["tpu"].update(compute_dtype="bfloat16", fused_resnet=True)
+        config2 = _write_json(os.path.join(small, "config.json"), cfg)
+        reset_launch_counts()
+        wall = _cli(["train", config2])
+        counts = launch_counts()
+        latest = latest_path_for(best)
+        check(os.path.exists(best) and os.path.exists(latest), "train wrote no checkpoints")
+        ck = load_checkpoint(latest)
+        check((ck["epoch"], ck["step"]) == (1, 2 * CLI_WINDOWS),
+              f"latest checkpoint epoch {ck['epoch']} step {ck['step']}")
+        check(isinstance(ck["ema_params"], dict), "the EMA is not keyed by name")
+        check(all(counts[k] > 0 for k in ("linear_attention", "linear_attention_backward",
+                                          "fused_resnet_block_t", "fused_resnet_backward")),
+              f"train did not run every kernel: {counts}")
+        log(f"  train: 2 epochs of {CLI_WINDOWS} steps in {wall:.2f} s wall, launches {counts}")
+        cfg["model"]["num_epochs"] = 3
+        config3 = _write_json(os.path.join(small, "config3.json"), cfg)
+        wall = _cli(["train", config3])
+        ck = load_checkpoint(latest)
+        check((ck["epoch"], ck["step"]) == (2, 3 * CLI_WINDOWS),
+              f"resumed run ended at epoch {ck['epoch']} step {ck['step']}")
+        with open(os.path.join(small, "ckpt", "metrics.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        check(epochs == [0, 1, 2], f"metrics.jsonl epochs {epochs}")
+        log(f"  train resumed after epoch 1: epoch 2 in {wall:.2f} s wall, step {ck['step']}, "
+            f"metrics.jsonl epochs {epochs}")
+        out = os.path.join(small, "pred.npz")
+        reset_launch_counts()
+        wall = _cli(["predict", "--quantize-mid", "--fused-resnet", "--use-ema", "--num-steps",
+                     str(CLI_STEPS), "--num-batches", "1", config3, latest, out])
+        counts = launch_counts()
+        pred = np.load(out)["pred_0"]
+        check(pred.shape == (1, RT, CLI_MZ) and bool(np.isfinite(pred).all()),
+              f"small predict: pred {pred.shape}, finite {bool(np.isfinite(pred).all())}")
+        check(all(counts[k] > 0 for k in ("linear_attention", "fused_resnet_block_t",
+                                          "int8_matmul")), f"small predict launches {counts}")
+        log(f"  predict {CLI_STEPS} steps from the EMA: pred {pred.shape} finite, "
+            f"{wall:.2f} s wall, launches {counts}")
+
+        # full width: the shipping config through predict from a checkpoint
+        full = os.path.join(tmp, "full")
+        os.makedirs(full)
+        with open(CONFIG) as f:
+            cfg = json.load(f)
+        paths = _npy_windows(full, seed + 2, MZ)
+        cfg["data"].update(parquet_directory=None, ms2_data_path=paths["ms2"],
+                           ms1_data_path=paths["ms1"])
+        cfg["model"]["checkpoint_path"] = os.path.join(full, "best_model.ckpt")
+        cfg["wandb"]["use_wandb"] = False
+        cfg["tpu"]["compute_dtype"] = "bfloat16"
+        config_full = _write_json(os.path.join(full, "config.json"), cfg)
+        ckpt_path = os.path.join(full, "converted.ckpt")
+        try:
+            weights = build_model(load_train_config(config_full), device="cuda", seed=seed,
+                                  trainable=True).state_dict()
+            n_params = sum(v.numel() for v in weights.values())
+            t0 = time.perf_counter()
+            save_checkpoint(ckpt_path, {"epoch": 0, "best_loss": float("inf"), "step": 0,
+                                        "params": weights, "opt_state": None,
+                                        "ema_params": weights})
+            write_s = time.perf_counter() - t0
+            del weights
+            torch.cuda.empty_cache()
+            log(f"  full-width float32 checkpoint ({n_params / 1e9:.3f} B parameters, params "
+                f"only): {os.path.getsize(ckpt_path) / 1e9:.2f} GB written in {write_s:.2f} s")
+
+            out = os.path.join(full, "pred.npz")
+            events = []
+            timed = sampler_mod.DDIMSampler.predict_batch
+
+            def predict_batch(self, *args, **kwargs):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                res = timed(self, *args, **kwargs)
+                end.record()
+                events.append((start, end))
+                return res
+
+            sampler_mod.DDIMSampler.predict_batch = predict_batch
+            reset_launch_counts()
+            try:
+                wall = _cli(["predict", "--quantize-mid", "--fused-resnet", "--num-steps",
+                             str(STEPS), "--num-batches", "1", config_full, ckpt_path, out])
+            finally:
+                sampler_mod.DDIMSampler.predict_batch = timed
+            counts = launch_counts()
+            torch.cuda.synchronize()
+            sample_ms = [s.elapsed_time(e) for s, e in events]
+            check(len(sample_ms) == 1, f"{len(sample_ms)} windows sampled, not 1")
+            serve_cfg = load_train_config(config_full)
+            serve_cfg["tpu"].update(quantize_mid=True, fused_resnet=True)
+            expect = _expect(SIMPLE_FORWARD, STEPS, serve_cfg)
+            check(counts == expect, f"CLI predict launches {counts} != {expect}")
+            npz = np.load(out)
+            pred = npz["pred_0"]
+            check(pred.shape == (1, RT, MZ) and bool(np.isfinite(pred).all()),
+                  f"CLI pred {pred.shape}, finite {bool(np.isfinite(pred).all())}")
+
+            # the same weights in this process: load the file, build through
+            # build_model(state_dict=...), sample from the npz's inputs
+            t0 = time.perf_counter()
+            ck = load_checkpoint(ckpt_path, map_location="cpu")
+            load_s = time.perf_counter() - t0
+            model = build_model(serve_cfg, device="cuda", state_dict=checkpoint_params(ck))
+            del ck
+            sampler = DDIMSampler(model, build_process(serve_cfg))
+            mixture = torch.from_numpy(npz["mixture_0"]).cuda()
+            ms1 = torch.from_numpy(npz["ms1_1_0"]).cuda()
+            ref, _ = sampler.predict_batch(torch.Generator(device="cuda").manual_seed(0),
+                                           mixture, ms1, STEPS)
+            ref = ref.float().cpu().numpy()
+            same = bool(np.array_equal(ref, pred))
+            log(f"  CLI predict, full width ({MZ} m/z, bf16, int8 mid convs, fused "
+                f"ResnetBlocks, {STEPS} steps, 1 window): {wall:.2f} s wall for the command, "
+                f"{sample_ms[0]:.2f} ms of sampling (CUDA events, the window's first sample "
+                f"in this model); checkpoint {write_s:.2f} s to write, {load_s:.2f} s to "
+                f"load; launches {counts}; pred range [{pred.min():.4f}, {pred.max():.4f}], "
+                f"bitwise equal to predict_batch in this process: {same}")
+            check(same, "the CLI's pred differs from predict_batch on the same weights: max "
+                  f"|diff| {float(np.abs(ref - pred).max()):.3e}")
+            results["cli"] = {"predict_wall_s": wall, "sample_ms_per_window": sample_ms[0],
+                              "checkpoint_write_s": write_s, "checkpoint_load_s": load_s,
+                              "launches": {k: v for k, v in counts.items() if v}}
+            del model, sampler
+        finally:
+            if os.path.exists(ckpt_path):
+                os.remove(ckpt_path)
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -2413,6 +2627,8 @@ def main(argv=None) -> int:
         phase_rows(config, args.seed, gen, results)
         log(f"== phase 10: sequence parallel (K6a-c) over an sp = {SP} group on one card")
         phase_sp(config, args.seed, gen, results)
+        log("== phase 11: the command line: generate-config, train, resume, predict")
+        phase_cli(args.seed, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -2425,6 +2641,7 @@ def main(argv=None) -> int:
     log(f"simple=False: {json.dumps(results.pop('tfer'))}")
     log(f"unfused pallas: {json.dumps(results.pop('rows'))}")
     log(f"sequence parallel: {json.dumps(results.pop('sp'))}")
+    log(f"command line: {json.dumps(results.pop('cli'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,16 +29,35 @@ The mapping is linear (transposes and reshapes), so it maps gradients too:
 ``torch_to_jax_params(grads_state_dict(model), dim_mults)`` is the gradient
 tree ``jax.grad`` returns for the same loss, which is how the tests compare
 the two packages' gradients.
+
+:func:`jax_checkpoint_to_port` maps a whole JAX checkpoint (the payload of
+``dquartic_tpu.train.Trainer``: ``{epoch, best_loss, state: {step, params,
+opt_state, ema_params}}``) onto the port's checkpoint: the parameters and
+the EMA as state_dicts, and optax's optimizer state keyed by parameter
+name, in the port's layouts, for ``ClippedAdamW`` (``mu``, ``nu``,
+``count``) or ``ClippedFactoredRMS`` (``v_row``, ``v_col``, ``v``,
+``count``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Path = Tuple[str, ...]
+
+
+def _f32(v) -> np.ndarray:
+    """A leaf as float32 numpy (a bfloat16 leaf reads as a torch tensor)."""
+    return v.float().numpy() if torch.is_tensor(v) else np.asarray(v, np.float32)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A torch tensor over ``a``, copied only where ``a`` is not a
+    contiguous, aligned, writable array."""
+    return torch.from_numpy(np.require(a, requirements=["C", "A", "W"]))
 
 
 class _ToTorch:
@@ -69,18 +88,38 @@ class _ToTorch:
             self.out[f"{name}.weight_q"] = np.asarray(p["kernel_q"], np.int8)[: 3 * n, :n].copy()
             self.out[f"{name}.scale"] = np.asarray(p["kernel_scale"], np.float32)[:n].copy()
         else:
-            self.out[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"], np.float32), (2, 1, 0))
+            self.out[f"{name}.weight"] = np.transpose(_f32(p["kernel"]), (2, 1, 0))
         if "bias" in p:
-            self.out[f"{name}.bias"] = np.asarray(p["bias"], np.float32)
+            self.out[f"{name}.bias"] = _f32(p["bias"])
 
     def dense(self, path: Path, name: str) -> None:
         p = self._at(path)
-        self.out[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"], np.float32), (1, 0))
-        self.out[f"{name}.bias"] = np.asarray(p["bias"], np.float32)
+        self.out[f"{name}.weight"] = np.transpose(_f32(p["kernel"]), (1, 0))
+        self.out[f"{name}.bias"] = _f32(p["bias"])
 
     def norm(self, path: Path, name: str) -> None:
         for key, v in self._at(path).items():  # g, and b of a LayerNorm
-            self.out[f"{name}.{key}"] = np.asarray(v, np.float32).reshape(1, -1, 1)
+            self.out[f"{name}.{key}"] = _f32(v).reshape(1, -1, 1)
+
+
+class _Layouts(_ToTorch):
+    """Reads a flax tree, records for each torch name the flax path of its
+    leaf and the axis order that maps one onto the other: torch axis i is
+    flax axis ``perm[i]`` (None for a norm's (C,) -> (1, C, 1))."""
+
+    def conv(self, path: Path, name: str) -> None:
+        p = self._at(path)
+        self.out[f"{name}.weight"] = (path + ("kernel",), (2, 1, 0))
+        if "bias" in p:
+            self.out[f"{name}.bias"] = (path + ("bias",), (0,))
+
+    def dense(self, path: Path, name: str) -> None:
+        self.out[f"{name}.weight"] = (path + ("kernel",), (1, 0))
+        self.out[f"{name}.bias"] = (path + ("bias",), (0,))
+
+    def norm(self, path: Path, name: str) -> None:
+        for key in self._at(path):
+            self.out[f"{name}.{key}"] = (path + (key,), None)
 
 
 class _ToJax:
@@ -187,12 +226,117 @@ def _walk(m, n_levels: int) -> None:
     m.conv(("final_conv",), "final_conv")
 
 
-def jax_params_to_torch(params: Dict[str, Any], dim_mults: Sequence[int]) -> Dict[str, np.ndarray]:
+def _n_levels(params: Dict[str, Any]) -> int:
+    p = params.get("params", params)
+    n = 0
+    while f"downs_{n}_block1" in p:
+        n += 1
+    return n
+
+
+def jax_params_to_torch(params: Dict[str, Any],
+                        dim_mults: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
     """Conditional UNet1d flax tree (with or without the ``{"params": ...}``
-    wrapper) -> port state_dict of numpy arrays."""
+    wrapper) -> port state_dict of numpy arrays. The number of levels is
+    that of ``dim_mults``, or of the tree when it is None."""
     m = _ToTorch(params)
-    _walk(m, len(dim_mults))
+    _walk(m, _n_levels(params) if dim_mults is None else len(dim_mults))
     return m.out
+
+
+def _state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: _tensor(v) for k, v in jax_params_to_torch(tree).items()}
+
+
+def _unwrap(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return tree.get("params", tree)
+
+
+def _factored_to_port(st: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, Any]:
+    """optax ``FactoredState`` in flax layouts -> the port's, by name. A
+    parameter is factored where its ``v`` is optax's (1,) placeholder; its
+    two largest axes are then factored in either layout (argsort of the
+    sizes, as optax's ``_factored_dims``), the same physical axes: where
+    two of them tie in size, both are factored in both layouts, and a tie
+    with a conv's kernel axis (4 at most) stays below optax's threshold of
+    128. The statistic that averages out one of the axes goes to the slot
+    that averages out the same axis in the torch layout, its other axes put
+    in the torch order."""
+    layouts = _Layouts(params)
+    _walk(layouts, _n_levels(params))
+    trees = {k: _unwrap(st[k]) for k in ("v_row", "v_col", "v")}
+
+    def at(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree
+
+    def two_largest(shape):
+        order = np.argsort(shape)
+        return int(order[-2]), int(order[-1])
+
+    out: Dict[str, Any] = {"kind": "factored", "count": int(st["count"]),
+                           "v_row": {}, "v_col": {}, "v": {}}
+    for name, (path, perm) in layouts.out.items():
+        fshape = tuple(np.shape(at(layouts.p, path)))
+        tshape = (1, fshape[0], 1) if perm is None else tuple(fshape[a] for a in perm)
+        v = _f32(at(trees["v"], path))
+        for k in ("v_row", "v_col", "v"):
+            out[k][name] = None
+        if v.shape == fshape:
+            out["v"][name] = _tensor(v.reshape(tshape) if perm is None else np.transpose(v, perm))
+            continue
+        if perm is None:
+            raise ValueError(f"{name}: a factored statistic of a 1-D parameter {fshape}")
+        fdims, tdims = two_largest(fshape), two_largest(tshape)
+        flax_slot = {fdims[1]: "v_row", fdims[0]: "v_col"}  # the axis each averages out
+        for k, removed in (("v_row", tdims[1]), ("v_col", tdims[0])):
+            axis = perm[removed]
+            if axis not in flax_slot:
+                raise ValueError(
+                    f"{name}: flax {fshape} and torch {tshape} factor different axes (a tie "
+                    "with the kernel axis, below optax's threshold of 128)")
+            src = _f32(at(trees[flax_slot[axis]], path))
+            rest = [a for a in range(len(fshape)) if a != axis]
+            order = [perm[i] for i in range(len(tshape)) if i != removed]
+            out[k][name] = _tensor(np.transpose(src, [rest.index(a) for a in order]))
+    return out
+
+
+def _opt_state_to_port(opt_state, params) -> Optional[Dict[str, Any]]:
+    """The optax chain's state (clip, then Adam and weight decay, or the
+    factored RMS) -> the port's name-keyed optimizer state, or None."""
+    if opt_state is None:
+        return None
+    parts = opt_state.values() if isinstance(opt_state, dict) else opt_state
+    for part in parts:
+        if isinstance(part, dict) and "mu" in part:
+            return {"kind": "adamw", "count": int(part["count"]),
+                    "exp_avg": _state_dict(part["mu"]), "exp_avg_sq": _state_dict(part["nu"])}
+        if isinstance(part, dict) and "v_row" in part:
+            return _factored_to_port(part, params)
+    raise ValueError("unknown optimizer state in the JAX checkpoint: "
+                     f"{[sorted(p) if isinstance(p, dict) else p for p in parts]}")
+
+
+def jax_checkpoint_to_port(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX package checkpoint as ``read_jax_checkpoint`` returns it ->
+    the port's payload ``{epoch, best_loss, step, params, opt_state,
+    ema_params}``: float32 state_dicts of the conditional UNet1d (the number
+    of levels read from the tree), the optimizer state keyed by name
+    (None for a converted reference checkpoint, which has none), and the
+    EMA (None where the run kept none)."""
+    state = payload["state"]
+    params = state["params"]
+    ema = state.get("ema_params")
+    return {
+        "epoch": int(payload["epoch"]),
+        "best_loss": float(payload["best_loss"]),
+        "step": int(state["step"]),
+        "params": _state_dict(params),
+        "opt_state": _opt_state_to_port(state.get("opt_state"), params),
+        "ema_params": None if ema is None else _state_dict(ema),
+    }
 
 
 def torch_to_jax_params(sd: Dict[str, Any], dim_mults: Sequence[int]) -> Dict[str, Any]:

@@ -1,3 +1,6 @@
-from .sampler import DDIMSampler
+from .sampler import (
+    PREDICTION_SCHEMA_FIELDS, DDIMSampler, load_predictions_parquet, save_predictions_parquet,
+)
 
-__all__ = ["DDIMSampler"]
+__all__ = ["DDIMSampler", "PREDICTION_SCHEMA_FIELDS", "load_predictions_parquet",
+           "save_predictions_parquet"]

@@ -6,14 +6,25 @@ scale_by_adam(0.9, 0.999, 1e-8) -> add_decayed_weights(0.01), scaled by
 -lr: decoupled weight decay, which is what ``torch.optim.AdamW`` computes
 (p <- p - lr·(m̂/(√v̂ + eps) + wd·p)). The clipping is written out as optax
 writes it: ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm.
+
+``kind="factored"`` is the chain clip_by_global_norm(10) ->
+scale_by_factored_rms() (Adafactor's factored second moment, optax's
+defaults), scaled by -lr: :class:`ClippedFactoredRMS`.
+
+Each optimizer saves its state in its own ``state_dict`` form, indexed by
+the position of the parameter, and also loads the form
+:func:`~dquartic_tpu_torch.compat.jax_params.jax_checkpoint_to_port`
+makes of a JAX optimizer state: ``{"kind", "count", <moment>: {name:
+tensor}}``, keyed by parameter name.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, List
+from typing import Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -56,9 +67,27 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def clip_by_global_norm_(grads: List[torch.Tensor], clip_norm: float) -> torch.Tensor:
+    """Clip the gradients in place (``g / norm * max`` when norm > max) and
+    return the norm before clipping, on the device (no host sync)."""
+    norm = global_norm(grads)
+    # optax: select(norm < max, g, g / norm * max), without a host sync
+    denom = torch.where(norm < clip_norm, torch.ones_like(norm), norm / clip_norm)
+    torch._foreach_div_(grads, denom)
+    return norm
+
+
+def _check_named(named: dict, kind: str) -> None:
+    if named.get("kind") != kind:
+        raise ValueError(f"optimizer state of kind {named.get('kind')!r} cannot load into "
+                         f"the {kind!r} optimizer (tpu.optimizer)")
+
+
 class ClippedAdamW:
     """Global-norm clipping, then ``torch.optim.AdamW``, with the learning
     rate given at each step (the per-epoch schedule sets it)."""
+
+    kind = "adamw"
 
     def __init__(
         self,
@@ -82,21 +111,141 @@ class ClippedAdamW:
         """Clip the gradients in place (``g / norm * max`` when norm >
         max), take one AdamW step at ``lr``, and return the gradient norm
         before clipping, on the device (no host sync)."""
-        grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
-        # optax: select(norm < max, g, g / norm * max), without a host sync
-        denom = torch.where(norm < self.clip_norm, torch.ones_like(norm), norm / self.clip_norm)
-        torch._foreach_div_(grads, denom)
+        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
         for group in self.adamw.param_groups:
             group["lr"] = lr
         self.adamw.step()
         return norm
 
+    def reset(self) -> None:
+        """Fresh moments and step count."""
+        self.adamw.state.clear()
+
     def state_dict(self) -> dict:
         return self.adamw.state_dict()
 
-    def load_state_dict(self, state: dict) -> None:
+    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
+        """Load this optimizer's ``state_dict``, or a name-keyed state
+        (optax's ``mu``, ``nu`` and ``count`` as ``exp_avg``,
+        ``exp_avg_sq`` and ``step``) for the parameters ``names``, in the
+        order of ``self.params``."""
+        if "kind" in state:
+            _check_named(state, self.kind)
+            sd = self.adamw.state_dict()
+            sd["state"] = {
+                i: {"step": torch.tensor(float(state["count"])),
+                    "exp_avg": state["exp_avg"][n], "exp_avg_sq": state["exp_avg_sq"][n]}
+                for i, n in enumerate(names)
+            }
+            state = sd
         self.adamw.load_state_dict(state)
+
+
+def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128):
+    """optax ``_factored_dims``: the (second largest, largest) axes of a
+    parameter of at least two axes whose second largest is at least
+    ``min_dim_size_to_factor``, else None."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class ClippedFactoredRMS:
+    """Global-norm clipping, then optax ``scale_by_factored_rms()`` with its
+    defaults: a second moment kept as row and column means for parameters
+    whose two largest axes are both at least 128 long (:func:`factored_dims`),
+    a full one for the others, decaying at ``1 - (count + 1)^-0.8``; no first
+    moment and no weight decay. Plain torch ops on the float32 parameters.
+    The row and column statistics are those of the parameter's own (torch)
+    layout; the update does not depend on which of the two is which."""
+
+    kind = "factored"
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        clip_norm: float = 10.0,
+        decay_rate: float = 0.8,
+        min_dim_size_to_factor: int = 128,
+        epsilon: float = 1e-30,
+    ):
+        self.params = [p for p in params if p.requires_grad]
+        self.clip_norm = clip_norm
+        self.decay_rate = decay_rate
+        self.min_dim_size_to_factor = min_dim_size_to_factor
+        self.epsilon = epsilon
+        self.dims = [factored_dims(p.shape, min_dim_size_to_factor) for p in self.params]
+        self.reset()
+
+    def reset(self) -> None:
+        """optax's init: zero statistics, count 0."""
+        self.count = 0
+        self.state: List[Dict[str, Optional[torch.Tensor]]] = []
+        for p, dims in zip(self.params, self.dims):
+            if dims is None:
+                self.state.append({"v_row": None, "v_col": None,
+                                   "v": torch.zeros_like(p, memory_format=torch.contiguous_format)})
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                self.state.append({
+                    "v_row": p.new_zeros(shape[:d0] + shape[d0 + 1:]),
+                    "v_col": p.new_zeros(shape[:d1] + shape[d1 + 1:]),
+                    "v": None,
+                })
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, lr: float) -> torch.Tensor:
+        """Clip, take one factored-RMS step at ``lr`` and return the
+        gradient norm before clipping, on the device."""
+        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
+        # float32 as optax forms it: t = count + 1, rate = 1 - t^-decay
+        rate = np.float32(1.0) - np.float32(self.count + 1) ** np.float32(-self.decay_rate)
+        keep, new = float(rate), float(np.float32(1.0) - rate)
+        for p, dims, st in zip(self.params, self.dims, self.state):
+            g = p.grad
+            grad_sqr = g * g + self.epsilon
+            if dims is None:
+                v = st["v"].mul_(keep).add_(grad_sqr * new)
+                update = g * v.pow(-0.5)
+            else:
+                d1, d0 = dims
+                v_row = st["v_row"].mul_(keep).add_(grad_sqr.mean(dim=d0) * new)
+                v_col = st["v_col"].mul_(keep).add_(grad_sqr.mean(dim=d1) * new)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+                update = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+            p.add_(update, alpha=-lr)
+        self.count += 1
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, **{k: [st[k] for st in self.state]
+                                        for k in ("v_row", "v_col", "v")}}
+
+    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
+        """Load this optimizer's ``state_dict``, or a name-keyed state for
+        the parameters ``names`` in the order of ``self.params``."""
+        keys = ("v_row", "v_col", "v")
+        if "kind" in state:
+            _check_named(state, self.kind)
+            state = {"count": state["count"], **{k: [state[k][n] for n in names] for k in keys}}
+        self.count = int(state["count"])
+        for i, (p, st) in enumerate(zip(self.params, self.state)):
+            for k in keys:
+                src = state[k][i]
+                if (st[k] is None) != (src is None):
+                    raise ValueError(f"factored optimizer state {k} of parameter {i} "
+                                     f"{tuple(p.shape)} does not match")
+                if src is not None:
+                    st[k].copy_(src)
 
 
 def make_optimizer(
@@ -107,13 +256,11 @@ def make_optimizer(
     eps: float = 1e-8,
     weight_decay: float = 0.01,
     kind: str = "adamw",
-) -> ClippedAdamW:
-    """clip -> AdamW over ``params`` (the JAX ``make_optimizer``)."""
+):
+    """clip -> AdamW over ``params``, or with ``kind="factored"`` clip ->
+    factored RMS (the JAX ``make_optimizer``)."""
     if kind == "factored":
-        raise NotImplementedError(
-            "tpu.optimizer='factored' (Adafactor-style factored second moment) is not "
-            "ported yet: ROADMAP.md Queue 1 item 6 (train/optim.py, factored)"
-        )
+        return ClippedFactoredRMS(params, clip_norm)
     if kind != "adamw":
         raise ValueError(f"Unknown optimizer kind: {kind!r} (adamw|factored)")
     return ClippedAdamW(params, clip_norm, b1, b2, eps, weight_decay)

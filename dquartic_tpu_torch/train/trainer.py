@@ -12,7 +12,10 @@ with auto-resume after the stored epoch, and a callback can stop training.
 
 The train state is the model's float32 parameters, the optimizer state,
 the EMA tensors and the step count; it lives in this object and its model
-and is updated in place.
+and is updated in place. Checkpoints keep the EMA keyed by parameter name,
+so a serving model can load it without a Trainer; the positional list of
+earlier files still loads. A JAX checkpoint (flax msgpack) resumes too:
+:func:`~dquartic_tpu_torch.train.checkpoint.load_checkpoint` maps it.
 
 With a ``mesh`` whose ``sp > 1`` every rank of the group runs the same
 step on the same batch and draws (seed the generators alike): the model
@@ -26,7 +29,7 @@ ones; only rank 0 writes checkpoints.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +38,7 @@ from ..core.diffusion import DDIMProcess
 from ..parallel.sequence import sp_all_reduce
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
-from .optim import ClippedAdamW, WarmupCosineSchedule, make_optimizer
+from .optim import ClippedAdamW, ClippedFactoredRMS, WarmupCosineSchedule, make_optimizer
 
 
 class Trainer:
@@ -45,7 +48,7 @@ class Trainer:
         self,
         model: torch.nn.Module,
         process: DDIMProcess,
-        optimizer: Optional[ClippedAdamW] = None,
+        optimizer: Union[ClippedAdamW, ClippedFactoredRMS, None] = None,
         ema_decay: Optional[float] = 0.999,
         mixture_weights: Tuple[float, float] = (0.5, 0.5),
         logger=None,
@@ -73,6 +76,9 @@ class Trainer:
         self.seed = seed
         self.sync_every_batch = sync_every_batch
         self.device = next(model.parameters()).device
+        by_id = {id(p): n for n, p in model.named_parameters()}
+        # the names of the optimizer's parameters, in its order
+        self.param_names = [by_id[id(p)] for p in self.optimizer.params]
         self.step = 0
         self.ema_params: Optional[list] = None
         self.init_state()
@@ -83,7 +89,7 @@ class Trainer:
 
     def init_state(self) -> None:
         """Fresh optimizer moments, EMA = a copy of the parameters, step 0."""
-        self.optimizer.adamw.state.clear()
+        self.optimizer.reset()
         self.step = 0
         self.ema_params = (
             [p.detach().clone() for p in self.optimizer.params]
@@ -100,12 +106,12 @@ class Trainer:
         :class:`~dquartic_tpu_torch.infer.DDIMSampler` runs)."""
         if self.ema_params is None:
             raise ValueError("this trainer keeps no EMA (ema_decay=None)")
-        sd = self.model.state_dict()
-        ids = {id(p): e for p, e in zip(self.optimizer.params, self.ema_params)}
-        for name, p in self.model.named_parameters():
-            if id(p) in ids:
-                sd[name] = ids[id(p)]
-        return sd
+        return {**self.model.state_dict(), **self._ema_by_name()}
+
+    def _ema_by_name(self) -> Optional[Dict[str, torch.Tensor]]:
+        if self.ema_params is None:
+            return None
+        return dict(zip(self.param_names, self.ema_params))
 
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
@@ -249,12 +255,22 @@ class Trainer:
             "step": self.step,
             "params": self.model.state_dict(),
             "opt_state": self.optimizer.state_dict(),
-            "ema_params": self.ema_params,
+            "ema_params": self._ema_by_name(),
         })
 
     def _load(self, ckpt: Dict[str, Any]) -> None:
+        """Load a checkpoint's train state: the port's own, whose EMA is
+        keyed by name (a positional list in earlier files), or a JAX one as
+        :func:`~dquartic_tpu_torch.train.checkpoint.load_checkpoint` maps it
+        (the optimizer state keyed by name)."""
         self.model.load_state_dict(ckpt["params"])
-        self.optimizer.load_state_dict(ckpt["opt_state"])
+        if ckpt.get("opt_state") is None:
+            raise ValueError("the checkpoint holds no optimizer state to resume from "
+                             "(a converted reference checkpoint holds weights only)")
+        self.optimizer.load_state_dict(ckpt["opt_state"], self.param_names)
         self.step = int(ckpt["step"])
-        if self.ema_params is not None and ckpt["ema_params"] is not None:
-            torch._foreach_copy_(self.ema_params, ckpt["ema_params"])
+        ema = ckpt.get("ema_params")
+        if self.ema_params is not None and ema is not None:
+            if isinstance(ema, dict):
+                ema = [ema[n] for n in self.param_names]
+            torch._foreach_copy_(self.ema_params, list(ema))

@@ -1,8 +1,9 @@
-"""Build the port's mesh, model, DDIM process and trainer from a config dict.
+"""Build the port's mesh, model, DDIM process, dataset and trainer from a
+config dict.
 
 Port of ``build_mesh`` / ``apply_mesh_model_flags`` / ``build_model`` /
-``build_process`` / ``build_trainer`` of :mod:`dquartic_tpu.utils.builder`
-for the UNet1d.
+``build_process`` / ``build_dataset`` / ``build_trainer`` of
+:mod:`dquartic_tpu.utils.builder` for the UNet1d.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import DDIMProcess, make_schedule
+from ..data import DIAMSDataset, PairBatches, prefetch_iterator
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
 from ..parallel.mesh import Mesh, make_mesh
@@ -28,17 +30,21 @@ _NORM_PARAMS = (".g", ".b")
 _UNET_KEYS = set(UNet1d.__init__.__code__.co_varnames[1 : UNet1d.__init__.__code__.co_argcount])
 
 
-def build_mesh(config: Dict[str, Any]) -> Optional[Mesh]:
+def build_mesh(config: Dict[str, Any], batch_size: Optional[int] = None) -> Optional[Mesh]:
     """The mesh of ``tpu.mesh`` (JAX ``build_mesh``): None for one device.
-    A None ``dp`` takes the processes that ``sp·tp`` leave (one process:
-    dp = 1). ``sp > 1`` needs a running process group of ``sp`` ranks
+    A None ``dp`` is the largest degree up to the processes that ``sp·tp``
+    leave that divides ``batch_size`` (all of them when it is None; one
+    process: dp = 1), so idle processes are left out rather than given an
+    uneven batch. ``sp > 1`` needs a running process group of ``sp`` ranks
     (:func:`~dquartic_tpu_torch.parallel.initialize_runtime`); ``dp > 1``
     and ``tp > 1`` are not ported yet: each raises, and none is dropped."""
     m = config["tpu"]["mesh"]
     sp, tp, dp = m.get("sp") or 1, m.get("tp") or 1, m.get("dp")
     if dp is None:
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-        dp = max(1, world // (sp * tp))
+        avail = max(1, world // (sp * tp))
+        dp = avail if batch_size is None else next(
+            d for d in range(avail, 0, -1) if batch_size % d == 0)
     if dp * sp * tp == 1:
         return None
     return make_mesh(dp=dp, sp=sp, tp=tp)
@@ -68,10 +74,13 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(
-    config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None
+    config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None,
+    state_dict: Optional[Dict[str, torch.Tensor]] = None,
 ) -> UNet1d:
-    """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights
-    on ``device`` (None: the card; raises without one), computing in
+    """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights,
+    or the float weights of ``state_dict`` (a trained model's, e.g. from
+    :func:`~dquartic_tpu_torch.train.checkpoint.checkpoint_params`), on
+    ``device`` (None: the card; raises without one), computing in
     ``tpu.compute_dtype``, its softmax attention by ``tpu.attn_impl``; with
     ``tpu.quantize_mid`` (or the ``UNet1d`` key) the mid convs are int8.
 
@@ -84,7 +93,8 @@ def build_model(
     ResnetBlocks; ``remat_linear_attn`` and ``remat_blocks`` reach the
     model.
 
-    ``mesh`` (None: :func:`build_mesh` of ``tpu.mesh``) with ``sp > 1``
+    ``mesh`` (None: :func:`build_mesh` of ``tpu.mesh`` and the batch size)
+    with ``sp > 1``
     builds the model with ``activation_sharding`` (or the ``UNet1d`` key of
     that name) on that mesh; every rank builds the same weights from the
     same seed. Under ``activation_sharding`` a trainable model leaves
@@ -93,7 +103,10 @@ def build_model(
     ``kernel_dp_axis`` raises (no dp kernel path yet).
 
     ``trainable=False`` (serving) stores the parameters in the compute
-    dtype, norm gains and biases in float32, and no parameter needs grad.
+    dtype, norm gains and biases in float32, and no parameter needs grad:
+    the float weights (seeded or loaded) are quantized first, then cast, so
+    a model built from a state_dict is bitwise the one built from the seed
+    that made those weights.
     ``trainable=True`` keeps float32 master parameters that require grad;
     they are cast to the compute dtype at use, as flax's
     ``param_dtype=float32`` does.
@@ -117,7 +130,7 @@ def build_model(
     if unknown:
         raise ValueError(f"Unknown UNet1d config keys: {sorted(unknown)}")
     if mesh is None:
-        mesh = build_mesh(config)
+        mesh = build_mesh(config, m.get("batch_size"))
     u = apply_mesh_model_flags(u, mesh)
     u.setdefault("linear_attn_impl", tpu.get("linear_attn_impl", "auto"))
     tpu_fused = tpu.get("fused_resnet") and not (trainable and u.get("activation_sharding"))
@@ -129,7 +142,10 @@ def build_model(
         model = UNet1d(**u, dtype=dtype, attn_impl=tpu["attn_impl"])
     model.mesh = mesh
     model.to_empty(device=device)
-    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    if state_dict is None:
+        init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    else:
+        model.load_state_dict(state_dict)
     if trainable:
         if quantize:
             raise ValueError("int8 mid convs (quantize_mid) are inference only")
@@ -157,6 +173,26 @@ def build_process(config: Dict[str, Any]) -> DDIMProcess:
         parity_neighbor_stepping=not config["tpu"].get("ddim_proper_stepping", False),
         clip_denoised=config["tpu"].get("clip_denoised", bool(m["auto_normalize"])),
     )
+
+
+def build_dataset(config: Dict[str, Any], seed: int = 0, mesh=None, device=None):
+    """The pair dataset of ``config["data"]`` (NPY files or a parquet
+    directory) in batches of ``model.batch_size``, prefetched
+    ``tpu.prefetch`` deep onto ``device`` (None: the card; raises without
+    one), as the JAX ``build_dataset``. Under a mesh with ``sp > 1`` every
+    rank builds it alike from ``seed`` and iterates the same batches."""
+    del mesh  # every rank takes the whole batch: no dp axis to shard it over
+    device = resolve_device(device, "build_dataset")
+    d = config["data"]
+    dataset = DIAMSDataset(
+        parquet_directory=d["parquet_directory"],
+        ms2_file=d["ms2_data_path"],
+        ms1_file=d["ms1_data_path"],
+        normalize=d["normalize"],
+        seed=seed,
+    )
+    batches = PairBatches(dataset, batch_size=config["model"]["batch_size"])
+    return prefetch_iterator(batches, device, size=config["tpu"]["prefetch"])
 
 
 def _check_checkpoint_backend(config: Dict[str, Any]) -> None:
@@ -208,14 +244,15 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
     of the config, as the JAX ``build_trainer`` wires them, on ``device``
     (None: the card; raises without one), on ``mesh`` (None:
-    :func:`build_mesh` of ``tpu.mesh``), logging its epochs to ``logger``
+    :func:`build_mesh` of ``tpu.mesh`` and the batch size), logging its
+    epochs to ``logger``
     (None: :func:`build_logger` of the config).
 
     ``tpu.checkpoint_backend`` must be ``"msgpack"``, the default: the
     port's checkpoints are ``torch.save`` files under the JAX package's
     names, and it has no Orbax backend, so ``"orbax"`` raises, as does an
-    unknown value (as in the JAX ``Trainer``). Reading the JAX package's
-    msgpack files is not ported yet."""
+    unknown value (as in the JAX ``Trainer``). It resumes from the JAX
+    package's msgpack files too."""
     if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
         raise ValueError(
             "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
@@ -225,7 +262,7 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     _check_checkpoint_backend(config)
     device = resolve_device(device, "build_trainer")
     if mesh is None:
-        mesh = build_mesh(config)
+        mesh = build_mesh(config, config["model"].get("batch_size"))
     model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh)
     if logger is None:
         logger = build_logger(config, mesh)

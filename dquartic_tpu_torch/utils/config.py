@@ -1,9 +1,11 @@
-"""JSON config loading, as :mod:`dquartic_tpu.utils.config` does it.
+"""JSON config loading and the config template, as
+:mod:`dquartic_tpu.utils.config` does them.
 
-A copy of ``load_train_config`` and its defaults: importing the JAX
-package would import JAX. Reference config files load unchanged; the
-``tpu`` section keeps its name and defaults, and the port reads from it
-``compute_dtype``, ``quantize_mid`` and ``fused_resnet``.
+A copy of ``load_train_config``, ``generate_train_config`` and their
+defaults: importing the JAX package would import JAX. Reference config
+files load unchanged; the ``tpu`` section keeps its name and defaults, and
+``generate_train_config`` writes the file the JAX package writes, key for
+key.
 """
 
 from __future__ import annotations
@@ -75,3 +77,60 @@ def load_train_config(config_path: str, **kwargs) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[path[-1]] = kwargs[key]
     return config
+
+
+def generate_train_config(config_path: str) -> None:
+    """Write the canonical config template (reference
+    config_loader.py:60-119, plus the ``tpu`` section)."""
+    full_config = {
+        "data": {
+            "parquet_directory": "data/",
+            "ms2_data_path": None,
+            "ms1_data_path": None,
+            "normalize": "minmax",
+        },
+        "model": {
+            "checkpoint_path": "best_model.ckpt",
+            "num_epochs": 10000,
+            "warmup_epochs": 5,
+            "batch_size": 1,
+            "learning_rate": 0.00001,
+            "num_timesteps": 1000,
+            "beta_schedule_type": "cosine",
+            "pred_type": "eps",
+            "auto_normalize": True,
+            "ms1_loss_weight": 0.0,
+            "use_model": "UNet1d",
+            "CustomTransformer": {
+                "input_dim": 40000,
+                "hidden_dim": 1024,
+                "num_heads": 8,
+                "num_layers": 8,
+            },
+            "UNet1d": {
+                "dim": 4,
+                "channels": 1,
+                "dim_mults": [1, 2, 2, 3, 3, 4, 4],
+                "conditional": True,
+                "init_cond_channels": 1,
+                "attn_cond_channels": 1,
+                "tfer_dim_mult": 620,
+                "downsample_dim": 40000,
+                "simple": True,
+            },
+        },
+        "wandb": {
+            "use_wandb": True,
+            "wandb_project": "dquartic",
+            "wandb_name": None,
+            "wandb_id": None,
+            "wandb_resume": None,
+            "wandb_architecture": "DDIM(UNet1d)",
+            "wandb_dataset": "MS2",
+            "wandb_mode": "offline",
+        },
+        "threads": 4,
+        "tpu": TPU_DEFAULTS,
+    }
+    with open(config_path, "w") as f:
+        json.dump(full_config, f, indent=4)

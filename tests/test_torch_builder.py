@@ -99,3 +99,38 @@ def test_jsonl_logger_writes_what_the_jax_logger_writes(tmp_path, run_name):
         recs.append(lines)
     assert recs[0] == recs[1]
     assert recs[0][0]["train/loss"] == 0.25 and recs[0][0]["note"] == "text"
+
+
+@pytest.mark.parametrize("sp,tp", [(1, 1), (2, 1), (4, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("batch_size", [None, 1, 2, 3, 6, 8])
+def test_build_mesh_dp_rule_matches_jax(monkeypatch, sp, tp, batch_size):
+    """A None ``tpu.mesh.dp`` takes the largest degree, up to the processes
+    that sp·tp leave, that divides the batch (all of them without a batch
+    size), as the JAX ``build_mesh`` does over its devices. Both packages
+    see 8: the JAX tests' virtual CPU devices, and 8 processes here (the
+    port's world size, patched; ``make_mesh`` patched to return the axes
+    it is given, since dp > 1 is not ported yet)."""
+    import dquartic_tpu_torch.utils.builder as port_builder
+    from dquartic_tpu.utils.builder import build_mesh as jax_build_mesh
+
+    cfg = _config()
+    cfg["tpu"]["mesh"] = {"dp": None, "sp": sp, "tp": tp}
+    monkeypatch.setattr(port_builder.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(port_builder.dist, "get_world_size", lambda group=None: 8)
+    monkeypatch.setattr(port_builder, "make_mesh", lambda dp, sp, tp: (dp, sp, tp))
+    ref = jax_build_mesh(cfg, batch_size=batch_size)
+    got = port_builder.build_mesh(cfg, batch_size=batch_size)
+    want = None if ref is None else (ref.shape["dp"], dict(ref.shape).get("sp", 1), ref.shape["tp"])
+    assert got == want
+
+
+def test_build_mesh_leaves_idle_processes_out(monkeypatch):
+    """Two processes at sp 1 and batch 1: dp 1, one device, no mesh (the
+    rule before took dp 2 and raised, dp > 1 not being ported)."""
+    import dquartic_tpu_torch.utils.builder as port_builder
+
+    monkeypatch.setattr(port_builder.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(port_builder.dist, "get_world_size", lambda group=None: 2)
+    assert port_builder.build_mesh(_config(), batch_size=1) is None
+    with pytest.raises(ValueError, match="data parallelism"):
+        port_builder.build_mesh(_config(), batch_size=2)

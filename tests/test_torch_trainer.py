@@ -214,8 +214,39 @@ def test_optimizer_matches_optax_chain():
 
 
 def test_factored_optimizer_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer([torch.nn.Parameter(torch.ones(2))], kind="factored")
+    """clip(10) -> scale_by_factored_rms() at optax's defaults (the JAX
+    make_optimizer(kind="factored")), -lr: 3 steps on the same gradients,
+    the second above the clip threshold, on parameters that factor (both
+    of their two largest axes >= 128, one of them a tie) and ones that do
+    not. float32 on both sides, sums in another order: 1e-5 relative."""
+    rng = np.random.default_rng(9)
+    shapes = [(130, 200), (7,), (3, 4, 2), (128, 128, 3), (3, 150, 129)]
+    p0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) * scale for s in shapes]
+             for scale in (0.5, 40.0, 1.0)]
+    lrs = [1e-3, 2e-3, 5e-4]
+    tx = jax_make_optimizer(kind="factored")
+    jp = [jnp.asarray(p) for p in p0]
+    state = tx.init(jp)
+    params = [torch.nn.Parameter(_t(p)) for p in p0]
+    opt = make_optimizer(params, kind="factored")
+    assert [d is not None for d in opt.dims] == [True, False, False, True, True]
+    for g, lr in zip(grads, lrs):
+        updates, state = tx.update([jnp.asarray(x) for x in g], state, jp)
+        jp = [p - jnp.float32(lr) * u for p, u in zip(jp, updates)]
+        for p, x in zip(params, g):
+            p.grad = _t(x)
+        norm = opt.step(lr)
+        np.testing.assert_allclose(float(norm), float(np.sqrt(sum((x**2).sum() for x in g))),
+                                   rtol=1e-6)
+        for p, q in zip(params, jp):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), rtol=1e-5, atol=1e-7)
+    sd = opt.state_dict()
+    again = make_optimizer([torch.nn.Parameter(_t(p)) for p in p0], kind="factored")
+    again.load_state_dict(sd)
+    assert again.count == 3 and all(
+        (a is None and b is None) or torch.equal(a, b)
+        for k in ("v_row", "v_col", "v") for a, b in zip(again.state_dict()[k], sd[k]))
 
 
 # --------------------------------------------------------------------- #
@@ -370,5 +401,7 @@ def test_build_trainer_step_and_rejections():
     assert any(not torch.equal(a, p) for a, p in zip(before, tr.optimizer.params))
     with pytest.raises(ValueError, match="inference-only"):
         build_trainer(_cut_config(quantize_mid=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="factored"):
-        build_trainer(_cut_config(optimizer="factored"), device="cpu")
+    factored = build_trainer(_cut_config(optimizer="factored"), device="cpu")
+    assert factored.optimizer.kind == "factored"
+    factored.train_step(batch, 1e-3, generator=torch.Generator().manual_seed(0))
+    assert factored.optimizer.count == 1
