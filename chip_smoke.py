@@ -115,7 +115,25 @@ CUDA card with sm_90a). Phases, each of which must pass:
      equal to ``DDIMSampler.predict_batch`` in this process on the model
      built from the same file, the npz's mixture and MS1 and the same
      seed; the command's wall seconds, its sampling's device ms (CUDA
-     events), and the seconds to write and to load the checkpoint.
+     events), and the seconds to write and to load the checkpoint;
+ 12. the remaining model families: (a) the unconditional canonical UNet1d
+     (``conditional: false``) in the shipping serving config, its bf16
+     forward on the kernels against the plain path and a 50-step
+     ``predict`` (K1 700, K2 1450, K3 200, K7a 50 launches) with ms/window
+     on both paths over 5 windows; (b) its full-width training step
+     through ``build_trainer``: gradients on the kernels against the plain
+     path (phase 6's gates), K4 14, K5 29, K7b 1 launches a step, ms/step;
+     (c) the CustomTransformer of ``bench.py``'s ``transformer_train``
+     mode (h1024, 8 heads, 8 layers, 34 x 40000, bs1): 1 + 20
+     ``build_trainer`` steps timed by the port's ``StepTimer`` with the
+     peak memory of ``device_memory_stats``, its bf16 forward and loss
+     against float32 on the same weights, a 50-step ``predict`` (no kernel
+     launched: it has none, as in JAX) and ``apply_quantized`` serving
+     from ``quantize_params`` against the float weights; (d)
+     ``FourierFeatures`` at its defaults against float64; (e)
+     ``convert-checkpoint`` of seeded weights in the reference's
+     CustomTransformer names and ``predict`` from the converted file, its
+     ``pred`` bitwise equal to ``predict_batch`` in this process.
 
 Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
@@ -904,7 +922,8 @@ def _expect(per_call, calls=1, cfg=None):
     return counts
 
 
-def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
+def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d",
+                  dtypes=("float32", "bfloat16")):
     import torch
 
     from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -912,7 +931,7 @@ def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
 
     x, ms2, ms1 = _model_inputs(gen)
     t = torch.full((1,), 500, dtype=torch.long, device="cuda")
-    for dtype in ("float32", "bfloat16"):
+    for dtype in dtypes:
         cfg = json.loads(json.dumps(config))
         cfg["tpu"]["compute_dtype"] = dtype
         model = build_model(cfg, device="cuda", seed=seed)
@@ -939,9 +958,12 @@ def phase_forward(config, seed, gen, per_forward, what="canonical UNet1d"):
         torch.cuda.empty_cache()
 
 
-def phase_sample(config, seed, gen, per_forward, what="canonical", results=None):
+def phase_sample(config, seed, gen, per_forward, what="canonical", results=None,
+                 reps=SAMPLE_REPS):
     """One 50-step predict with its launch counts, then ms/window on the
-    kernel and the plain path. Returns (launch counts, ms/window by path).
+    kernel and the plain path, ``reps`` windows each. Returns (launch
+    counts, median ms/window by path, with every window's ms, sorted, under
+    ``"runs"``).
     With ``results``, also the device time of one serving forward from
     ``torch.profiler``: K1's (K8's on the unfused "pallas" path) and every
     kernel's."""
@@ -976,15 +998,16 @@ def phase_sample(config, seed, gen, per_forward, what="canonical", results=None)
     # ms/window: one warm-up sample, then SAMPLE_REPS timed samples per path;
     # the 50-step loop is host-launched, so samples spread with host load
     x_t, ms2, ms1 = _model_inputs(gen)
-    per_window = {}
+    per_window = {"runs": {}}
     for path, kernels in (("kernel", True), ("plain", False)):
         model.use_kernels(kernels)
         cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=0, warmup=1)
         runs = sorted(cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
-                      for _ in range(SAMPLE_REPS))
+                      for _ in range(reps))
         per_window[path] = runs[len(runs) // 2]
+        per_window["runs"][path] = runs
         log(f"  {STEPS}-step DDIM ms/window ({what}, bs1, 34x40000, bf16, int8 mid convs), {path} "
-            f"path: median {per_window[path]:.2f} ms of {SAMPLE_REPS} "
+            f"path: median {per_window[path]:.2f} ms of {reps} "
             f"(min {runs[0]:.2f}, max {runs[-1]:.2f})")
     if results is not None and per_forward.get("fused_linear_attention"):
         model.use_kernels(True)
@@ -2522,6 +2545,312 @@ def phase_cli(seed, results):
             torch.cuda.empty_cache()
 
 
+# phase 12: windows of the unconditional model's ms/window per path; the
+# CustomTransformer of bench.py's transformer_train mode (h1024, 8 heads, 8
+# layers over 34 x 40000 windows) and its timed steps after one warm-up;
+# its bf16 forward and loss against float32 on the same weights and its
+# int8 (quantize_params) serving against its float weights, relative L2
+# (a dense net of 183 M weights: bf16 rounds each operand to 2^-9, int8
+# each weight by up to absmax/254); FourierFeatures at its defaults against
+# float64 (float32 FFTs: log2 of the length times float32's epsilon)
+UNCOND_SAMPLE_REPS = 5
+CT_SHAPE = dict(input_dim=MZ, hidden_dim=1024, num_heads=8, num_layers=8)
+CT_STEPS = 20
+CT_BF16_TOL = 5e-2
+CT_QUANT_TOL = 5e-2
+FOURIER_DIM = 4
+FOURIER_TOL = 1e-5
+
+
+def _ct_config(config, **tpu):
+    """The CustomTransformer of CT_SHAPE, without the UNet1d's serving keys
+    (the CLI's predict refuses them for this model, as JAX's)."""
+    cfg = json.loads(json.dumps(config))
+    cfg["model"]["use_model"] = "CustomTransformer"
+    cfg["model"]["CustomTransformer"] = dict(CT_SHAPE)
+    cfg["tpu"].update(quantize_mid=False, fused_resnet=False, **tpu)
+    return cfg
+
+
+def phase_unconditional(config, seed, gen, results):
+    """(a) the unconditional canonical UNet1d in the shipping serving config:
+    one bf16 forward against the plain path and a 50-step predict with its
+    launches and ms/window; (b) its full-width training step: gradients
+    against the plain path, launches and ms/step."""
+    import torch
+
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    cfg = json.loads(json.dumps(config))
+    cfg["model"]["UNet1d"]["conditional"] = False
+    phase_forward(cfg, seed, gen, SIMPLE_FORWARD, what="unconditional UNet1d",
+                  dtypes=("bfloat16",))
+    counts, per_window = phase_sample(cfg, seed, gen, SIMPLE_FORWARD, what="unconditional",
+                                      reps=UNCOND_SAMPLE_REPS)
+    for name in ("linear_attention", "fused_resnet_block_t", "int8_matmul", "flash_attention"):
+        results[name]["unconditional_launches_window"] = counts[name]
+    out = dict(launches_window={k: v for k, v in counts.items() if v},
+               ms_per_window=per_window["kernel"], plain_ms_per_window=per_window["plain"],
+               runs=per_window["runs"])
+
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 3).items()}
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=gen, device=dev)
+    tcfg = _train_config(cfg, compute_dtype="float32")
+    model = build_model(tcfg, device=dev, seed=seed, trainable=True)
+    out["step_gradients"] = compare_step_grads(model, build_process(tcfg), batch, t, eps,
+                                               what="unconditional")
+    del model
+    torch.cuda.empty_cache()
+    trainer = build_trainer(_train_config(cfg, compute_dtype="bfloat16"), device=dev, seed=seed)
+    trainer.train_step(batch, 1e-4, generator=gen)  # warm-up step
+    runs, counts, peak, losses = timed_steps(trainer, batch, gen, True)
+    median = runs[len(runs) // 2]
+    log(f"  unconditional train_step ({trainer.num_parameters() / 1e9:.3f} B params, bs1, "
+        f"34x40000, bf16 on float32 masters, AdamW + EMA): median {median:.2f} ms/step of "
+        f"{TRAIN_STEPS} (min {runs[0]:.2f}, max {runs[-1]:.2f}), peak device memory "
+        f"{peak:.2f} GiB, launches {counts}, losses {[round(v, 6) for v in losses]}")
+    expect = _expect(STEP_LAUNCHES, TRAIN_STEPS)
+    check(counts == expect, f"unconditional train launches {counts} != {expect}")
+    check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
+    for name in ("linear_attention_backward", "fused_resnet_backward", "flash_attention_backward"):
+        results[name]["unconditional_launches_step"] = counts[name] / TRAIN_STEPS
+    out.update(ms_per_step=median, step_runs=runs, peak_gib=peak)
+    results["families"]["unconditional"] = out
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_custom_transformer(config, seed, gen, results):
+    """(c) the CustomTransformer at bench.py's transformer_train shape:
+    build_trainer steps timed by the port's StepTimer with the peak memory
+    of device_memory_stats; one bf16 forward and loss against float32 on
+    the same weights; a 50-step predict; apply_quantized serving from
+    quantize_params against the float weights."""
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.ops.quantization import (
+        apply_quantized, quantize_params, quantized_nbytes,
+    )
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+    from dquartic_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+
+    dev = torch.device("cuda")
+    cfg = _ct_config(config, compute_dtype="bfloat16")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 4).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer = build_trainer(cfg, device=dev, seed=seed)
+    n_params = trainer.num_parameters()
+    timer, losses = StepTimer(sync=True), []
+    for _ in range(CT_STEPS + 1):  # the summary leaves out the first (warm-up) step
+        with timer.step():
+            loss = timer.observe(trainer.train_step(batch, 1e-5, generator=gen)["loss"])
+        losses.append(float(loss))
+    counts = launch_counts()
+    summary, mem = timer.summary(), device_memory_stats()[0]
+    runs = sorted(1e3 * np.asarray(timer.times[1:]))
+    c = CT_SHAPE
+    log(f"  CustomTransformer train_step ({n_params / 1e6:.1f} M params, h{c['hidden_dim']}/"
+        f"{c['num_heads']}h/{c['num_layers']}L, bs1, {RT}x{MZ}, bf16 on float32 masters, AdamW + EMA), StepTimer(sync=True) over "
+        f"{CT_STEPS} steps after a warm-up: median {summary['p50_ms']:.2f} ms/step (min "
+        f"{runs[0]:.2f}, max {runs[-1]:.2f}, mean {summary['mean_ms']:.2f}, p95 "
+        f"{summary['p95_ms']:.2f}); device_memory_stats: peak {mem['peak_bytes_mb']:.1f} MB, "
+        f"in use {mem['bytes_in_use_mb']:.1f} MB of {mem['bytes_limit_mb']:.1f} MB; losses "
+        f"first {losses[0]:.6f} last {losses[-1]:.6f}; kernel launches {sum(counts.values())}")
+    check(all(v == v and abs(v) != float("inf") for v in losses), "non-finite training loss")
+    check(sum(counts.values()) == 0, f"the CustomTransformer reached a kernel: {counts}")
+    out = dict(params=n_params, train=dict(summary, min_ms=runs[0], peak_mb=mem["peak_bytes_mb"]))
+
+    model, proc = trainer.model, trainer.process
+    x_t = torch.randn((1, RT, MZ), generator=gen, device=dev)
+    ms1 = torch.rand((1, RT), generator=gen, device=dev) * 2 - 1
+    t = torch.full((1,), 500, dtype=torch.long, device=dev)
+    tt = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=gen, device=dev)
+    mix = 0.5 * batch["ms2_1"] + 0.5 * batch["ms2_2"]
+    fwd, loss = {}, {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            model.compute_dtype = dtype
+            fwd[dtype] = model(x_t, t, None, ms1).float()
+            loss[dtype] = float(proc.train_loss(model, batch["ms2_1"], mix, batch["ms1_1"], t=tt,
+                                                eps=eps)[0])
+        rel = float((fwd[torch.bfloat16] - fwd[torch.float32]).norm() / fwd[torch.float32].norm())
+        loss_rel = abs(loss[torch.bfloat16] - loss[torch.float32]) / abs(loss[torch.float32])
+        log(f"  CustomTransformer bf16 vs float32 on the same weights: forward rel L2 {rel:.3e}, "
+            f"loss {loss[torch.bfloat16]:.6f} vs {loss[torch.float32]:.6f} (rel {loss_rel:.3e}); "
+            f"tol {CT_BF16_TOL:g}")
+        check(rel <= CT_BF16_TOL and loss_rel <= CT_BF16_TOL,
+              "the bf16 CustomTransformer disagrees with float32")
+        qsd = quantize_params(model.state_dict())
+        ref = fwd[torch.bfloat16]
+        q_out = apply_quantized(model, qsd, x_t, t, None, ms1).float()
+        q_rel = float((q_out - ref).norm() / ref.norm())
+        q_ms = cuda_time(lambda: apply_quantized(model, qsd, x_t, t, None, ms1), reps=5)
+        f_ms = cuda_time(lambda: model(x_t, t, None, ms1), reps=5)
+    nbytes = (quantized_nbytes(qsd), quantized_nbytes(model.state_dict()))
+    log(f"  apply_quantized (bf16 compute, int8 weights dequantized per call): rel L2 "
+        f"{q_rel:.3e} against the float weights (tol {CT_QUANT_TOL:g}); {nbytes[0] / 1e6:.1f} MB "
+        f"of int8 + scales against {nbytes[1] / 1e6:.1f} MB float32; {q_ms:.3f} ms a forward "
+        f"against {f_ms:.3f} ms (CUDA events, mean of 5)")
+    check(q_rel <= CT_QUANT_TOL, "int8 serving of the CustomTransformer disagrees with float")
+    out.update(bf16_vs_f32_rel_l2=rel, bf16_vs_f32_loss_rel=loss_rel, quantized_rel_l2=q_rel,
+               quantized_bytes=nbytes[0], float_bytes=nbytes[1], quantized_forward_ms=q_ms,
+               float_forward_ms=f_ms)
+    del qsd
+
+    serve = build_model(cfg, device=dev, state_dict=trainer.ema_state_dict())
+    del trainer, model
+    sampler = DDIMSampler(serve, build_process(cfg))
+    rng = np.random.default_rng(seed + 5)
+    window = {k: rng.uniform(0, 1, s).astype(np.float32) for k, s in
+              (("ms2_1", (1, RT, MZ)), ("ms1_1", (1, RT)), ("ms2_2", (1, RT, MZ)))}
+    reset_launch_counts()
+    recs = sampler.predict([window], num_steps=STEPS, seed=seed, device="cuda")
+    pred = recs[0]["pred"]
+    check(pred.shape == (1, RT, MZ) and bool(np.isfinite(pred).all()),
+          f"CustomTransformer pred {pred.shape}, finite {bool(np.isfinite(pred).all())}")
+    check(sum(launch_counts().values()) == 0, "the CustomTransformer's predict reached a kernel")
+    ms2 = torch.from_numpy(recs[0]["mixture"]).to(dev)
+    ms1w = torch.from_numpy(recs[0]["ms1_1"]).to(dev)
+    windows = sorted(cuda_time(lambda: sampler.sample(x_t, ms2, ms1w, STEPS), reps=1, warmup=0)
+                     for _ in range(3))
+    log(f"  CustomTransformer {STEPS}-step predict (bf16, from the EMA weights): pred "
+        f"{pred.shape} finite, range [{pred.min():.4f}, {pred.max():.4f}]; ms/window median "
+        f"{windows[1]:.2f} of 3 (min {windows[0]:.2f}, max {windows[2]:.2f})")
+    out["ms_per_window"] = windows
+    results["families"]["custom_transformer"] = out
+    del serve, sampler
+    torch.cuda.empty_cache()
+
+
+def phase_fourier(seed, results):
+    """(d) FourierFeatures at its defaults (h 10000, w 34) against the same
+    filter evaluated in float64, and its time."""
+    import torch
+
+    from dquartic_tpu_torch.models import FourierFeatures
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    m = FourierFeatures(FOURIER_DIM).cuda()
+    h, w = m.complex_weight.shape[1:3]
+    with torch.no_grad():
+        m.complex_weight.normal_(0.0, 0.02, generator=gen)
+        x = torch.randn((1, FOURIER_DIM, h, w), generator=gen, device="cuda")
+        out = m(x)
+        xf = torch.fft.rfft2(x.double(), dim=(2, 3), norm="ortho")
+        wf = torch.view_as_complex(m.complex_weight.double())
+        ref = torch.fft.irfft2(xf * wf[None, :, :, : xf.shape[3]], s=(h, w), dim=(2, 3),
+                               norm="ortho")
+        rel = float((out.double() - ref).norm() / ref.norm())
+        ms = cuda_time(lambda: m(x), reps=20)
+    log(f"  FourierFeatures (dim {FOURIER_DIM}, h {h}, w {w}, float32 cuFFT): rel L2 {rel:.3e} "
+        f"against float64 (tol {FOURIER_TOL:g}); {ms:.4f} ms a call (CUDA events, mean of 20)")
+    check(out.shape == x.shape and bool(torch.isfinite(out).all()), "bad FourierFeatures output")
+    check(rel <= FOURIER_TOL, "FourierFeatures disagrees with float64")
+    results["families"]["fourier"] = dict(rel_l2_vs_float64=rel, ms=ms)
+
+
+def _reference_names(sd, num_layers):
+    """The port's CustomTransformer state_dict in the reference module's
+    names: each layer's q, k and v packed into nn.MultiheadAttention's
+    ``attention.in_proj_*``, its output as ``attention.out_proj``, the
+    feed-forward as ``ff.0`` and ``ff.2``."""
+    import torch
+
+    out = {k: v for k, v in sd.items() if not k.startswith("layers.")}
+    for i in range(num_layers):
+        p = f"layers.{i}"
+        for w in ("weight", "bias"):
+            out[f"{p}.attention.in_proj_{w}"] = torch.cat([sd[f"{p}.{n}_proj.{w}"] for n in "qkv"])
+            out[f"{p}.attention.out_proj.{w}"] = sd[f"{p}.out_proj.{w}"]
+            out[f"{p}.ff.0.{w}"], out[f"{p}.ff.2.{w}"] = sd[f"{p}.ff1.{w}"], sd[f"{p}.ff2.{w}"]
+            for n in ("norm1", "norm2"):
+                out[f"{p}.{n}.{w}"] = sd[f"{p}.{n}.{w}"]
+    return out
+
+
+def phase_custom_transformer_cli(config, seed, results):
+    """(e) convert-checkpoint of seeded weights in the reference's
+    CustomTransformer names, then the CLI's 50-step predict from the
+    converted file, its pred bitwise equal to predict_batch in this process
+    on the model built from the same file."""
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.train import checkpoint_params, load_checkpoint
+    from dquartic_tpu_torch.utils.builder import build_model, build_process
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    with tempfile.TemporaryDirectory(prefix="dq_ct_") as tmp:
+        cfg = _ct_config(config, compute_dtype="bfloat16")
+        paths = _npy_windows(tmp, seed + 8, MZ)
+        cfg["data"].update(parquet_directory=None, ms2_data_path=paths["ms2"],
+                           ms1_data_path=paths["ms1"])
+        cfg["model"]["checkpoint_path"] = os.path.join(tmp, "best_model.ckpt")
+        config_path = _write_json(os.path.join(tmp, "config.json"), cfg)
+        weights = {k: v.cpu() for k, v in build_model(cfg, device="cuda", seed=seed + 9,
+                                                      trainable=True).state_dict().items()}
+        ref_path, conv_path = os.path.join(tmp, "reference.ckpt"), os.path.join(tmp, "conv.ckpt")
+        torch.save({"model_state_dict": _reference_names(weights, CT_SHAPE["num_layers"]),
+                    "epoch": 7, "best_loss": 0.25}, ref_path)
+        wall_convert = _cli(["convert-checkpoint", ref_path, conv_path, config_path])
+        ck = load_checkpoint(conv_path, map_location="cpu")
+        check((ck["epoch"], ck["step"], ck["opt_state"]) == (7, 0, None)
+              and ck["params"].keys() == weights.keys()
+              and all(torch.equal(ck["params"][k], v) for k, v in weights.items()),
+              "convert-checkpoint did not carry the reference's weights over unchanged")
+        out = os.path.join(tmp, "pred.npz")
+        wall = _cli(["predict", "--num-steps", str(STEPS), "--num-batches", "1", config_path,
+                     conv_path, out])
+        npz = np.load(out)
+        pred = npz["pred_0"]
+        check(pred.shape == (1, RT, MZ) and bool(np.isfinite(pred).all()),
+              f"CLI pred {pred.shape}, finite {bool(np.isfinite(pred).all())}")
+        serve_cfg = load_train_config(config_path)
+        model = build_model(serve_cfg, device="cuda", state_dict=checkpoint_params(ck))
+        sampler = DDIMSampler(model, build_process(serve_cfg))
+        ref, _ = sampler.predict_batch(torch.Generator(device="cuda").manual_seed(0),
+                                       torch.from_numpy(npz["mixture_0"]).cuda(),
+                                       torch.from_numpy(npz["ms1_1_0"]).cuda(), STEPS)
+        ref = ref.float().cpu().numpy()
+        same = bool(np.array_equal(ref, pred))
+        log(f"  CustomTransformer through the CLI: convert-checkpoint {wall_convert:.2f} s wall, "
+            f"predict ({STEPS} steps, 1 window, bf16) {wall:.2f} s wall; pred range "
+            f"[{pred.min():.4f}, {pred.max():.4f}], bitwise equal to predict_batch in this "
+            f"process: {same}")
+        check(same, "the CLI's CustomTransformer pred differs from predict_batch on the same "
+              f"weights: max |diff| {float(np.abs(ref - pred).max()):.3e}")
+        results["families"]["custom_transformer_cli"] = dict(convert_wall_s=wall_convert,
+                                                             predict_wall_s=wall)
+        del model, sampler
+    torch.cuda.empty_cache()
+
+
+def phase_families(config, seed, gen, results):
+    """Phase 12: the unconditional UNet1d, the CustomTransformer,
+    FourierFeatures and the CustomTransformer's command line."""
+    t0 = time.perf_counter()
+    results["families"] = {}
+    log("  (a, b) the unconditional UNet1d: serving and training")
+    phase_unconditional(config, seed, gen, results)
+    log("  (c) the CustomTransformer at bench.py's transformer_train shape")
+    phase_custom_transformer(config, seed, gen, results)
+    log("  (d) FourierFeatures")
+    phase_fourier(seed, results)
+    log("  (e) the CustomTransformer through convert-checkpoint and predict")
+    phase_custom_transformer_cli(config, seed, results)
+    results["families"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 12: {results['families']['phase_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -2629,6 +2958,9 @@ def main(argv=None) -> int:
         phase_sp(config, args.seed, gen, results)
         log("== phase 11: the command line: generate-config, train, resume, predict")
         phase_cli(args.seed, results)
+        log("== phase 12: the remaining model families: unconditional UNet1d, CustomTransformer, "
+            "FourierFeatures")
+        phase_families(config, args.seed, gen, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -2642,6 +2974,7 @@ def main(argv=None) -> int:
     log(f"unfused pallas: {json.dumps(results.pop('rows'))}")
     log(f"sequence parallel: {json.dumps(results.pop('sp'))}")
     log(f"command line: {json.dumps(results.pop('cli'))}")
+    log(f"model families: {json.dumps(results.pop('families'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""JAX parameter tree <-> PyTorch state_dict of the port's UNet1d.
+"""JAX parameter tree <-> PyTorch state_dict of the port's UNet1d and
+CustomTransformer.
 
 :func:`jax_params_to_torch` maps a flax tree onto the port's names and
 layouts, :func:`torch_to_jax_params` maps back (numpy only), for handing
@@ -7,16 +8,23 @@ both packages the same weights:
   * flax conv kernel (k, in, out)  <-> torch Conv1d weight (out, in, k)
   * flax dense kernel (in, out)    <-> torch Linear weight (out, in)
   * norm gain g, LayerNorm bias b (C,) <-> (1, C, 1)
+  * flax LayerNorm scale, bias (C,) <-> torch LayerNorm weight, bias (C,)
 
 Both directions walk one table of (JAX path, torch name) pairs, so they
-cover the same trees: ``simple=True`` and ``simple=False`` (the MS1 tower
+cover the same trees. The UNet1d's, conditional or not (the unconditional
+tree has no ``init_cond_proj``, no MS1 tower, and the mid attention's
+``to_qkv`` for the conditional ``to_qv``/``to_k``), ``simple=True`` and
+``simple=False`` (the MS1 tower
 ``attn_mz_*`` <-> ``attn_cond_proj.0.{0,1,2,3}``, the transformers
 ``attn_rt_tfer`` <-> ``attn_cond_proj.1`` and ``mid_attn_fn`` <->
 ``mid_attn.fn.fn``, with ``layers_{i}_attn`` <-> ``layers.{i}.0`` and
 ``layers_{i}_ff`` <-> ``layers.{i}.1``). For ``simple=True``,
 :func:`torch_to_jax_params` is what
 :func:`dquartic_tpu.compat.torch_ckpt.convert_unet1d_state_dict` returns;
-that converter refuses ``simple=False``.
+that converter refuses ``simple=False``. The CustomTransformer's tree
+(``input_projection``, ``layers_{i}`` <-> ``layers.{i}``, ...) maps Dense
+kernels and LayerNorms, nothing else; the family is read from the tree
+(``input_projection``) or the state_dict.
 
 :func:`jax_params_to_torch` also accepts the tree of
 ``quantize_mid_block_params`` (JAX ``UNet1d(quantize_mid=True)``): each
@@ -27,8 +35,9 @@ C_out, so K = 3·C_out).
 
 The mapping is linear (transposes and reshapes), so it maps gradients too:
 ``torch_to_jax_params(grads_state_dict(model), dim_mults)`` is the gradient
-tree ``jax.grad`` returns for the same loss, which is how the tests compare
-the two packages' gradients.
+tree ``jax.grad`` returns for the same loss (``dim_mults`` may be left out,
+the levels counted from the names), which is how the tests compare the two
+packages' gradients.
 
 :func:`jax_checkpoint_to_port` maps a whole JAX checkpoint (the payload of
 ``dquartic_tpu.train.Trainer``: ``{epoch, best_loss, state: {step, params,
@@ -101,6 +110,11 @@ class _ToTorch:
         for key, v in self._at(path).items():  # g, and b of a LayerNorm
             self.out[f"{name}.{key}"] = _f32(v).reshape(1, -1, 1)
 
+    def layernorm(self, path: Path, name: str) -> None:
+        p = self._at(path)
+        self.out[f"{name}.weight"] = _f32(p["scale"])
+        self.out[f"{name}.bias"] = _f32(p["bias"])
+
 
 class _Layouts(_ToTorch):
     """Reads a flax tree, records for each torch name the flax path of its
@@ -120,6 +134,10 @@ class _Layouts(_ToTorch):
     def norm(self, path: Path, name: str) -> None:
         for key in self._at(path):
             self.out[f"{name}.{key}"] = (path + (key,), None)
+
+    def layernorm(self, path: Path, name: str) -> None:
+        self.out[f"{name}.weight"] = (path + ("scale",), (0,))
+        self.out[f"{name}.bias"] = (path + ("bias",), (0,))
 
 
 class _ToJax:
@@ -150,6 +168,9 @@ class _ToJax:
     def norm(self, path: Path, name: str) -> None:
         self._put(path, {key: self.sd[f"{name}.{key}"].reshape(-1) for key in ("g", "b")
                          if f"{name}.{key}" in self.sd})
+
+    def layernorm(self, path: Path, name: str) -> None:
+        self._put(path, {"scale": self.sd[f"{name}.weight"], "bias": self.sd[f"{name}.bias"]})
 
 
 def _resnet(m, path: Path, name: str) -> None:
@@ -183,17 +204,47 @@ def _transformer(m, key: str, name: str) -> None:
         i += 1
 
 
-def _walk(m, n_levels: int) -> None:
-    """Every parameter of the conditional UNet1d, ``simple`` either way."""
-    simple = not m.has(("attn_mz_conv",), "attn_cond_proj.0.0")
+def _count(m, key: str, name: str) -> int:
+    """How many of ``key.format(i)`` / ``name.format(i)`` the tree holds,
+    from i = 0 up."""
+    n = 0
+    while m.has((key.format(n),), name.format(n)):
+        n += 1
+    return n
+
+
+def _walk_transformer(m) -> None:
+    """Every parameter of the CustomTransformer."""
+    for key in ("input_projection", "conditional_projection", "output_projection"):
+        m.dense((key,), key)
+    for key in ("linear1", "linear2"):
+        m.dense(("time_embedding", key), f"time_embedding.{key}")
+    for i in range(_count(m, "layers_{}", "layers.{}")):
+        for key in ("q_proj", "k_proj", "v_proj", "out_proj", "ff1", "ff2"):
+            m.dense((f"layers_{i}", key), f"layers.{i}.{key}")
+        for key in ("norm1", "norm2"):
+            m.layernorm((f"layers_{i}", key), f"layers.{i}.{key}")
+
+
+def _walk(m, n_levels: Optional[int] = None) -> None:
+    """Every parameter of the UNet1d, conditional or not, ``simple`` either
+    way (``n_levels`` None: counted from the tree), or of the
+    CustomTransformer."""
+    if m.has(("input_projection",), "input_projection"):
+        return _walk_transformer(m)
+    if n_levels is None:
+        n_levels = _count(m, "downs_{}_block1", "downs.{}.0")
+    conditional = m.has(("init_cond_proj",), "init_cond_proj")
+    simple = not m.has(("mid_attn_fn", "layers_0_attn"), "mid_attn.fn.fn.layers.0.0")
     m.conv(("init_conv",), "init_conv")
     m.dense(("time_mlp_1",), "time_mlp.1")
     m.dense(("time_mlp_3",), "time_mlp.3")
-    m.dense(("init_cond_proj", "to_scale_shift"), "init_cond_proj.to_scale_shift.1")
-    if simple:
+    if conditional:
+        m.dense(("init_cond_proj", "to_scale_shift"), "init_cond_proj.to_scale_shift.1")
+    if conditional and simple:
         m.conv(("attn_rt_conv1",), "attn_cond_proj.1.0")
         m.conv(("attn_rt_conv2",), "attn_cond_proj.1.2")
-    else:
+    elif conditional:
         m.conv(("attn_mz_conv",), "attn_cond_proj.0.0")
         _resnet(m, ("attn_mz_res1",), "attn_cond_proj.0.1")
         _resnet(m, ("attn_mz_res2",), "attn_cond_proj.0.2")
@@ -208,8 +259,9 @@ def _walk(m, n_levels: int) -> None:
     _resnet(m, ("mid_block1",), "mid_block1")
     m.norm(("mid_attn_norm",), "mid_attn.fn.norm")
     if simple:
-        for key in ("to_qv", "to_k", "to_out"):
-            m.conv(("mid_attn_fn", key), f"mid_attn.fn.fn.{key}")
+        for key in ("to_qkv", "to_qv", "to_k", "to_out"):
+            if m.has(("mid_attn_fn", key), f"mid_attn.fn.fn.{key}"):
+                m.conv(("mid_attn_fn", key), f"mid_attn.fn.fn.{key}")
     else:
         _transformer(m, "mid_attn_fn", "mid_attn.fn.fn")
     _resnet(m, ("mid_block2",), "mid_block2")
@@ -226,21 +278,14 @@ def _walk(m, n_levels: int) -> None:
     m.conv(("final_conv",), "final_conv")
 
 
-def _n_levels(params: Dict[str, Any]) -> int:
-    p = params.get("params", params)
-    n = 0
-    while f"downs_{n}_block1" in p:
-        n += 1
-    return n
-
-
 def jax_params_to_torch(params: Dict[str, Any],
                         dim_mults: Optional[Sequence[int]] = None) -> Dict[str, np.ndarray]:
-    """Conditional UNet1d flax tree (with or without the ``{"params": ...}``
-    wrapper) -> port state_dict of numpy arrays. The number of levels is
-    that of ``dim_mults``, or of the tree when it is None."""
+    """UNet1d or CustomTransformer flax tree (with or without the
+    ``{"params": ...}`` wrapper) -> port state_dict of numpy arrays. A
+    UNet1d's number of levels is that of ``dim_mults``, or of the tree when
+    it is None."""
     m = _ToTorch(params)
-    _walk(m, _n_levels(params) if dim_mults is None else len(dim_mults))
+    _walk(m, None if dim_mults is None else len(dim_mults))
     return m.out
 
 
@@ -263,7 +308,7 @@ def _factored_to_port(st: Dict[str, Any], params: Dict[str, Any]) -> Dict[str, A
     that averages out the same axis in the torch layout, its other axes put
     in the torch order."""
     layouts = _Layouts(params)
-    _walk(layouts, _n_levels(params))
+    _walk(layouts)
     trees = {k: _unwrap(st[k]) for k in ("v_row", "v_col", "v")}
 
     def at(tree, path):
@@ -322,8 +367,9 @@ def _opt_state_to_port(opt_state, params) -> Optional[Dict[str, Any]]:
 def jax_checkpoint_to_port(payload: Dict[str, Any]) -> Dict[str, Any]:
     """A JAX package checkpoint as ``read_jax_checkpoint`` returns it ->
     the port's payload ``{epoch, best_loss, step, params, opt_state,
-    ema_params}``: float32 state_dicts of the conditional UNet1d (the number
-    of levels read from the tree), the optimizer state keyed by name
+    ema_params}``: float32 state_dicts of the UNet1d (conditional or not,
+    the number of levels read from the tree) or the CustomTransformer, the
+    optimizer state keyed by name
     (None for a converted reference checkpoint, which has none), and the
     EMA (None where the run kept none)."""
     state = payload["state"]
@@ -339,12 +385,14 @@ def jax_checkpoint_to_port(payload: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-def torch_to_jax_params(sd: Dict[str, Any], dim_mults: Sequence[int]) -> Dict[str, Any]:
-    """Port state_dict (float weights, tensors or arrays) -> the conditional
-    UNet1d flax tree ``{"params": ...}``."""
+def torch_to_jax_params(sd: Dict[str, Any],
+                        dim_mults: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+    """Port state_dict (float weights, tensors or arrays) -> the UNet1d or
+    CustomTransformer flax tree ``{"params": ...}``; a UNet1d's levels are
+    those of ``dim_mults``, or counted from the names when it is None."""
     m = _ToJax({k: v.detach().cpu().float().numpy() if torch.is_tensor(v) else v
                 for k, v in sd.items()})
-    _walk(m, len(dim_mults))
+    _walk(m, None if dim_mults is None else len(dim_mults))
     return {"params": m.p}
 
 

@@ -3,7 +3,10 @@
 
 The reference UNet1d's ``model_state_dict`` is read through a copy of the
 JAX package's name table (``convert_unet1d_state_dict``: reference names
--> the flax tree) and mapped onto the port's names and layouts by
+-> the flax tree; the reference CustomTransformer's through
+``convert_custom_transformer_state_dict``, which splits each layer's packed
+``attention.in_proj_weight`` (3h, h) into q, k and v) and mapped onto the
+port's names and layouts by
 :func:`~dquartic_tpu_torch.compat.jax_params.jax_params_to_torch`, so the
 port reads exactly the entries the JAX package reads and fails where it
 fails. For ``simple=True`` the two tables compose to the identity: the
@@ -12,8 +15,7 @@ and back leave the arrays as they were (views, no copy).
 
 The output is the port's checkpoint of weights only, as the JAX package
 writes it: ``{epoch, best_loss, step 0, params, ema_params = params}`` (one
-copy of the tensors in the file), no optimizer state. The reference
-``CustomTransformer`` is not ported, so its checkpoints raise.
+copy of the tensors in the file), no optimizer state.
 """
 
 from __future__ import annotations
@@ -70,38 +72,43 @@ def _linear_attention(sd, prefix: str) -> Dict[str, Any]:
     }
 
 
-def _attention(sd, prefix: str) -> Dict[str, Any]:
-    return {
-        "to_out": _conv(sd, f"{prefix}.to_out"),
-        "to_qv": _conv(sd, f"{prefix}.to_qv"),
-        "to_k": _conv(sd, f"{prefix}.to_k"),
-    }
+def _attention(sd, prefix: str, cross: bool) -> Dict[str, Any]:
+    out = {"to_out": _conv(sd, f"{prefix}.to_out")}
+    if cross:
+        out["to_qv"] = _conv(sd, f"{prefix}.to_qv")
+        out["to_k"] = _conv(sd, f"{prefix}.to_k")
+    else:
+        out["to_qkv"] = _conv(sd, f"{prefix}.to_qkv")
+    return out
+
+
+def _f32_numpy(sd: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().float().numpy() if torch.is_tensor(v) else np.asarray(v, np.float32)
+            for k, v in sd.items()}
 
 
 def convert_unet1d_state_dict(
     sd: Dict[str, Any], dim_mults: Sequence[int], conditional: bool = True,
     simple: bool = True,
 ) -> Dict[str, Any]:
-    """A reference conditional UNet1d state_dict -> the flax tree
+    """A reference UNet1d state_dict, conditional or not -> the flax tree
     ``{"params": ...}`` (the JAX package's table)."""
-    if not conditional:
-        raise NotImplementedError("the port builds the conditional UNet1d only")
     if not simple:
         raise NotImplementedError(
             "The reference simple=False Transformer1d forward crashes "
             "(unet1d.py:822); no reference checkpoints exist for it."
         )
-    sd = {k: v.detach().float().numpy() if torch.is_tensor(v) else np.asarray(v, np.float32)
-          for k, v in sd.items()}
+    sd = _f32_numpy(sd)
     n_levels = len(dim_mults)
     p: Dict[str, Any] = {
         "init_conv": _conv(sd, "init_conv"),
         "time_mlp_1": _dense(sd, "time_mlp.1"),
         "time_mlp_3": _dense(sd, "time_mlp.3"),
-        "init_cond_proj": {"to_scale_shift": _dense(sd, "init_cond_proj.to_scale_shift.1")},
-        "attn_rt_conv1": _conv(sd, "attn_cond_proj.1.0"),
-        "attn_rt_conv2": _conv(sd, "attn_cond_proj.1.2"),
     }
+    if conditional:
+        p["init_cond_proj"] = {"to_scale_shift": _dense(sd, "init_cond_proj.to_scale_shift.1")}
+        p["attn_rt_conv1"] = _conv(sd, "attn_cond_proj.1.0")
+        p["attn_rt_conv2"] = _conv(sd, "attn_cond_proj.1.2")
     for i in range(n_levels):
         is_last = i >= n_levels - 1
         p[f"downs_{i}_block1"] = _resnet_block(sd, f"downs.{i}.0")
@@ -113,7 +120,7 @@ def convert_unet1d_state_dict(
 
     p["mid_block1"] = _resnet_block(sd, "mid_block1")
     p["mid_attn_norm"] = _chan_norm(sd, "mid_attn.fn.norm")
-    p["mid_attn_fn"] = _attention(sd, "mid_attn.fn.fn")
+    p["mid_attn_fn"] = _attention(sd, "mid_attn.fn.fn", cross=conditional)
     p["mid_block2"] = _resnet_block(sd, "mid_block2")
 
     for i in range(n_levels):
@@ -129,6 +136,40 @@ def convert_unet1d_state_dict(
 
     p["final_res_block"] = _resnet_block(sd, "final_res_block")
     p["final_conv"] = _conv(sd, "final_conv")
+    return {"params": p}
+
+
+def convert_custom_transformer_state_dict(
+    sd: Dict[str, Any], num_layers: int, hidden_dim: int
+) -> Dict[str, Any]:
+    """A reference CustomTransformer state_dict -> the flax tree
+    ``{"params": ...}`` (the JAX package's table): each layer's
+    ``attention.in_proj_weight`` (3h, h) and ``in_proj_bias`` split into q,
+    k and v, the feed-forward read from ``ff.0`` and ``ff.2``."""
+    sd = _f32_numpy(sd)
+    p: Dict[str, Any] = {
+        "input_projection": _dense(sd, "input_projection"),
+        "conditional_projection": _dense(sd, "conditional_projection"),
+        "output_projection": _dense(sd, "output_projection"),
+        "time_embedding": {
+            "linear1": _dense(sd, "time_embedding.linear1"),
+            "linear2": _dense(sd, "time_embedding.linear2"),
+        },
+    }
+    h = hidden_dim
+    for i in range(num_layers):
+        pre = f"layers.{i}"
+        w = sd[f"{pre}.attention.in_proj_weight"]  # (3h, h)
+        b = sd[f"{pre}.attention.in_proj_bias"]  # (3h,)
+        p[f"layers_{i}"] = {
+            **{name: {"kernel": w[j * h:(j + 1) * h].T, "bias": b[j * h:(j + 1) * h]}
+               for j, name in enumerate(("q_proj", "k_proj", "v_proj"))},
+            "out_proj": _dense(sd, f"{pre}.attention.out_proj"),
+            "norm1": {"scale": sd[f"{pre}.norm1.weight"], "bias": sd[f"{pre}.norm1.bias"]},
+            "norm2": {"scale": sd[f"{pre}.norm2.weight"], "bias": sd[f"{pre}.norm2.bias"]},
+            "ff1": _dense(sd, f"{pre}.ff.0"),
+            "ff2": _dense(sd, f"{pre}.ff.2"),
+        }
     return {"params": p}
 
 
@@ -150,15 +191,18 @@ def convert_checkpoint_file(torch_path: str, out_path: str, config_path: str) ->
 
     config = load_train_config(config_path)
     m = config["model"]
-    if m["use_model"] != "UNet1d":
-        raise NotImplementedError(
-            f"use_model {m['use_model']!r}: the port builds the UNet1d only "
-            "(CustomTransformer is ROADMAP.md Queue 1 item 6)")
     loaded = load_torch_state_dict(torch_path)
-    u = m["UNet1d"]
-    tree = convert_unet1d_state_dict(loaded["state_dict"], dim_mults=u["dim_mults"],
-                                     conditional=u["conditional"], simple=u["simple"])
-    params = {k: _tensor(v) for k, v in jax_params_to_torch(tree, u["dim_mults"]).items()}
+    if m["use_model"] == "UNet1d":
+        u = m["UNet1d"]
+        tree = convert_unet1d_state_dict(loaded["state_dict"], dim_mults=u["dim_mults"],
+                                         conditional=u["conditional"], simple=u["simple"])
+    elif m["use_model"] == "CustomTransformer":
+        c = m["CustomTransformer"]
+        tree = convert_custom_transformer_state_dict(
+            loaded["state_dict"], num_layers=c["num_layers"], hidden_dim=c["hidden_dim"])
+    else:
+        raise ValueError(f"Unknown use_model: {m['use_model']}")
+    params = {k: _tensor(v) for k, v in jax_params_to_torch(tree).items()}
     save_checkpoint(out_path, {
         "epoch": loaded["epoch"],
         "best_loss": loaded["best_loss"],

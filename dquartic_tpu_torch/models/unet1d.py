@@ -1,4 +1,4 @@
-"""Conditional 1-D U-Net denoiser, ``simple=True`` or ``simple=False``.
+"""1-D U-Net denoiser, conditional or not, ``simple=True`` or ``simple=False``.
 
 Port of :class:`dquartic_tpu.models.unet1d.UNet1d`. Per-RT-row activations
 stay channel-first ``(b·rt, C, mz')`` from the init conv to the head (the
@@ -24,8 +24,13 @@ in full. After the backward of a loss every rank computes alike, each
 parameter's ``.grad`` is the rank's partial, and their sum over the group
 is the gradient.
 
-``simple=True`` conditions on the MS1 trace through two convs over RT and
-mixes the bottleneck with one cross attention. ``simple=False`` runs an
+``conditional=False`` (JAX's unconditional model) has no init condition
+(``init_conv`` takes the ``channels`` of x alone), no MS1 tower, and
+self attention at the bottleneck (``to_qkv``; with ``simple=False`` a
+``Transformer1d`` of self-attention layers only); its ``forward`` accepts
+and ignores ``init_cond`` and ``attn_cond``. ``simple=True`` conditions
+on the MS1 trace through two convs over RT and mixes the bottleneck with
+one cross attention. ``simple=False`` runs an
 MS1 tower over the trace's m/z axis (conv7, two ResnetBlocks without time
 embedding, a linear-attention mixer), pivots it channel-major
 to ``(b, acid·mz_c, rt)`` and runs a self-attention ``Transformer1d`` of
@@ -134,8 +139,6 @@ class UNet1d(nn.Module):
                 "ported yet; data parallelism is to come as DDP")
         self.activation_sharding = activation_sharding
         self.mesh = None  # set by build_model, DDIMSampler or Trainer (mesh=)
-        if not conditional:
-            raise NotImplementedError("the port implements the conditional UNet1d only")
         if fused_resnet and dropout > 0:
             raise ValueError(
                 "fused_resnet requires dropout == 0 (the fused kernel has no dropout path)")
@@ -151,6 +154,7 @@ class UNet1d(nn.Module):
         self.out_dim = out_dim if out_dim is not None else channels * (2 if learned_variance else 1)
         self.pos_output_only = pos_output_only
         self.simple = simple
+        self.conditional = conditional
         self.remat_blocks = remat_blocks
         self.remat_linear_attn = remat_linear_attn
         self.fused_resnet = fused_resnet
@@ -167,12 +171,14 @@ class UNet1d(nn.Module):
             nn.GELU(),
             Linear(time_dim, time_dim),
         )
-        self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
-        self.init_conv = Conv1d(channels + ic, init_dim, 7, padding=3)
+        if conditional:
+            self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
+        self.init_conv = Conv1d(channels + (ic if conditional else 0), init_dim, 7, padding=3)
         attn = dict(heads=attn_heads, dim_head=attn_dim_head, attn_impl=attn_impl)
         mz_c = attn_cond_channels or 1
         RowBlock = ResnetBlockT if fused_resnet else ResnetBlock
-        if simple:
+        cond_dim = None  # the unconditional model: self attention at the bottleneck
+        if conditional and simple:
             self.attn_cond_proj = nn.Sequential(
                 nn.Identity(),  # mz_net of the simple model
                 nn.Sequential(
@@ -182,7 +188,7 @@ class UNet1d(nn.Module):
                 ),
             )
             cond_dim = acid
-        else:
+        elif conditional:
             cond_dim = acid * mz_c
             self.attn_cond_proj = nn.Sequential(
                 nn.Sequential(  # mz_net, over the trace's m/z axis
@@ -210,8 +216,8 @@ class UNet1d(nn.Module):
         if simple:
             mixer = Attention(self.mid_ch, cond_dim=cond_dim, **attn)
         else:
-            mixer = Transformer1d(self.mid_ch, depth=tfer_depth, use_xattn=True,
-                                  cond_dim=cond_dim, **attn)
+            mixer = Transformer1d(self.mid_ch, depth=tfer_depth, use_xattn=conditional,
+                                  cond_dim=cond_dim or 1, **attn)
         self.mid_attn = Residual(PreNorm(self.mid_ch, mixer))
         self.mid_block2 = ResnetBlock(self.mid_ch, self.mid_ch, time_dim)
 
@@ -272,7 +278,8 @@ class UNet1d(nn.Module):
         attn_cond: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x (b, rt, mz) or (rt, mz); time (b,); init_cond like x; attn_cond
-        (b, rt) or (b, rt, mz_c). Returns (b, rt·out_dim, mz)."""
+        (b, rt) or (b, rt, mz_c) (both ignored by the unconditional model).
+        Returns (b, rt·out_dim, mz)."""
         if x.dim() == 2:
             x = x[None]
         b, rt, mz = x.shape
@@ -296,21 +303,26 @@ class UNet1d(nn.Module):
         t_rows = torch.repeat_interleave(t, rt, dim=0)  # (b*rt, time_dim): per-row FiLM
 
         x = x.reshape(b * rt, 1, mz).to(dtype)
-        if init_cond is None:
-            init_cond = torch.zeros((b, rt, mz), dtype=dtype, device=x.device)
-        ic = init_cond.reshape(b * rt, -1, mz).to(dtype)
-        x, ic = shard_batch((x, ic), self.mesh if group is not None else None)
-        ic = self.init_cond_proj(ic, t_rows)
-        x = self.init_conv(torch.cat([ic, x], dim=1), group)  # (b*rt, init_dim, mz)
+        mesh = self.mesh if group is not None else None
+        if self.conditional:
+            if init_cond is None:
+                init_cond = torch.zeros((b, rt, mz), dtype=dtype, device=x.device)
+            ic = init_cond.reshape(b * rt, -1, mz).to(dtype)
+            x, ic = shard_batch((x, ic), mesh)
+            x = torch.cat([self.init_cond_proj(ic, t_rows), x], dim=1)
+        else:
+            x = shard_batch(x, mesh)
+        x = self.init_conv(x, group)  # (b*rt, init_dim, mz)
         r = x
 
         # MS1 condition tower -> (b, cond_dim, rt), channel-major over (d, mz_c)
-        if attn_cond is None:
+        cond = None
+        if self.conditional and attn_cond is None:
             attn_cond = torch.zeros((b, rt), dtype=dtype, device=x.device)
-        if self.simple:
+        if self.conditional and self.simple:
             cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
             cond = self.attn_cond_proj(cond)  # (b, acid, rt)
-        else:
+        elif self.conditional:
             mz_net, tfer = self.attn_cond_proj
             conv, res1, res2, mixer = mz_net
             ac = res2(res1(conv(attn_cond.reshape(b * rt, 1, -1).to(dtype))))

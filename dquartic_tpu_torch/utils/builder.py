@@ -3,19 +3,22 @@ config dict.
 
 Port of ``build_mesh`` / ``apply_mesh_model_flags`` / ``build_model`` /
 ``build_process`` / ``build_dataset`` / ``build_trainer`` of
-:mod:`dquartic_tpu.utils.builder` for the UNet1d.
+:mod:`dquartic_tpu.utils.builder` for the UNet1d (conditional or not) and the
+CustomTransformer.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..core import DDIMProcess, make_schedule
 from ..data import DIAMSDataset, PairBatches, prefetch_iterator
+from ..models.layers import LayerNorm1d, RMSNorm
+from ..models.transformer import CustomTransformer, LayerNorm
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
 from ..parallel.mesh import Mesh, make_mesh
@@ -24,10 +27,19 @@ from .device import resolve_device
 from .logging import NoOpLogger, make_logger
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
-# Parameters kept float32 in every dtype, as JAX keeps them: the gains of
-# RMSNorm and LayerNorm1d and LayerNorm1d's bias.
-_NORM_PARAMS = (".g", ".b")
-_UNET_KEYS = set(UNet1d.__init__.__code__.co_varnames[1 : UNet1d.__init__.__code__.co_argcount])
+# Modules whose parameters stay float32 in every dtype, as JAX keeps them:
+# the gains of RMSNorm and LayerNorm1d, LayerNorm1d's bias, and the
+# CustomTransformer's LayerNorms.
+_NORMS = (RMSNorm, LayerNorm1d, LayerNorm)
+
+
+def _init_keys(cls) -> set:
+    code = cls.__init__.__code__
+    return set(code.co_varnames[1:code.co_argcount])
+
+
+_UNET_KEYS = _init_keys(UNet1d)
+_TRANSFORMER_KEYS = _init_keys(CustomTransformer)
 
 
 def build_mesh(config: Dict[str, Any], batch_size: Optional[int] = None) -> Optional[Mesh]:
@@ -73,11 +85,56 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
 
 
+def _unet_kwargs(config: Dict[str, Any], trainable: bool, mesh) -> Tuple[Dict[str, Any], bool]:
+    """The UNet1d's constructor keys from the ``UNet1d`` block and ``tpu``
+    (see :func:`build_model`), and whether its mid convs are int8."""
+    u = dict(config["model"]["UNet1d"])
+    if "attn_impl" in u:
+        raise ValueError(
+            "attn_impl belongs in the tpu section of the config, not in model.UNet1d "
+            "(the JAX build_model passes tpu.attn_impl, so a second one is a duplicate "
+            "keyword there)"
+        )
+    tpu = config["tpu"]
+    quantize = bool(tpu.get("quantize_mid") or u.pop("quantize_mid", False))
+    unknown = set(u) - _UNET_KEYS
+    if unknown:
+        raise ValueError(f"Unknown UNet1d config keys: {sorted(unknown)}")
+    u = apply_mesh_model_flags(u, mesh)
+    u.setdefault("linear_attn_impl", tpu.get("linear_attn_impl", "auto"))
+    tpu_fused = tpu.get("fused_resnet") and not (trainable and u.get("activation_sharding"))
+    u["fused_resnet"] = bool(u.get("fused_resnet") or tpu_fused)
+    u["attn_impl"] = tpu["attn_impl"]
+    return u, quantize
+
+
+def _transformer_kwargs(config: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The CustomTransformer's constructor keys, as the JAX ``build_model``
+    reads them: the block's keys, unknown ones (``attn_impl`` among them)
+    refused. The ``tpu`` keys of the UNet1d (``fused_resnet``,
+    ``linear_attn_impl``, ``attn_impl``) do not apply and are not read; a
+    mesh that splits m/z (``sp > 1``) raises: no sequence-parallel path
+    exists for this model."""
+    c = dict(config["model"]["CustomTransformer"])
+    unknown = set(c) - _TRANSFORMER_KEYS
+    if unknown:
+        raise ValueError(f"Unknown CustomTransformer config keys: {sorted(unknown)}")
+    sp = mesh.sp if mesh is not None else (config["tpu"].get("mesh", {}).get("sp") or 1)
+    if sp > 1:
+        raise ValueError(
+            f"tpu.mesh sp={sp}: the CustomTransformer has no sequence-parallel path in the "
+            "port (the mesh splits the UNet1d's m/z axis); multi-card parallelism is ROADMAP.md "
+            "Queue 1 item 7")
+    return c
+
+
 def build_model(
     config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
-) -> UNet1d:
-    """UNet1d from ``config["model"]["UNet1d"]`` with seeded random weights,
+) -> torch.nn.Module:
+    """The ``model.use_model`` denoiser (``"UNet1d"`` or
+    ``"CustomTransformer"``, from the config block of that name) with seeded
+    random weights,
     or the float weights of ``state_dict`` (a trained model's, e.g. from
     :func:`~dquartic_tpu_torch.train.checkpoint.checkpoint_params`), on
     ``device`` (None: the card; raises without one), computing in
@@ -113,47 +170,50 @@ def build_model(
 
     The model is built on the meta device and materialized on ``device``,
     so the canonical models (1.2 B parameters, 2.8 B with ``simple=False``)
-    are never built on the host."""
+    are never built on the host.
+
+    A ``CustomTransformer`` takes the keys of its block only (see
+    :func:`_transformer_kwargs`): ``tpu.quantize_mid`` and
+    ``tpu.fused_resnet`` are the UNet1d's and are not read here, as in the
+    JAX ``build_model`` (``build_trainer`` refuses ``quantize_mid`` for any
+    model, the CLI's ``predict`` both flags for this one). Its seeded
+    weights are flax's initialization (``CustomTransformer.init_weights``);
+    serving keeps its LayerNorms float32."""
     m = config["model"]
-    if m["use_model"] != "UNet1d":
-        raise NotImplementedError(f"the port builds UNet1d only (got {m['use_model']})")
-    u = dict(m["UNet1d"])
-    if "attn_impl" in u:
-        raise ValueError(
-            "attn_impl belongs in the tpu section of the config, not in model.UNet1d "
-            "(the JAX build_model passes tpu.attn_impl, so a second one is a duplicate "
-            "keyword there)"
-        )
-    tpu = config["tpu"]
-    quantize = bool(tpu.get("quantize_mid") or u.pop("quantize_mid", False))
-    unknown = set(u) - _UNET_KEYS
-    if unknown:
-        raise ValueError(f"Unknown UNet1d config keys: {sorted(unknown)}")
-    if mesh is None:
-        mesh = build_mesh(config, m.get("batch_size"))
-    u = apply_mesh_model_flags(u, mesh)
-    u.setdefault("linear_attn_impl", tpu.get("linear_attn_impl", "auto"))
-    tpu_fused = tpu.get("fused_resnet") and not (trainable and u.get("activation_sharding"))
-    u["fused_resnet"] = bool(u.get("fused_resnet") or tpu_fused)
-    dtype = _DTYPES[tpu["compute_dtype"]]
+    dtype = _DTYPES[config["tpu"]["compute_dtype"]]
+    quantize = False
+    if m["use_model"] == "UNet1d":
+        if mesh is None:
+            mesh = build_mesh(config, m.get("batch_size"))
+        kwargs, quantize = _unet_kwargs(config, trainable, mesh)
+        cls = UNet1d
+    elif m["use_model"] == "CustomTransformer":
+        kwargs, cls = _transformer_kwargs(config, mesh), CustomTransformer
+    else:
+        raise ValueError(f"Invalid model class: {m['use_model']}")
 
     device = resolve_device(device, "build_model")
     with torch.device("meta"):
-        model = UNet1d(**u, dtype=dtype, attn_impl=tpu["attn_impl"])
-    model.mesh = mesh
+        model = cls(**kwargs, dtype=dtype)
+    if cls is UNet1d:
+        model.mesh = mesh
     model.to_empty(device=device)
-    if state_dict is None:
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    elif cls is UNet1d:
         init_weights(model, torch.Generator(device=device).manual_seed(seed))
     else:
-        model.load_state_dict(state_dict)
+        model.init_weights(torch.Generator(device=device).manual_seed(seed))
     if trainable:
         if quantize:
             raise ValueError("int8 mid convs (quantize_mid) are inference only")
         return model.train()
     if quantize:
         quantize_mid_block_params(model)
+    keep = {f"{mn}.{pn}" for mn, mod in model.named_modules() if isinstance(mod, _NORMS)
+            for pn, _ in mod.named_parameters(recurse=False)}
     for name, p in model.named_parameters():
-        if not name.endswith(_NORM_PARAMS):
+        if name not in keep:
             p.data = p.data.to(dtype)
     return model.requires_grad_(False).eval()
 
@@ -240,7 +300,8 @@ def build_logger(config: Dict[str, Any], mesh=None):
 
 def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None,
                   mesh=None) -> Trainer:
-    """Trainer over a trainable UNet1d (float32 master weights computing in
+    """Trainer over the trainable ``model.use_model`` denoiser (float32
+    master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
     of the config, as the JAX ``build_trainer`` wires them, on ``device``
     (None: the card; raises without one), on ``mesh`` (None:
@@ -253,7 +314,9 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     names, and it has no Orbax backend, so ``"orbax"`` raises, as does an
     unknown value (as in the JAX ``Trainer``). It resumes from the JAX
     package's msgpack files too."""
-    if config["tpu"].get("quantize_mid") or config["model"]["UNet1d"].get("quantize_mid"):
+    m = config["model"]
+    if config["tpu"].get("quantize_mid") or (
+            m["use_model"] == "UNet1d" and m["UNet1d"].get("quantize_mid")):
         raise ValueError(
             "tpu.quantize_mid / UNet1d.quantize_mid is inference-only and cannot appear "
             "in a training config: int8 weights are frozen post-training artifacts with "

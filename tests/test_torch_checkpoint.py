@@ -388,12 +388,27 @@ def test_convert_checkpoint_matches_jax(tmp_path):
 
 
 def test_convert_checkpoint_refuses_custom_transformer(tmp_path):
+    """Named for when the port refused the reference CustomTransformer: it
+    now converts it. A reference-named state_dict through the JAX
+    converter and the port's: the port's file holds the JAX file's tree
+    through the port's map, bit for bit, as params and EMA, with the
+    epoch and best loss and no optimizer state."""
     import json
+
+    from test_torch_custom_transformer import CT, _reference_state_dict
 
     cfg = _tiny_config()
     cfg["model"]["use_model"] = "CustomTransformer"
+    cfg["model"]["CustomTransformer"] = dict(CT)
     (tmp_path / "c.json").write_text(json.dumps(cfg))
-    torch.save({"model_state_dict": {}}, tmp_path / "r.ckpt")
-    with pytest.raises(NotImplementedError, match="CustomTransformer"):
-        convert_checkpoint_file(str(tmp_path / "r.ckpt"), str(tmp_path / "o.ckpt"),
-                                str(tmp_path / "c.json"))
+    torch.save({"model_state_dict": _reference_state_dict(40), "epoch": 3, "best_loss": 0.5},
+               tmp_path / "r.ckpt")
+    args = str(tmp_path / "r.ckpt"), str(tmp_path / "c.json")
+    jax_convert_file(args[0], str(tmp_path / "jax.ckpt"), args[1])
+    convert_checkpoint_file(args[0], str(tmp_path / "o.ckpt"), args[1])
+    ref = jax_params_to_torch(jax_load_checkpoint(str(tmp_path / "jax.ckpt"))["state"]["params"])
+    ck = load_checkpoint(str(tmp_path / "o.ckpt"))
+    assert (ck["epoch"], ck["best_loss"], ck["step"], ck["opt_state"]) == (3, 0.5, 0, None)
+    for key in ("params", "ema_params"):
+        assert ck[key].keys() == ref.keys()
+        assert all(np.array_equal(ck[key][k].numpy(), ref[k]) for k in ref)
