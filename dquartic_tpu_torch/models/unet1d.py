@@ -24,8 +24,13 @@ in full. After the backward of a loss every rank computes alike, each
 parameter's ``.grad`` is the rank's partial, and their sum over the group
 is the gradient.
 
+``init_conv`` takes x as one channel a row, whatever ``channels`` is (as
+the JAX model reshapes it), plus the init condition's
+``init_cond_channels`` when conditional; ``channels`` sets only the
+output's width, ``channels · (2 if learned_variance else 1)`` a row.
+
 ``conditional=False`` (JAX's unconditional model) has no init condition
-(``init_conv`` takes the ``channels`` of x alone), no MS1 tower, and
+(``init_conv`` takes x alone), no MS1 tower, and
 self attention at the bottleneck (``to_qkv``; with ``simple=False`` a
 ``Transformer1d`` of self-attention layers only); its ``forward`` accepts
 and ignores ``init_cond`` and ``attn_cond``. ``simple=True`` conditions
@@ -173,7 +178,8 @@ class UNet1d(nn.Module):
         )
         if conditional:
             self.init_cond_proj = ConditionalScaleShift(ic, time_dim)
-        self.init_conv = Conv1d(channels + (ic if conditional else 0), init_dim, 7, padding=3)
+        # x enters as one channel a row whatever ``channels`` is, as in JAX
+        self.init_conv = Conv1d(1 + (ic if conditional else 0), init_dim, 7, padding=3)
         attn = dict(heads=attn_heads, dim_head=attn_dim_head, attn_impl=attn_impl)
         mz_c = attn_cond_channels or 1
         RowBlock = ResnetBlockT if fused_resnet else ResnetBlock
