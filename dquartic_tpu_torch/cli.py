@@ -9,7 +9,19 @@ runs the kernels' plain PyTorch versions); without a card and without
 package's.
 
 The group is chained, so a command's options come before its positional
-arguments: ``predict --num-steps 50 CONFIG CKPT OUT``. pandas and pyarrow
+arguments: ``predict --num-steps 50 CONFIG CKPT OUT``.
+
+``train`` and ``predict`` run on any ``tpu.mesh`` of (dp, sp, tp) under the
+standard launcher, one process a rank, each on ``cuda:LOCAL_RANK`` (or
+the ``--device`` named), over ``nccl`` where each rank has a card of its
+own and ``gloo`` where ranks share one or run on the CPU::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m dquartic_tpu_torch.cli \
+        train --device cpu config.json
+
+Only mesh rank 0 logs and writes checkpoints and prediction files. One
+process with a ``tpu.mesh`` of more than one rank raises, naming the
+launcher. pandas and pyarrow
 are imported only by the commands that need them (``generate-train-data``,
 ``predict`` to parquet), so ``train`` and ``predict`` to npz load without
 them.
@@ -63,13 +75,34 @@ def _device_banner():
 
 
 def _resolve_device(device, what: str):
-    """``--device``, or the card; without one and without ``--device`` the
-    command fails with :func:`resolve_device`'s message."""
+    """``--device``, or the card (a launched rank's ``cuda:LOCAL_RANK``);
+    without one and without ``--device`` the command fails with
+    :func:`resolve_device`'s message. A launched rank joins its process
+    group here."""
+    import torch
+
+    from .parallel.distributed import initialize_runtime, launched_world_size, local_device
     from .utils.device import resolve_device
 
     try:
-        return resolve_device(device, what)
+        device = resolve_device(device, what)
     except RuntimeError as e:
+        raise click.ClickException(str(e))
+    if launched_world_size() > 1:
+        if device.type == "cuda" and device.index is None:
+            device = local_device()
+        initialize_runtime(device=device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def _build_mesh(config):
+    from .utils.builder import build_mesh
+
+    try:
+        return build_mesh(config, batch_size=config["model"]["batch_size"])
+    except ValueError as e:
         raise click.ClickException(str(e))
 
 
@@ -93,7 +126,7 @@ _device_option = click.option(
 def train(config_path, parquet_directory, ms2_data_path, ms1_data_path, batch_size,
           checkpoint_path, use_wandb, threads, device):
     """Train a DDIM model on the DIAMS dataset."""
-    from .utils.builder import build_dataset, build_mesh, build_trainer
+    from .utils.builder import build_dataset, build_trainer
     from .utils.config import load_train_config
 
     _device_banner()
@@ -114,7 +147,7 @@ def train(config_path, parquet_directory, ms2_data_path, ms1_data_path, batch_si
             "the port does not have yet (ROADMAP.md Queue 1 item 5); set it to false")
     device = _resolve_device(device, "train")
 
-    mesh = build_mesh(config, batch_size=config["model"]["batch_size"])
+    mesh = _build_mesh(config)
     dataset = build_dataset(config, mesh=mesh, device=device)
     trainer = build_trainer(config, device=device, mesh=mesh)
     m = config["model"]
@@ -218,7 +251,7 @@ def predict(config_path, checkpoint_path, output_file, num_steps, num_batches, u
 
     from .infer import DDIMSampler
     from .train.checkpoint import checkpoint_params, load_checkpoint
-    from .utils.builder import build_dataset, build_mesh, build_model, build_process
+    from .utils.builder import build_dataset, build_model, build_process
     from .utils.config import load_train_config
 
     _device_banner()
@@ -244,7 +277,7 @@ def predict(config_path, checkpoint_path, output_file, num_steps, num_batches, u
     if fused_resnet:
         click.echo("Info: fused transposed ResnetBlock path enabled")
 
-    mesh = build_mesh(config, batch_size=config["model"]["batch_size"])
+    mesh = _build_mesh(config)
     if mesh is not None:
         click.echo(f"Info: sampling over mesh {mesh.shape}")
     # the float weights, quantized then cast to the serving dtype
@@ -257,6 +290,8 @@ def predict(config_path, checkpoint_path, output_file, num_steps, num_batches, u
         if num_batches is not None and i >= num_batches:
             break
         records.extend(sampler.predict([batch], num_steps=num_steps, device=device))
+    if mesh is not None and mesh.rank != 0:
+        return  # every rank holds the records; mesh rank 0 writes them
     if output_format is None:
         output_format = "parquet" if str(output_file).endswith(".parquet") else "npz"
     if output_format == "parquet":

@@ -140,6 +140,43 @@ class _Layouts(_ToTorch):
         self.out[f"{name}.bias"] = (path + ("bias",), (0,))
 
 
+class _NameLayouts(_Layouts):
+    """:class:`_Layouts` from a state_dict's names alone (no flax tree): for
+    each torch name, the flax path and axis order of its leaf. An int8
+    conv's ``weight_q`` (K, N) and ``scale`` (N,) keep the axis order of
+    the JAX tree's ``kernel_q`` and ``kernel_scale``."""
+
+    def __init__(self, names):
+        self.names = set(names)
+        self.out = {}
+
+    def has(self, path: Path, name: str) -> bool:
+        return any(k.startswith(name + ".") for k in self.names)
+
+    def conv(self, path: Path, name: str) -> None:
+        if f"{name}.weight_q" in self.names:
+            self.out[f"{name}.weight_q"] = (path + ("kernel_q",), (0, 1))
+            self.out[f"{name}.scale"] = (path + ("kernel_scale",), (0,))
+        else:
+            self.out[f"{name}.weight"] = (path + ("kernel",), (2, 1, 0))
+        if f"{name}.bias" in self.names:
+            self.out[f"{name}.bias"] = (path + ("bias",), (0,))
+
+    def norm(self, path: Path, name: str) -> None:
+        for key in ("g", "b"):
+            if f"{name}.{key}" in self.names:
+                self.out[f"{name}.{key}"] = (path + (key,), None)
+
+
+def torch_layouts(names) -> Dict[str, Tuple[Path, Optional[Tuple[int, ...]]]]:
+    """``{torch name: (flax path, perm)}`` for the parameter names of a
+    UNet1d or CustomTransformer state_dict: torch axis i of the leaf is
+    flax axis ``perm[i]``; ``perm`` None is a norm's (C,) held as (1, C, 1)."""
+    m = _NameLayouts(names)
+    _walk(m)
+    return m.out
+
+
 class _ToJax:
     """Reads a state_dict, writes a flax tree."""
 

@@ -346,6 +346,15 @@ class DIAMSDataset:
             )
         return self.store.get(idx)
 
+    def skip_pair(self) -> None:
+        """Advance every draw of :meth:`sample_pair` (the pair's indices,
+        the de-duplication set, the stream's buffer) without fetching or
+        normalizing the pair: another process's row of a global batch."""
+        if self.stream is not None:
+            self.last_indices = self.stream.draw_pair(self.used_pairs)[-1]
+        else:
+            self.last_indices = self._draw_indices()
+
     def sample_pair(self):
         if self.stream is not None:
             ms1_1, ms2_1, ms1_2, ms2_2, idx = self.stream.draw_pair(self.used_pairs)
@@ -388,12 +397,19 @@ class PairBatches:
     Yields ``len(dataset) // batch_size`` dict batches per epoch, matching
     the reference DataLoader's epoch length (one draw per sample index,
     cli.py:86). Exposes ``reset_epoch`` for the trainer to forward.
+
+    ``rows`` (a range of row indices of the global batch) keeps those rows
+    only: every process draws the same global batch from the same RNG and
+    fetches, normalizes and stacks its own rows alone (the port's
+    counterpart of the JAX ``_device_batch``'s per-process feeding).
     """
 
-    def __init__(self, dataset: DIAMSDataset, batch_size: int = 1, drop_last: bool = True):
+    def __init__(self, dataset: DIAMSDataset, batch_size: int = 1, drop_last: bool = True,
+                 rows: Optional[range] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
+        self.rows = range(batch_size) if rows is None else rows
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -404,6 +420,11 @@ class PairBatches:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         for _ in range(len(self)):
-            samples = [self.dataset.sample_pair() for _ in range(self.batch_size)]
+            samples = []
+            for i in range(self.batch_size):
+                if i in self.rows:
+                    samples.append(self.dataset.sample_pair())
+                else:
+                    self.dataset.skip_pair()
             ms2_1, ms1_1, ms2_2, ms1_2 = (np.stack(cols) for cols in zip(*samples))
             yield {"ms2_1": ms2_1, "ms1_1": ms1_1, "ms2_2": ms2_2, "ms1_2": ms1_2}

@@ -7,9 +7,10 @@ the work on the card. On a CUDA device each array is copied into pinned
 host memory and sent with a ``non_blocking`` copy on the current stream,
 which orders it before the kernels that read it.
 
-Under a mesh with ``sp > 1`` every rank builds the same dataset from the
-same seed, so every rank iterates the same global batches; there is no dp
-axis to shard them over yet.
+Under a mesh every rank builds the same dataset from the same seed and
+draws the same global batches; with ``dp > 1`` the inner iterable
+(``PairBatches(rows=...)``) yields only the rank's rows, so the thread pins
+and copies those alone.
 """
 
 from __future__ import annotations

@@ -7,11 +7,20 @@ imported inside them). The model holds its own weights, so no parameter
 tree is passed; noise comes from an explicit :class:`torch.Generator`.
 Everything runs under ``torch.inference_mode``.
 
-With a ``mesh`` whose ``sp > 1`` every rank of the group calls the same
-methods on the same data with the same seed: each draws the whole
-window's noise alike, the model computes the rank's slice of m/z and
-returns the whole prediction (``activation_sharding``), and the DDIM steps,
-which are per element, run alike on every rank, so every rank gets the
+On a ``mesh`` every rank calls the same methods with the same seed:
+
+* ``dp``: each rank's batches hold its own rows (as
+  ``build_dataset(mesh=...)`` yields them). ``predict_batch`` draws the
+  noise x_T for the whole global batch (the rank's rows times dp) and keeps
+  the rank's rows, and ``predict`` gathers every record's arrays over the
+  replicas, so its records are those of one process on the global batch;
+* ``sp``: each rank computes its slice of m/z and the model returns the
+  whole prediction (``activation_sharding``);
+* ``tp``: the model's wide leaves are split over the ``tp`` group
+  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`), and the model
+  returns the whole prediction on every rank.
+
+The DDIM steps are per element, so every rank of a replica gets the
 unsharded result for that seed.
 """
 
@@ -23,19 +32,28 @@ import numpy as np
 import torch
 
 from ..core.diffusion import DDIMProcess
+from ..parallel.distributed import row_range
+from ..parallel.tensor import gather, shard_model
 from ..utils.device import resolve_device
 
 
 class DDIMSampler:
-    def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None):
+    def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None,
+                 tp_min_features: int = 2048):
         self.model = model
         self.process = process
+        self.mesh = mesh
         if mesh is not None and mesh.sp > 1:
             if getattr(model, "activation_sharding", None) is None:
                 raise ValueError(
                     f"a mesh with sp={mesh.sp} needs a model whose activation_sharding splits "
                     "m/z over it (build_model sets it from the mesh)")
             model.mesh = mesh
+        shard_model(model, mesh, tp_min_features)
+
+    @property
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
 
     @torch.inference_mode()
     def sample(
@@ -57,11 +75,13 @@ class DDIMSampler:
         num_steps: int = 1000,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Start from N(0, I) noise drawn from ``generator`` (which must
-        live on ``ms2_cond``'s device)."""
-        x_t = torch.randn(
-            ms2_cond.shape, generator=generator, dtype=torch.float32, device=ms2_cond.device
-        )
-        return self.sample(x_t, ms2_cond, ms1_cond, num_steps)
+        live on ``ms2_cond``'s device); under dp, drawn for the global batch
+        and cut to this rank's rows."""
+        rows = ms2_cond.shape[0] * self._dp
+        x_t = torch.randn((rows, *ms2_cond.shape[1:]), generator=generator,
+                          dtype=torch.float32, device=ms2_cond.device)
+        r = row_range(rows, self.mesh)
+        return self.sample(x_t[r.start:r.stop], ms2_cond, ms1_cond, num_steps)
 
     def predict(
         self,
@@ -76,7 +96,9 @@ class DDIMSampler:
         the mixture ``w0·ms2_1 + w1·ms2_2`` is the condition. Each record
         holds the target, its MS1, the mixture, the prediction and the
         removed signal, as numpy arrays. ``device=None`` is the card (raises
-        without one)."""
+        without one). Under dp each batch holds the rank's rows, and every
+        rank returns the records of the global batches (gathered over the
+        replicas)."""
         device = resolve_device(device, "DDIMSampler.predict")
         generator = torch.Generator(device=device).manual_seed(seed)
         out: List[Dict[str, np.ndarray]] = []
@@ -85,15 +107,11 @@ class DDIMSampler:
                                    for k in ("ms2_1", "ms1_1", "ms2_2"))
             ms2_cond = mixture_weights[0] * ms2_1 + mixture_weights[1] * ms2_2
             pred, pred_noise = self.predict_batch(generator, ms2_cond, ms1_1, num_steps)
-            out.append(
-                {
-                    "ms2_1": ms2_1.cpu().numpy(),
-                    "ms1_1": ms1_1.cpu().numpy(),
-                    "mixture": ms2_cond.cpu().numpy(),
-                    "pred": pred.float().cpu().numpy(),
-                    "pred_noise": pred_noise.float().cpu().numpy(),
-                }
-            )
+            rec = {"ms2_1": ms2_1, "ms1_1": ms1_1, "mixture": ms2_cond, "pred": pred.float(),
+                   "pred_noise": pred_noise.float()}
+            if self._dp > 1:  # the replicas' rows, in rank order
+                rec = {k: gather(v.contiguous(), self.mesh.dp_group, 0) for k, v in rec.items()}
+            out.append({k: v.cpu().numpy() for k, v in rec.items()})
         return out
 
 

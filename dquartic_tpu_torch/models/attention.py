@@ -29,6 +29,7 @@ from ..ops.linear_attention import (
     linear_attention_rows_reference, linear_attention_sp, rmsnorm_reference,
 )
 from ..parallel.sequence import sp_gather, sp_slice
+from ..parallel.tensor import full
 from .layers import Conv1d, Conv1x1, FeedForward1d, RMSNorm
 
 
@@ -131,21 +132,26 @@ class LinearAttention(nn.Module):
         if impl == "pallas_t" and self.kernels:
             xs = x if sharded else sp_slice(x, group)
             cd = x.dtype
-            w_qkv, w_out = self.to_qkv.weight[:, :, 0], self.to_out[0].weight[:, :, 0]
+            w_qkv, w_out, b_out, g = self._leaves()
             y = linear_attention_sp(xs, w_qkv.t().to(cd), w_out.t().to(cd),
-                                    self.to_out[0].bias.to(cd), self.to_out[1].g.reshape(-1),
+                                    b_out.to(cd), g,
                                     g_pre.reshape(-1), self.heads, self.dim_head, group)
             return y if sharded else sp_gather(y, group)
         if sharded:
             return sp_slice(self._mix(sp_gather(x, group), g_pre, impl), group)
         return self._mix(x, g_pre, impl)
 
+    def _leaves(self):
+        """(w_qkv, w_out, b_out, g) as the ops take them: the 1x1 conv
+        weights squeezed, whole (gathered where tp splits them)."""
+        return (full(self.to_qkv, "weight")[:, :, 0], full(self.to_out[0], "weight")[:, :, 0],
+                full(self.to_out[0], "bias"), full(self.to_out[1], "g").reshape(-1))
+
     def _mix(self, x: torch.Tensor, g_pre: torch.Tensor, impl: str) -> torch.Tensor:
         """The mixer over the whole sequence by ``impl``."""
         cd = x.dtype  # conv parameters at the compute dtype; norm gains float32
-        g_pre, g = g_pre.reshape(-1), self.to_out[1].g.reshape(-1)
-        w_qkv, w_out = self.to_qkv.weight[:, :, 0], self.to_out[0].weight[:, :, 0]
-        b_out = self.to_out[0].bias
+        g_pre = g_pre.reshape(-1)
+        w_qkv, w_out, b_out, g = self._leaves()
         if impl == "pallas_t":
             op = linear_attention if self.kernels else linear_attention_nr_reference
             return op(x, w_qkv.t().to(cd), w_out.t().to(cd), b_out.to(cd), g, g_pre,
@@ -198,7 +204,7 @@ class LinearAttentionBlock(nn.Module):
         self.fn = PreNorm(dim, LinearAttention(dim, impl=impl))
 
     def forward(self, x: torch.Tensor, group=None, sharded: bool = False) -> torch.Tensor:
-        return self.fn.fn(x, self.fn.norm.g, group, sharded)
+        return self.fn.fn(x, full(self.fn.norm, "g"), group, sharded)
 
 
 class _SoftmaxAttention(nn.Module):

@@ -10,10 +10,16 @@ Mixed precision follows flax's ``dtype=bf16, param_dtype=float32``: the
 convs and linears cast their parameters to the activation dtype at use, so
 float32 master weights compute in bf16 and autograd returns float32
 gradients; norm gains and RMSNorm math stay float32.
+
+Under tensor parallelism (:mod:`dquartic_tpu_torch.parallel.tensor`) a
+layer whose leaves the JAX rule splits holds its shards and a ``tp``
+spec: the products (convs, linears, int8 convs) run on their shard and
+gather or sum over the group, the norms gather their gains at use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -24,6 +30,7 @@ from torch import nn
 from ..ops.int8_matmul import int8_conv1d, int8_matmul, int8_matmul_reference, quantize_conv_kernel
 from ..ops.linear_attention import rmsnorm_reference
 from ..parallel.sequence import halo_exchange
+from ..parallel.tensor import full, product
 
 
 class Conv1d(nn.Conv1d):
@@ -33,16 +40,24 @@ class Conv1d(nn.Conv1d):
     x is this rank's slice of the length axis: the conv takes its padding's
     width of columns from each neighbour (zeros at the global ends) and
     returns its own slice of the output (a stride-2 conv on an even slice
-    too)."""
+    too). With a ``tp`` spec the weight is split on its output (axis 0) or
+    input (axis 1) channels."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         weight = self.weight.to(x.dtype)
         if group is None:
-            return self._conv_forward(x, weight, bias)
-        pad = self.padding[0]
-        return F.conv1d(halo_exchange(x, pad, pad, group), weight, bias, self.stride, 0,
-                        self.dilation, self.groups)
+            conv = lambda h, b: self._conv_forward(h, weight, b)  # noqa: E731
+        else:
+            pad = self.padding[0]
+            x = halo_exchange(x, pad, pad, group)
+            conv = lambda h, b: F.conv1d(h, weight, b, self.stride, 0,  # noqa: E731
+                                         self.dilation, self.groups)
+        if self.tp is None:
+            return conv(x, bias)
+        return product(self.tp, self.tp.dims["weight"] == 0, x, conv, bias, 1)
 
 
 class Conv1x1(Conv1d):
@@ -54,16 +69,31 @@ class Conv1x1(Conv1d):
         super().__init__(in_channels, out_channels, 1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(self.weight[:, :, 0].to(x.dtype), x)
-        return y if self.bias is None else y + self.bias.to(x.dtype)[:, None]
+        w = self.weight[:, :, 0].to(x.dtype)
+
+        def mm(h, b):
+            y = torch.matmul(w, h)
+            return y if b is None else y + b.to(h.dtype)[:, None]
+
+        if self.tp is None:
+            return mm(x, self.bias)
+        return product(self.tp, self.tp.dims["weight"] == 0, x, mm, self.bias, 1)
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with its parameters cast to the input's dtype at use."""
+    """``nn.Linear`` with its parameters cast to the input's dtype at use;
+    with a ``tp`` spec its weight is split on its output (axis 0) or input
+    (axis 1) features."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if self.tp is None:
+            return F.linear(x, weight, bias)
+        return product(self.tp, self.tp.dims["weight"] == 0, x,
+                       lambda h, b: F.linear(h, weight, b), bias, -1)
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, theta: float = 10000.0) -> torch.Tensor:
@@ -91,17 +121,21 @@ class RMSNorm(nn.Module):
     """Channel RMSNorm ``x / max(||x||, 1e-12) · g · sqrt(C)`` over dim 1,
     float32 math, result in x's dtype."""
 
+    tp = None
+
     def __init__(self, dim: int):
         super().__init__()
         self.g = nn.Parameter(torch.ones(1, dim, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm_reference(x, self.g.reshape(-1)).to(x.dtype)
+        return rmsnorm_reference(x, full(self, "g").reshape(-1)).to(x.dtype)
 
 
 class LayerNorm1d(nn.Module):
     """Channel LayerNorm over dim 1 with biased variance, eps 1e-5, float32
     gain ``g`` and bias ``b`` (1, C, 1), float32 math, result in x's dtype."""
+
+    tp = None
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -113,7 +147,8 @@ class LayerNorm1d(nn.Module):
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=1, keepdim=True)
         var = (x32 - mean).square().mean(dim=1, keepdim=True)
-        out = (x32 - mean) * torch.rsqrt(var + self.eps) * self.g.float() + self.b.float()
+        g, b = full(self, "g").float(), full(self, "b").float()
+        out = (x32 - mean) * torch.rsqrt(var + self.eps) * g + b
         return out.to(x.dtype)
 
 
@@ -134,7 +169,12 @@ class Int8Conv1d(nn.Module):
     """Same-padding conv1d with int8 weights and per-output-channel scales
     (inference only). ``weight_q`` (k·C_in, C_out) int8 and ``scale``
     (C_out,) float32 are buffers in the layout of
-    :func:`~dquartic_tpu_torch.ops.int8_matmul.quantize_conv_kernel`."""
+    :func:`~dquartic_tpu_torch.ops.int8_matmul.quantize_conv_kernel`. Under
+    tp a rank holds the columns of its output shard of ``weight_q``,
+    ``scale`` and ``bias``: the scales are per output column, so quantizing
+    the shard is slicing the whole quantization."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
         super().__init__()
@@ -153,11 +193,20 @@ class Int8Conv1d(nn.Module):
             q = cls(c_in, c_out, k)
         q.weight_q, q.scale = quantize_conv_kernel(conv.weight.detach())
         q.bias = nn.Parameter(conv.bias.detach().clone(), requires_grad=False)
+        if conv.tp is not None:
+            if conv.tp.dims != {"weight": 0, "bias": 0}:
+                raise ValueError(f"an int8 conv takes a conv split on its output channels, "
+                                 f"not {conv.tp.dims}")
+            q.tp = dataclasses.replace(conv.tp, dims={"weight_q": 1, "scale": 0, "bias": 0})
         return q
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         matmul = int8_matmul if self.kernels else int8_matmul_reference
-        return int8_conv1d(x, self.weight_q, self.scale, self.bias, self.kernel, matmul)
+        conv = lambda h, b: int8_conv1d(h, self.weight_q, self.scale, b,  # noqa: E731
+                                        self.kernel, matmul)
+        if self.tp is None:
+            return conv(x, self.bias)
+        return product(self.tp, True, x, conv, self.bias, 1)
 
 
 class Block(nn.Module):

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import full
 from .layers import Linear, sinusoidal_pos_emb
 
 # flax.linen.initializers.lecun_normal: a normal truncated at two standard
@@ -63,6 +64,8 @@ class LayerNorm(nn.Module):
     flax's one-pass variance ``max(E[x²] - E[x]², 0)``, result in x's
     dtype."""
 
+    tp = None
+
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
@@ -73,8 +76,8 @@ class LayerNorm(nn.Module):
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = torch.clamp(x32.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((x32 - mean) * mul + self.bias.float()).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * full(self, "weight").float()
+        return ((x32 - mean) * mul + full(self, "bias").float()).to(x.dtype)
 
 
 class TimeEmbedding(nn.Module):
@@ -138,21 +141,27 @@ class CustomTransformer(nn.Module):
                                     for _ in range(num_layers))
         self.output_projection = Linear(hidden_dim, input_dim)
 
+    @staticmethod
+    @torch.no_grad()
+    def init_leaf(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
+        """flax's initialization of the parameter ``name`` (its whole
+        tensor ``t``): a Dense kernel ``lecun_normal`` (a normal truncated
+        at two standard deviations, standard deviation sqrt(1 / fan_in))
+        from ``generator``, a Dense bias 0, a LayerNorm scale 1 and bias 0."""
+        if name.endswith("bias"):
+            t.zero_()
+        elif ".norm" in name:
+            t.fill_(1.0)
+        else:
+            std = t.shape[1] ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """flax's initialization from ``generator``: every Dense kernel
-        ``lecun_normal`` (a normal truncated at two standard deviations,
-        standard deviation sqrt(1 / fan_in)), Dense biases 0, LayerNorm
-        scale 1 and bias 0."""
-        for module in self.modules():
-            if isinstance(module, Linear):
-                std = module.weight.shape[1] ** -0.5 / _TRUNC_STD
-                nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                module.bias.zero_()
-            elif isinstance(module, LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        """flax's initialization from ``generator`` (:meth:`init_leaf`),
+        the parameters in their order."""
+        for name, p in self.named_parameters():
+            self.init_leaf(name, p, generator)
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor,
                 init_cond: Optional[torch.Tensor] = None,

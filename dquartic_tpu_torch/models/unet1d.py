@@ -94,8 +94,16 @@ class UNet1d(nn.Module):
     shards m/z over ``self.mesh``'s ``sp`` group, which the builder, the
     sampler or the trainer sets (``mesh=``); a forward without a mesh
     raises. It excludes ``fused_resnet``, as in JAX. ``kernel_dp_axis``
-    (the row-sharded kernels of data parallelism) is not ported yet and
-    raises."""
+    names the mesh axis the rows are split over (JAX's row-sharded
+    ``shard_map`` kernel variants): under data parallelism each rank runs
+    the unchanged kernels on its own rows, so it changes no computation
+    here; it excludes ``activation_sharding``, as in JAX.
+
+    Under tensor parallelism (``mesh.tp > 1``) the model's wide leaves are
+    split over the ``tp`` group by
+    :func:`~dquartic_tpu_torch.parallel.tensor.shard_model` (the builder,
+    the trainer or the sampler call it); every rank calls ``forward`` with
+    the same inputs and gets the whole output."""
 
     def __init__(
         self,
@@ -138,10 +146,7 @@ class UNet1d(nn.Module):
             activation_sharding = tuple(activation_sharding)
             if len(activation_sharding) != 2:
                 raise ValueError(f"activation_sharding names (dp, sp) axes, got {activation_sharding}")
-        if kernel_dp_axis is not None:
-            raise ValueError(
-                f"kernel_dp_axis={kernel_dp_axis!r}: the row-sharded (dp) kernel path is not "
-                "ported yet; data parallelism is to come as DDP")
+        self.kernel_dp_axis = kernel_dp_axis
         self.activation_sharding = activation_sharding
         self.mesh = None  # set by build_model, DDIMSampler or Trainer (mesh=)
         if fused_resnet and dropout > 0:

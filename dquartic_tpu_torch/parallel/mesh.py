@@ -1,63 +1,111 @@
 """The device mesh (port of :mod:`dquartic_tpu.parallel.mesh`).
 
-The JAX mesh names three axes: ``dp`` (rows), ``sp`` (the m/z axis of the
-U-Net activations) and ``tp`` (the wide mid convs). Here a mesh is one
-process per device, and the ``sp`` axis is a ``torch.distributed`` process
-group whose ranks each hold a slice of m/z. ``dp > 1`` (data parallelism,
-to come as DDP) and ``tp > 1`` (tensor-parallel mid convs) are not ported
-yet and raise.
+The JAX mesh names three axes: ``dp`` (rows of the batch), ``sp`` (the m/z
+axis of the U-Net activations) and ``tp`` (the feature axes of the wide
+leaves). Here a mesh is one process per rank, and each axis is a
+``torch.distributed`` process group: the ranks that differ only in their
+coordinate on that axis. Ranks follow JAX's device order,
+``reshape(dp, sp, tp)``, so mesh rank ``(d·sp + s)·tp + t`` sits at
+``(d, s, t)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes and the ``sp`` process group (None when ``sp == 1``)."""
+    """Axis sizes, this process's mesh rank and the process group of each
+    axis it lies on (None for an axis of size 1)."""
 
     dp: int = 1
     sp: int = 1
     tp: int = 1
     sp_group: Any = None
+    dp_group: Any = None
+    tp_group: Any = None
+    rank: int = 0
 
     @property
     def shape(self) -> Dict[str, int]:
         return {"dp": self.dp, "sp": self.sp, "tp": self.tp}
 
     @property
+    def dp_rank(self) -> int:
+        """This process's replica: the rows of the batch it takes."""
+        return self.rank // (self.sp * self.tp)
+
+    @property
     def sp_rank(self) -> int:
-        """This process's rank on the ``sp`` axis: its slice of m/z."""
-        return dist.get_rank(self.sp_group) if self.sp > 1 else 0
+        """This process's slice of m/z."""
+        return (self.rank // self.tp) % self.sp
+
+    @property
+    def tp_rank(self) -> int:
+        """This process's shard of the wide leaves."""
+        return self.rank % self.tp
 
 
-def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, group: Optional[Any] = None) -> Mesh:
-    """A (dp, sp, tp) mesh whose ``sp`` axis is ``group`` (default: the
-    whole running process group), which must hold exactly ``sp`` ranks."""
-    if dp != 1:
-        raise ValueError(
-            f"dp={dp}: data parallelism (DDP over the rows) is not ported yet; "
-            "the port's mesh takes dp=1")
-    if tp != 1:
-        raise ValueError(
-            f"tp={tp}: tensor-parallel mid convs are not ported yet; the port's mesh takes tp=1")
-    if sp < 1:
-        raise ValueError(f"sp must be >= 1 (got {sp})")
-    if sp == 1:
+def _launcher_hint(n: int) -> str:
+    return (f"launch {n} processes with `python -m torch.distributed.run --nproc-per-node {n} "
+            "-m dquartic_tpu_torch.cli ...`, or call initialize_runtime in each")
+
+
+def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, group: Optional[Any] = None,
+              ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """A (dp, sp, tp) mesh over the global ``ranks`` (default: every process
+    of the running group), whose number is ``dp·sp·tp``. Every process of
+    the running group must call it alike, members or not, since each axis
+    group is made with ``torch.distributed.new_group``; a process outside
+    ``ranks`` gets None. ``group``, for a mesh of ``sp`` alone, is a running
+    group of ``sp`` ranks to use as the ``sp`` axis."""
+    if min(dp, sp, tp) < 1:
+        raise ValueError(f"mesh axes must be >= 1 (got dp={dp}, sp={sp}, tp={tp})")
+    n = dp * sp * tp
+    if n == 1:
         return Mesh()
     if not dist.is_available() or not dist.is_initialized():
         raise ValueError(
-            f"a mesh with sp={sp} needs a running torch.distributed process group of {sp} "
-            "ranks (initialize_runtime) in every process")
-    group = dist.group.WORLD if group is None else group
-    size = dist.get_world_size(group)
-    if size != sp:
-        raise ValueError(f"the sp axis needs a group of {sp} ranks; this one holds {size}")
-    return Mesh(sp=sp, sp_group=group)
+            f"a mesh of dp={dp}, sp={sp}, tp={tp} needs a running torch.distributed process "
+            f"group of {n} ranks in every process: {_launcher_hint(n)}")
+    if group is not None:
+        if dp != 1 or tp != 1:
+            raise ValueError("make_mesh(group=...) names the sp axis of a mesh of sp alone")
+        size = dist.get_world_size(group)
+        if size != sp:
+            raise ValueError(f"the sp axis needs a group of {sp} ranks; this one holds {size}")
+        return Mesh(sp=sp, sp_group=group, rank=dist.get_rank(group))
+    ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+    if len(ranks) != n:
+        raise ValueError(f"dp*sp*tp = {dp}*{sp}*{tp} = {n} does not match the {len(ranks)} "
+                         f"ranks of the mesh ({_launcher_hint(n)})")
+    me = dist.get_rank()
+
+    def coords(i):
+        return i // (sp * tp), (i // tp) % sp, i % tp
+
+    groups = {}
+    for axis, size in (("dp", dp), ("sp", sp), ("tp", tp)):
+        if size == 1:
+            continue
+        # one group per line along the axis, made by every process in one order
+        lines: Dict[tuple, list] = {}
+        for i in range(n):
+            d, s, t = coords(i)
+            key = {"dp": (s, t), "sp": (d, t), "tp": (d, s)}[axis]
+            lines.setdefault(key, []).append(ranks[i])
+        for members in lines.values():
+            g = dist.new_group(members)
+            if me in members:
+                groups[axis] = g
+    if me not in ranks:
+        return None
+    return Mesh(dp=dp, sp=sp, tp=tp, sp_group=groups.get("sp"), dp_group=groups.get("dp"),
+                tp_group=groups.get("tp"), rank=ranks.index(me))
 
 
 def mesh_axis_sizes(mesh: Optional[Mesh]) -> Dict[str, int]:

@@ -11,6 +11,17 @@ writes it: ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm.
 scale_by_factored_rms() (Adafactor's factored second moment, optax's
 defaults), scaled by -lr: :class:`ClippedFactoredRMS`.
 
+Under tensor parallelism (:meth:`shard`) a parameter may be a rank's
+shard of a leaf split over the ``tp`` group. The clipping norm is then the
+global one, optax's over the whole tree: the replicated leaves counted
+once, plus the sum over the group of the sharded leaves' squares. AdamW
+is elementwise on the shards. The factored statistics that average over
+the split axis are summed over the group and divided (their mean); the
+axes factored are those of the whole leaf. ``state_dict(whole=...)``
+gathers each state tensor of a sharded leaf whole, and ``load_state_dict``
+takes a whole state and keeps the rank's shards, so a checkpoint is the
+one a single process writes.
+
 Each optimizer saves its state in its own ``state_dict`` form, indexed by
 the position of the parameter, and also loads the form
 :func:`~dquartic_tpu_torch.compat.jax_params.jax_checkpoint_to_port`
@@ -26,6 +37,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,16 +73,28 @@ class WarmupCosineSchedule:
         return cls(base_lr, warmup_epochs, num_epochs, num_cycles)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """float32 L2 norm over all the tensors (optax ``global_norm``)."""
+def global_norm(tensors: List[torch.Tensor], split: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """float32 L2 norm over all the tensors (optax ``global_norm``). With
+    ``group``, the tensors marked in ``split`` are each a rank's shard of a
+    tensor split over the group: their squares are summed over the group,
+    the others' counted once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None or not any(split):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    mask = torch.tensor(list(split), device=sq.device)
+    sharded = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+    dist.all_reduce(sharded, group=group)
+    return torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + sharded)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], clip_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], clip_norm: float,
+                         split: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
     """Clip the gradients in place (``g / norm * max`` when norm > max) and
-    return the norm before clipping, on the device (no host sync)."""
-    norm = global_norm(grads)
+    return the norm before clipping, on the device (no host sync);
+    ``split`` and ``group`` as :func:`global_norm`."""
+    norm = global_norm(grads, split, group)
     # optax: select(norm < max, g, g / norm * max), without a host sync
     denom = torch.where(norm < clip_norm, torch.ones_like(norm), norm / clip_norm)
     torch._foreach_div_(grads, denom)
@@ -83,7 +107,51 @@ def _check_named(named: dict, kind: str) -> None:
                          f"the {kind!r} optimizer (tpu.optimizer)")
 
 
-class ClippedAdamW:
+class _Sharded:
+    """The tensor-parallel state an optimizer shares: for each parameter,
+    the axis its leaf is split on over ``tp_group`` (None: replicated)."""
+
+    tp_group = None
+    tp_dims: Optional[List[Optional[int]]] = None
+
+    def shard(self, group, dims: Sequence[Optional[int]]) -> None:
+        """Mark each parameter (in the order of ``self.params``) as a shard
+        split on axis ``dims[i]`` over ``group``, or replicated (None), and
+        start from a fresh state."""
+        if len(dims) != len(self.params):
+            raise ValueError(f"{len(dims)} axes for {len(self.params)} parameters")
+        self.tp_group = group if any(d is not None for d in dims) else None
+        self.tp_dims = list(dims)
+        self.reset()
+
+    def _dims(self) -> List[Optional[int]]:
+        return self.tp_dims if self.tp_group is not None else [None] * len(self.params)
+
+    def _clip(self) -> torch.Tensor:
+        return clip_by_global_norm_([p.grad for p in self.params], self.clip_norm,
+                                    [d is not None for d in self._dims()], self.tp_group)
+
+    def _whole(self, t: Optional[torch.Tensor], dim: Optional[int], device):
+        """A state tensor of a shard, gathered whole along ``dim`` onto
+        ``device``."""
+        if t is None:
+            return None
+        if dim is not None and self.tp_group is not None:
+            from ..parallel.tensor import gather
+
+            t = gather(t, self.tp_group, dim)
+        return t.to(device)
+
+    def _own(self, t: Optional[torch.Tensor], dim: Optional[int]):
+        """This rank's shard of a whole state tensor."""
+        if t is None or dim is None or self.tp_group is None:
+            return t
+        size, r = dist.get_world_size(self.tp_group), dist.get_rank(self.tp_group)
+        n = t.shape[dim] // size
+        return t.narrow(dim, r * n, n)
+
+
+class ClippedAdamW(_Sharded):
     """Global-norm clipping, then ``torch.optim.AdamW``, with the learning
     rate given at each step (the per-epoch schedule sets it)."""
 
@@ -111,7 +179,7 @@ class ClippedAdamW:
         """Clip the gradients in place (``g / norm * max`` when norm >
         max), take one AdamW step at ``lr``, and return the gradient norm
         before clipping, on the device (no host sync)."""
-        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
+        norm = self._clip()
         for group in self.adamw.param_groups:
             group["lr"] = lr
         self.adamw.step()
@@ -121,14 +189,23 @@ class ClippedAdamW:
         """Fresh moments and step count."""
         self.adamw.state.clear()
 
-    def state_dict(self) -> dict:
-        return self.adamw.state_dict()
+    def state_dict(self, whole: Optional[str] = None) -> dict:
+        """The AdamW ``state_dict``; with ``whole`` (a device) every moment
+        of a sharded parameter gathered whole onto it, one at a time."""
+        sd = self.adamw.state_dict()
+        if whole is None:
+            return sd
+        dims = self._dims()
+        sd["state"] = {i: {k: self._whole(v, dims[i], whole) if k != "step" else v
+                           for k, v in st.items()} for i, st in sd["state"].items()}
+        return sd
 
     def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
         """Load this optimizer's ``state_dict``, or a name-keyed state
         (optax's ``mu``, ``nu`` and ``count`` as ``exp_avg``,
         ``exp_avg_sq`` and ``step``) for the parameters ``names``, in the
-        order of ``self.params``."""
+        order of ``self.params``. Under tp the moments are whole and each
+        rank keeps its shard."""
         if "kind" in state:
             _check_named(state, self.kind)
             sd = self.adamw.state_dict()
@@ -138,6 +215,11 @@ class ClippedAdamW:
                 for i, n in enumerate(names)
             }
             state = sd
+        if self.tp_group is not None:
+            dims = self._dims()
+            state = dict(state, state={
+                i: {k: self._own(v, dims[i]) if k != "step" else v for k, v in st.items()}
+                for i, st in state["state"].items()})
         self.adamw.load_state_dict(state)
 
 
@@ -153,7 +235,7 @@ def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
-class ClippedFactoredRMS:
+class ClippedFactoredRMS(_Sharded):
     """Global-norm clipping, then optax ``scale_by_factored_rms()`` with its
     defaults: a second moment kept as row and column means for parameters
     whose two largest axes are both at least 128 long (:func:`factored_dims`),
@@ -177,11 +259,31 @@ class ClippedFactoredRMS:
         self.decay_rate = decay_rate
         self.min_dim_size_to_factor = min_dim_size_to_factor
         self.epsilon = epsilon
-        self.dims = [factored_dims(p.shape, min_dim_size_to_factor) for p in self.params]
         self.reset()
 
+    def _whole_shape(self, p, dim) -> List[int]:
+        shape = list(p.shape)
+        if dim is not None and self.tp_group is not None:
+            shape[dim] *= dist.get_world_size(self.tp_group)
+        return shape
+
+    def _stat_dims(self):
+        """For each parameter, the split axis of its (v_row, v_col, v)
+        (None where the statistic is whole on every rank)."""
+        out = []
+        for dims, d in zip(self.dims, self._dims()):
+            if dims is None or d is None:
+                out.append((None, None, d))
+                continue
+            d1, d0 = dims
+            out.append((None if d == d0 else d - (d > d0), None if d == d1 else d - (d > d1), None))
+        return out
+
     def reset(self) -> None:
-        """optax's init: zero statistics, count 0."""
+        """optax's init: zero statistics, count 0; the axes factored are the
+        whole leaf's."""
+        self.dims = [factored_dims(self._whole_shape(p, d), self.min_dim_size_to_factor)
+                     for p, d in zip(self.params, self._dims())]
         self.count = 0
         self.state: List[Dict[str, Optional[torch.Tensor]]] = []
         for p, dims in zip(self.params, self.dims):
@@ -205,11 +307,11 @@ class ClippedFactoredRMS:
     def step(self, lr: float) -> torch.Tensor:
         """Clip, take one factored-RMS step at ``lr`` and return the
         gradient norm before clipping, on the device."""
-        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip_norm)
+        norm = self._clip()
         # float32 as optax forms it: t = count + 1, rate = 1 - t^-decay
         rate = np.float32(1.0) - np.float32(self.count + 1) ** np.float32(-self.decay_rate)
         keep, new = float(rate), float(np.float32(1.0) - rate)
-        for p, dims, st in zip(self.params, self.dims, self.state):
+        for p, dims, st, split in zip(self.params, self.dims, self.state, self._dims()):
             g = p.grad
             grad_sqr = g * g + self.epsilon
             if dims is None:
@@ -217,30 +319,50 @@ class ClippedFactoredRMS:
                 update = g * v.pow(-0.5)
             else:
                 d1, d0 = dims
-                v_row = st["v_row"].mul_(keep).add_(grad_sqr.mean(dim=d0) * new)
-                v_col = st["v_col"].mul_(keep).add_(grad_sqr.mean(dim=d1) * new)
+                v_row = st["v_row"].mul_(keep).add_(
+                    self._mean(grad_sqr.mean(dim=d0), split == d0) * new)
+                v_col = st["v_col"].mul_(keep).add_(
+                    self._mean(grad_sqr.mean(dim=d1), split == d1) * new)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+                row_mean = self._mean(v_row.mean(dim=reduced_d1, keepdim=True), split == d1)
+                row_factor = (v_row / row_mean).pow(-0.5)
                 update = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
             p.add_(update, alpha=-lr)
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, **{k: [st[k] for st in self.state]
-                                        for k in ("v_row", "v_col", "v")}}
+    def _mean(self, t: torch.Tensor, over_split: bool) -> torch.Tensor:
+        """A mean taken over a shard's axis, made the whole axis's: summed
+        over the tp group and divided by its size."""
+        if not over_split:
+            return t
+        dist.all_reduce(t, group=self.tp_group)
+        return t.div_(dist.get_world_size(self.tp_group))
+
+    def state_dict(self, whole: Optional[str] = None) -> dict:
+        """The statistics by position; with ``whole`` (a device) those of a
+        sharded parameter gathered whole onto it, one at a time."""
+        keys = ("v_row", "v_col", "v")
+        if whole is None:
+            return {"count": self.count, **{k: [st[k] for st in self.state] for k in keys}}
+        sdims = self._stat_dims()
+        return {"count": self.count,
+                **{k: [self._whole(st[k], sd[j], whole) for st, sd in zip(self.state, sdims)]
+                   for j, k in enumerate(keys)}}
 
     def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
         """Load this optimizer's ``state_dict``, or a name-keyed state for
-        the parameters ``names`` in the order of ``self.params``."""
+        the parameters ``names`` in the order of ``self.params``. Under tp
+        the statistics are whole and each rank keeps its shards."""
         keys = ("v_row", "v_col", "v")
         if "kind" in state:
             _check_named(state, self.kind)
             state = {"count": state["count"], **{k: [state[k][n] for n in names] for k in keys}}
         self.count = int(state["count"])
+        sdims = self._stat_dims()
         for i, (p, st) in enumerate(zip(self.params, self.state)):
-            for k in keys:
-                src = state[k][i]
+            for j, k in enumerate(keys):
+                src = self._own(state[k][i], sdims[i][j])
                 if (st[k] is None) != (src is None):
                     raise ValueError(f"factored optimizer state {k} of parameter {i} "
                                      f"{tuple(p.shape)} does not match")

@@ -17,13 +17,28 @@ so a serving model can load it without a Trainer; the positional list of
 earlier files still loads. A JAX checkpoint (flax msgpack) resumes too:
 :func:`~dquartic_tpu_torch.train.checkpoint.load_checkpoint` maps it.
 
-With a ``mesh`` whose ``sp > 1`` every rank of the group runs the same
-step on the same batch and draws (seed the generators alike): the model
-computes its slice of m/z and the loss on the whole prediction, each
-rank's backward leaves its partial gradients, and the step sums them over
-the group before clipping, so clipping, AdamW and the EMA run alike on the
-whole gradient on every rank. The loss and the metrics are the global
-ones; only rank 0 writes checkpoints.
+On a ``mesh`` (one process per rank, every rank running the same loop):
+
+* ``dp``: the model is wrapped in ``DistributedDataParallel`` over the
+  ``dp`` group, which averages the gradients over the replicas in buckets
+  while the backward runs. Each rank's batch holds its own rows (as
+  ``build_dataset(mesh=...)`` yields them); the timesteps and noise of a
+  step are drawn for the whole global batch from the same generator on
+  every rank, which keeps its rows, so a step equals the one-process step
+  on the global batch. Injected ``t``/``eps`` are global too.
+* ``sp``: every rank of the group runs the same rows; the model computes
+  its slice of m/z and the loss on the whole prediction, each rank's
+  backward leaves its partial gradients, and the step sums them over the
+  group before clipping.
+* ``tp``: the wide leaves are split over the ``tp`` group
+  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`, at
+  ``tp_min_features``); each rank keeps its shards, their gradients,
+  optimizer state and EMA; the clipping norm is the global one.
+
+The loss and the gradient norm in the metrics are the global ones; the
+EMA is alike on every replica. Only mesh rank 0 writes checkpoints, the
+whole state gathered over tp one leaf at a time (the file a single process
+writes); a resume cuts each rank's shards from it.
 """
 
 from __future__ import annotations
@@ -35,10 +50,18 @@ import numpy as np
 import torch
 
 from ..core.diffusion import DDIMProcess
+from ..parallel.distributed import row_range
 from ..parallel.sequence import sp_all_reduce
+from ..parallel.tensor import full_state_dict, gather, leaf_specs, own, shard_model, \
+    shard_state_dict
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
 from .optim import ClippedAdamW, ClippedFactoredRMS, WarmupCosineSchedule, make_optimizer
+
+
+# DDP's bucket size: the canonical model's 4.82 GB of float32 gradients go
+# in a handful of all_reduces a step (a leaf larger than a bucket is one)
+DP_BUCKET_MB = 256
 
 
 class Trainer:
@@ -56,6 +79,7 @@ class Trainer:
         seed: int = 0,
         sync_every_batch: bool = False,
         mesh=None,
+        tp_min_features: int = 2048,
     ):
         self.model = model
         self.mesh = mesh
@@ -67,6 +91,7 @@ class Trainer:
                     "m/z over it (build_trainer sets it from tpu.mesh)")
             model.mesh = mesh
             self.sp_group = mesh.sp_group
+        shard_model(model, mesh, tp_min_features)
         self.process = process
         self.optimizer = optimizer if optimizer is not None else make_optimizer(model.parameters())
         self.ema_decay = ema_decay
@@ -79,6 +104,19 @@ class Trainer:
         by_id = {id(p): n for n, p in model.named_parameters()}
         # the names of the optimizer's parameters, in its order
         self.param_names = [by_id[id(p)] for p in self.optimizer.params]
+        specs = leaf_specs(model)
+        # for each of the optimizer's parameters, (tp spec, axis) or None
+        self._splits = [specs.get(n) for n in self.param_names]
+        if any(s is not None for s in self._splits):
+            self.optimizer.shard(mesh.tp_group, [s and s[1] for s in self._splits])
+        self._denoise = model
+        if mesh is not None and mesh.dp > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # the replicas are built alike from one seed: no broadcast at start
+            self._denoise = DistributedDataParallel(
+                model, process_group=mesh.dp_group, broadcast_buffers=False, init_sync=False,
+                gradient_as_bucket_view=True, bucket_cap_mb=DP_BUCKET_MB)
         self.step = 0
         self.ema_params: Optional[list] = None
         self.init_state()
@@ -100,10 +138,16 @@ class Trainer:
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.optimizer.params)
 
+    @property
+    def is_lead(self) -> bool:
+        """Mesh rank 0 (or no mesh): the rank that logs and writes."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def ema_state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's state_dict with the EMA parameters in place of the
         trained ones, for ``model.load_state_dict`` (e.g. of the model a
-        :class:`~dquartic_tpu_torch.infer.DDIMSampler` runs)."""
+        :class:`~dquartic_tpu_torch.infer.DDIMSampler` runs); under tp, the
+        rank's shards, for a model split alike."""
         if self.ema_params is None:
             raise ValueError("this trainer keeps no EMA (ema_decay=None)")
         return {**self.model.state_dict(), **self._ema_by_name()}
@@ -136,15 +180,19 @@ class Trainer:
         b = self._device_batch(batch)
         w0, w1 = self.mixture_weights
         ms2_cond = w0 * b["ms2_1"] + w1 * b["ms2_2"]
+        t, eps = self._draws(b["ms2_1"], generator, t, eps)
         self.optimizer.zero_grad()
         loss, _ = self.process.train_loss(
-            self.model, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps, generator=generator
+            self._denoise, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps
         )
         loss.backward()
         if self.sp_group is not None:  # each rank holds its partial gradients
             for p in self.optimizer.params:
                 if p.grad is not None:
                     sp_all_reduce(p.grad, self.sp_group)
+        loss = loss.detach()
+        if self.mesh is not None and self.mesh.dp > 1:  # the mean over the replicas' rows
+            loss = sp_all_reduce(loss.clone(), self.mesh.dp_group).div_(self.mesh.dp)
         grad_norm = self.optimizer.step(lr)
         if self.ema_params is not None:
             d = self.ema_decay
@@ -152,7 +200,27 @@ class Trainer:
             torch._foreach_mul_(self.ema_params, d)
             torch._foreach_add_(self.ema_params, params, alpha=1.0 - d)
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
+
+    def _draws(self, x: torch.Tensor, generator, t, eps):
+        """The step's timesteps and noise for the global batch (the rank's
+        rows times dp), injected or drawn from ``generator`` in that order,
+        then this rank's rows of them."""
+        dp = 1 if self.mesh is None else self.mesh.dp
+        rows = x.shape[0] * dp
+        if t is None:
+            t = torch.randint(0, self.process.schedule.num_timesteps, (rows,),
+                              generator=generator, device=x.device)
+        if eps is None:
+            eps = torch.randn((rows, *x.shape[1:]), generator=generator, dtype=x.dtype,
+                              device=x.device)
+        if dp == 1:
+            return t, eps
+        if t.shape[0] != rows or eps.shape[0] != rows:
+            raise ValueError(f"under dp={dp} the injected t and eps hold the global batch's "
+                             f"{rows} rows (got {t.shape[0]} and {eps.shape[0]})")
+        r = row_range(rows, self.mesh)
+        return t[r.start:r.stop], eps[r.start:r.stop]
 
     # ------------------------------------------------------------------ #
     # loop                                                               #
@@ -183,7 +251,9 @@ class Trainer:
         else:
             lr_of_epoch = lambda e: learning_rate  # noqa: E731
 
-        ckpt, start_epoch, best_loss, resumed = restore_or_init(checkpoint_path, self.device)
+        # a split model cuts its shards from the whole state on the host
+        where = "cpu" if any(self._splits) else self.device
+        ckpt, start_epoch, best_loss, resumed = restore_or_init(checkpoint_path, where)
         if resumed:
             # the stored epoch is the last completed one: continue after it
             start_epoch += 1
@@ -224,7 +294,8 @@ class Trainer:
                     "epoch": epoch, "train/loss": avg_loss, "learning_rate": lr,
                     "epoch_seconds": dt, "steps_per_second": len(losses) / dt if dt > 0 else 0.0,
                 })
-            print(f"[Training] Epoch={epoch + 1}, lr={lr}, loss={avg_loss}")
+            if self.is_lead:
+                print(f"[Training] Epoch={epoch + 1}, lr={lr}, loss={avg_loss}")
 
             if (epoch + 1) % checkpoint_every_n_epochs == 0 or epoch == epochs - 1:
                 self._save(latest_path_for(checkpoint_path), epoch, avg_loss)
@@ -243,27 +314,44 @@ class Trainer:
                 print(f"Training stopped at epoch {epoch}")
                 break
 
-        print(f"Best model checkpoint saved at epoch {best_epoch} with loss: {best_loss:.6f}")
+        if self.is_lead:
+            print(f"Best model checkpoint saved at epoch {best_epoch} with loss: {best_loss:.6f}")
         return self
 
     def _save(self, path: str, epoch: int, loss: float) -> None:
-        if self.mesh is not None and self.mesh.sp_rank != 0:
-            return  # every rank holds the same state; rank 0 writes it
-        save_checkpoint(path, {
-            "epoch": epoch,
-            "best_loss": loss,
-            "step": self.step,
-            "params": self.model.state_dict(),
-            "opt_state": self.optimizer.state_dict(),
-            "ema_params": self._ema_by_name(),
-        })
+        payload = self.checkpoint_payload(epoch, loss)
+        if payload is not None:
+            save_checkpoint(path, payload)
+
+    def checkpoint_payload(self, epoch: int, loss: float) -> Optional[Dict[str, Any]]:
+        """The checkpoint of the train state on mesh rank 0, None on the
+        others. Every replica holds the same state, so only the tp group of
+        rank 0 takes part: it gathers each split leaf, its optimizer state
+        and its EMA whole onto the host, one leaf at a time."""
+        m = self.mesh
+        if m is not None and (m.dp_rank or m.sp_rank or (m.tp == 1 and m.rank)):
+            return None
+        ema = self._ema_by_name()
+        if any(self._splits):
+            params = full_state_dict(self.model, "cpu")
+            opt = self.optimizer.state_dict(whole="cpu")
+            if ema is not None:
+                ema = {n: (e if s is None else gather(e, s[0].group, s[1])).cpu()
+                       for (n, e), s in zip(ema.items(), self._splits)}
+        else:
+            params, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if not self.is_lead:
+            return None
+        return {"epoch": epoch, "best_loss": loss, "step": self.step, "params": params,
+                "opt_state": opt, "ema_params": ema}
 
     def _load(self, ckpt: Dict[str, Any]) -> None:
         """Load a checkpoint's train state: the port's own, whose EMA is
         keyed by name (a positional list in earlier files), or a JAX one as
         :func:`~dquartic_tpu_torch.train.checkpoint.load_checkpoint` maps it
-        (the optimizer state keyed by name)."""
-        self.model.load_state_dict(ckpt["params"])
+        (the optimizer state keyed by name). Its leaves are whole; under tp
+        each rank keeps its shards."""
+        self.model.load_state_dict(shard_state_dict(self.model, ckpt["params"]))
         if ckpt.get("opt_state") is None:
             raise ValueError("the checkpoint holds no optimizer state to resume from "
                              "(a converted reference checkpoint holds weights only)")
@@ -273,4 +361,5 @@ class Trainer:
         if self.ema_params is not None and ema is not None:
             if isinstance(ema, dict):
                 ema = [ema[n] for n in self.param_names]
+            ema = [e if s is None else own(e, s[0], s[1]) for e, s in zip(ema, self._splits)]
             torch._foreach_copy_(self.ema_params, list(ema))

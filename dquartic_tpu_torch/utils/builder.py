@@ -21,11 +21,15 @@ from ..models.layers import LayerNorm1d, RMSNorm
 from ..models.transformer import CustomTransformer, LayerNorm
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
+from ..parallel.distributed import row_range
 from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.tensor import leaf_specs, own, shard_model, shard_state_dict
 from ..train import Trainer, make_optimizer
 from .device import resolve_device
 from .logging import NoOpLogger, make_logger
 
+# the smallest axis the JAX rule splits over tp: its Trainer's default
+TP_MIN_FEATURES = 2048
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 # Modules whose parameters stay float32 in every dtype, as JAX keeps them:
 # the gains of RMSNorm and LayerNorm1d, LayerNorm1d's bias, and the
@@ -47,9 +51,11 @@ def build_mesh(config: Dict[str, Any], batch_size: Optional[int] = None) -> Opti
     A None ``dp`` is the largest degree up to the processes that ``sp·tp``
     leave that divides ``batch_size`` (all of them when it is None; one
     process: dp = 1), so idle processes are left out rather than given an
-    uneven batch. ``sp > 1`` needs a running process group of ``sp`` ranks
-    (:func:`~dquartic_tpu_torch.parallel.initialize_runtime`); ``dp > 1``
-    and ``tp > 1`` are not ported yet: each raises, and none is dropped."""
+    uneven batch. A mesh of more than one rank needs a running process
+    group of ``dp·sp·tp`` ranks
+    (:func:`~dquartic_tpu_torch.parallel.initialize_runtime`, or the
+    launcher ``python -m torch.distributed.run``); without one it raises,
+    naming the launcher. No axis is dropped."""
     m = config["tpu"]["mesh"]
     sp, tp, dp = m.get("sp") or 1, m.get("tp") or 1, m.get("dp")
     if dp is None:
@@ -63,26 +69,51 @@ def build_mesh(config: Dict[str, Any], batch_size: Optional[int] = None) -> Opti
 
 
 def apply_mesh_model_flags(unet: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
-    """The mesh-dependent UNet1d keys (JAX ``apply_mesh_model_flags``): a
-    mesh with ``sp > 1`` shards m/z, ``activation_sharding=("dp", "sp")``,
-    unless the ``UNet1d`` block names it already."""
+    """The mesh-dependent UNet1d keys (JAX ``apply_mesh_model_flags``),
+    each unless the ``UNet1d`` block names it already: a mesh with
+    ``sp > 1`` shards m/z, ``activation_sharding=("dp", "sp")``; one with
+    ``dp > 1`` and ``sp == 1`` sets ``kernel_dp_axis="dp"``."""
     if mesh is not None and mesh.sp > 1 and unet.get("activation_sharding") is None:
         unet = dict(unet, activation_sharding=("dp", "sp"))
+    if mesh is not None and mesh.dp > 1 and mesh.sp == 1 and unet.get("kernel_dp_axis") is None:
+        unet = dict(unet, kernel_dp_axis="dp")
     return unet
 
 
 @torch.no_grad()
-def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights: norm gains 1, biases (LayerNorm1d's ``b``
-    among them) 0, other weights N(0, 1/fan_in) (LeCun normal, as the JAX
-    initializers)."""
+def _unet_leaf(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
+    if name.endswith(".g"):
+        t.fill_(1.0)
+    elif name.endswith(("bias", ".b")):
+        t.zero_()
+    else:
+        t.normal_(0.0, t[0].numel() ** -0.5, generator=generator)
+
+
+@torch.no_grad()
+def init_leaves(model: torch.nn.Module, rule, generator: torch.Generator) -> None:
+    """Initialize each parameter in order by ``rule(name, tensor,
+    generator)``. A leaf split over tp is drawn whole on its device, one
+    leaf at a time, and the rank keeps its shard, so the ranks' shards
+    gather to the model one process draws from the same generator."""
+    specs = leaf_specs(model)
     for name, p in model.named_parameters():
-        if name.endswith(".g"):
-            p.fill_(1.0)
-        elif name.endswith(("bias", ".b")):
-            p.zero_()
-        else:
-            p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+        if name not in specs:
+            rule(name, p, generator)
+            continue
+        spec, dim = specs[name]
+        whole = torch.empty(spec.full_shape(name.rpartition(".")[2], p.shape), dtype=p.dtype,
+                            device=p.device)
+        rule(name, whole, generator)
+        p.copy_(own(whole, spec, dim))
+        del whole
+
+
+def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights of a UNet1d: norm gains 1, biases
+    (LayerNorm1d's ``b`` among them) 0, other weights N(0, 1/fan_in) (LeCun
+    normal, as the JAX initializers)."""
+    init_leaves(model, _unet_leaf, generator)
 
 
 def _unet_kwargs(config: Dict[str, Any], trainable: bool, mesh) -> Tuple[Dict[str, Any], bool]:
@@ -122,15 +153,16 @@ def _transformer_kwargs(config: Dict[str, Any], mesh) -> Dict[str, Any]:
     sp = mesh.sp if mesh is not None else (config["tpu"].get("mesh", {}).get("sp") or 1)
     if sp > 1:
         raise ValueError(
-            f"tpu.mesh sp={sp}: the CustomTransformer has no sequence-parallel path in the "
-            "port (the mesh splits the UNet1d's m/z axis); multi-card parallelism is ROADMAP.md "
-            "Queue 1 item 7")
+            f"tpu.mesh sp={sp}: the CustomTransformer has no sequence-parallel path, in JAX "
+            "either (the mesh splits the UNet1d's m/z axis); it takes dp and tp (ROADMAP.md "
+            "Queue 1 item 7)")
     return c
 
 
 def build_model(
     config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    tp_min_features: int = TP_MIN_FEATURES,
 ) -> torch.nn.Module:
     """The ``model.use_model`` denoiser (``"UNet1d"`` or
     ``"CustomTransformer"``, from the config block of that name) with seeded
@@ -156,8 +188,16 @@ def build_model(
     that name) on that mesh; every rank builds the same weights from the
     same seed. Under ``activation_sharding`` a trainable model leaves
     ``tpu.fused_resnet`` aside, as the JAX ``build_trainer`` does, and a
-    serving model with it raises, as JAX ``predict`` does.
-    ``kernel_dp_axis`` raises (no dp kernel path yet).
+    serving model with it raises, as JAX ``predict`` does. ``dp > 1``
+    sets ``kernel_dp_axis`` (:func:`apply_mesh_model_flags`). ``tp > 1``
+    splits the JAX rule's wide leaves (``tp_min_features``: 2048, JAX's
+    ``Trainer`` default) over the ``tp`` group before the model is
+    materialized, so a rank never holds the whole model: seeded leaves are
+    drawn whole one at a time and cut (gathered, they are the one-process
+    model of that seed), and a whole ``state_dict`` is cut to the rank's
+    shards; int8 mid convs quantize their shards (per-column scales: the
+    slice of the whole quantization). The CustomTransformer takes dp and
+    tp alike and raises for ``sp > 1``.
 
     ``trainable=False`` (serving) stores the parameters in the compute
     dtype, norm gains and biases in float32, and no parameter needs grad:
@@ -182,28 +222,28 @@ def build_model(
     m = config["model"]
     dtype = _DTYPES[config["tpu"]["compute_dtype"]]
     quantize = False
-    if m["use_model"] == "UNet1d":
-        if mesh is None:
-            mesh = build_mesh(config, m.get("batch_size"))
-        kwargs, quantize = _unet_kwargs(config, trainable, mesh)
-        cls = UNet1d
-    elif m["use_model"] == "CustomTransformer":
+    if m["use_model"] == "CustomTransformer":
         kwargs, cls = _transformer_kwargs(config, mesh), CustomTransformer
-    else:
+        rule = CustomTransformer.init_leaf
+    elif m["use_model"] != "UNet1d":
         raise ValueError(f"Invalid model class: {m['use_model']}")
+    if mesh is None:
+        mesh = build_mesh(config, m.get("batch_size"))
+    if m["use_model"] == "UNet1d":
+        kwargs, quantize = _unet_kwargs(config, trainable, mesh)
+        cls, rule = UNet1d, _unet_leaf
 
     device = resolve_device(device, "build_model")
     with torch.device("meta"):
         model = cls(**kwargs, dtype=dtype)
     if cls is UNet1d:
         model.mesh = mesh
+    shard_model(model, mesh, tp_min_features)
     model.to_empty(device=device)
     if state_dict is not None:
-        model.load_state_dict(state_dict)
-    elif cls is UNet1d:
-        init_weights(model, torch.Generator(device=device).manual_seed(seed))
+        model.load_state_dict(shard_state_dict(model, state_dict))
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(seed))
+        init_leaves(model, rule, torch.Generator(device=device).manual_seed(seed))
     if trainable:
         if quantize:
             raise ValueError("int8 mid convs (quantize_mid) are inference only")
@@ -239,9 +279,12 @@ def build_dataset(config: Dict[str, Any], seed: int = 0, mesh=None, device=None)
     """The pair dataset of ``config["data"]`` (NPY files or a parquet
     directory) in batches of ``model.batch_size``, prefetched
     ``tpu.prefetch`` deep onto ``device`` (None: the card; raises without
-    one), as the JAX ``build_dataset``. Under a mesh with ``sp > 1`` every
-    rank builds it alike from ``seed`` and iterates the same batches."""
-    del mesh  # every rank takes the whole batch: no dp axis to shard it over
+    one), as the JAX ``build_dataset``. Every rank builds it alike from
+    ``seed`` and draws the same global batches; under a mesh with
+    ``dp > 1`` each keeps (fetches, stacks, copies) only its replica's
+    contiguous rows, ``model.batch_size / dp`` of them (a batch size dp
+    does not divide raises), and the sp and tp ranks of a replica take the
+    same rows."""
     device = resolve_device(device, "build_dataset")
     d = config["data"]
     dataset = DIAMSDataset(
@@ -251,7 +294,8 @@ def build_dataset(config: Dict[str, Any], seed: int = 0, mesh=None, device=None)
         normalize=d["normalize"],
         seed=seed,
     )
-    batches = PairBatches(dataset, batch_size=config["model"]["batch_size"])
+    batch_size = config["model"]["batch_size"]
+    batches = PairBatches(dataset, batch_size=batch_size, rows=row_range(batch_size, mesh))
     return prefetch_iterator(batches, device, size=config["tpu"]["prefetch"])
 
 
@@ -273,9 +317,9 @@ def build_logger(config: Dict[str, Any], mesh=None):
     """The metrics logger of the JAX ``build_trainer``: wandb from the
     config's ``wandb`` block when ``use_wandb`` is set and wandb is
     installed, else a JSONL log at ``<dirname(model.checkpoint_path)>/
-    metrics.jsonl``. Under a mesh only sp rank 0 logs, as only it writes
+    metrics.jsonl``. Under a mesh only mesh rank 0 logs, as only it writes
     checkpoints; the other ranks get a no-op logger."""
-    if mesh is not None and mesh.sp_rank != 0:
+    if mesh is not None and mesh.rank != 0:
         return NoOpLogger()
     w = config.get("wandb", {})
     log_dir = os.path.dirname(config["model"].get("checkpoint_path", "")) or "."
@@ -299,7 +343,7 @@ def build_logger(config: Dict[str, Any], mesh=None):
 
 
 def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None,
-                  mesh=None) -> Trainer:
+                  mesh=None, tp_min_features: int = TP_MIN_FEATURES) -> Trainer:
     """Trainer over the trainable ``model.use_model`` denoiser (float32
     master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
@@ -307,7 +351,9 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     (None: the card; raises without one), on ``mesh`` (None:
     :func:`build_mesh` of ``tpu.mesh`` and the batch size), logging its
     epochs to ``logger``
-    (None: :func:`build_logger` of the config).
+    (None: :func:`build_logger` of the config). On a mesh the trainer runs
+    dp as DDP and tp on the leaves :func:`build_model` split at
+    ``tp_min_features`` (the JAX ``Trainer``'s argument).
 
     ``tpu.checkpoint_backend`` must be ``"msgpack"``, the default: the
     port's checkpoints are ``torch.save`` files under the JAX package's
@@ -326,7 +372,8 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     device = resolve_device(device, "build_trainer")
     if mesh is None:
         mesh = build_mesh(config, config["model"].get("batch_size"))
-    model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh)
+    model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh,
+                        tp_min_features=tp_min_features)
     if logger is None:
         logger = build_logger(config, mesh)
     return Trainer(
@@ -337,4 +384,5 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
         logger=logger,
         seed=seed,
         mesh=mesh,
+        tp_min_features=tp_min_features,
     )

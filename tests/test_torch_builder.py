@@ -72,14 +72,17 @@ def test_build_trainer_writes_the_metrics_log(tmp_path):
 
 
 def test_build_logger_logs_on_sp_rank_zero_only(tmp_path):
-    class Rank:
-        def __init__(self, r):
-            self.sp_rank = r
+    """Only mesh rank 0 logs: sp rank 1, and dp or tp rank 1 of sp rank 0,
+    get a no-op logger."""
+    from dquartic_tpu_torch.parallel import Mesh
 
     cfg = _config(tmp_path)
-    assert isinstance(build_logger(cfg, Rank(0)), port_logging.JsonlLogger)
-    assert isinstance(build_logger(cfg, Rank(1)), port_logging.NoOpLogger)
-    assert not build_logger(cfg, Rank(1)).enabled
+    assert isinstance(build_logger(cfg, Mesh(sp=2, rank=0)), port_logging.JsonlLogger)
+    assert isinstance(build_logger(cfg, Mesh(sp=2, rank=1)), port_logging.NoOpLogger)
+    assert not build_logger(cfg, Mesh(sp=2, rank=1)).enabled
+    for mesh in (Mesh(dp=2, rank=1), Mesh(tp=2, rank=1), Mesh(dp=2, sp=2, tp=2, rank=4)):
+        assert mesh.sp_rank == 0
+        assert isinstance(build_logger(cfg, mesh), port_logging.NoOpLogger)
 
 
 @pytest.mark.parametrize("run_name", [None, "run-a"])
@@ -109,7 +112,7 @@ def test_build_mesh_dp_rule_matches_jax(monkeypatch, sp, tp, batch_size):
     size), as the JAX ``build_mesh`` does over its devices. Both packages
     see 8: the JAX tests' virtual CPU devices, and 8 processes here (the
     port's world size, patched; ``make_mesh`` patched to return the axes
-    it is given, since dp > 1 is not ported yet)."""
+    it is given, which needs no process group)."""
     import dquartic_tpu_torch.utils.builder as port_builder
     from dquartic_tpu.utils.builder import build_mesh as jax_build_mesh
 
@@ -126,11 +129,12 @@ def test_build_mesh_dp_rule_matches_jax(monkeypatch, sp, tp, batch_size):
 
 def test_build_mesh_leaves_idle_processes_out(monkeypatch):
     """Two processes at sp 1 and batch 1: dp 1, one device, no mesh (the
-    rule before took dp 2 and raised, dp > 1 not being ported)."""
+    rule before took dp 2); at batch 2 both processes take a dp of 2
+    (``make_mesh`` patched to return the axes it is given)."""
     import dquartic_tpu_torch.utils.builder as port_builder
 
     monkeypatch.setattr(port_builder.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(port_builder.dist, "get_world_size", lambda group=None: 2)
     assert port_builder.build_mesh(_config(), batch_size=1) is None
-    with pytest.raises(ValueError, match="data parallelism"):
-        port_builder.build_mesh(_config(), batch_size=2)
+    monkeypatch.setattr(port_builder, "make_mesh", lambda dp, sp, tp: (dp, sp, tp))
+    assert port_builder.build_mesh(_config(), batch_size=2) == (2, 1, 1)

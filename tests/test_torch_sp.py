@@ -553,7 +553,8 @@ def test_sp_unet_forward_matches_jax(ranks, sp, dim_mults, mz, impl, k6):
 def test_sp_unet_needs_a_mesh():
     """activation_sharding without a mesh raises, as a JAX sharding
     constraint does outside a mesh: the model never runs unsharded in
-    silence. fused_resnet and kernel_dp_axis are refused as in JAX."""
+    silence. fused_resnet and kernel_dp_axis are refused beside it, as in
+    JAX."""
     kw = dict(TINY, dim_mults=(1, 2), downsample_dim=16)
     model = UNet1d(**kw, activation_sharding=("dp", "sp"))
     i = _inputs(1, 16, seed=0)
@@ -562,7 +563,7 @@ def test_sp_unet_needs_a_mesh():
     with pytest.raises(ValueError, match="fused_resnet"):
         UNet1d(**kw, activation_sharding=("dp", "sp"), fused_resnet=True)
     with pytest.raises(ValueError, match="kernel_dp_axis"):
-        UNet1d(**kw, kernel_dp_axis="dp")
+        UNet1d(**kw, activation_sharding=("dp", "sp"), kernel_dp_axis="dp")
 
 
 # --------------------------------------------------------------------- #
@@ -684,13 +685,14 @@ def test_build_trainer_on_the_mesh_matches_sp1(ranks):
 
 @pytest.mark.parametrize("mesh,match", [
     ({"dp": 1, "sp": 2, "tp": 1}, "needs a running torch.distributed"),
-    ({"dp": 2, "sp": 1, "tp": 1}, "DDP"),
-    ({"dp": 1, "sp": 1, "tp": 2}, "tensor-parallel"),
+    ({"dp": 2, "sp": 1, "tp": 1}, "torch.distributed.run --nproc-per-node 2"),
+    ({"dp": 1, "sp": 1, "tp": 2}, "torch.distributed.run --nproc-per-node 2"),
 ])
 def test_config_mesh_reaches_the_model(mesh, match):
-    """A mesh the port cannot build raises, naming the missing piece; it is
-    never dropped (the model with sp = 2 is built on the ranks by
-    test_sp_predict_matches_sp1, which checks its activation_sharding)."""
+    """A mesh of more than one rank in one process raises, naming the
+    launcher; it is never dropped (the model with sp = 2 is built on the
+    ranks by test_sp_predict_matches_sp1, which checks its
+    activation_sharding; dp and tp by tests/test_torch_parallel.py)."""
     config = _small_config(1)
     config["tpu"]["mesh"] = mesh
     with pytest.raises(ValueError, match=match):
@@ -701,8 +703,8 @@ def test_config_mesh_reaches_the_model(mesh, match):
 
 def test_config_unet_mesh_keys_reach_the_model():
     """``activation_sharding`` in the UNet1d block reaches UNet1d (which then
-    needs a mesh to run); ``kernel_dp_axis`` raises; one process builds no
-    mesh from the default ``tpu.mesh``."""
+    needs a mesh to run); so does ``kernel_dp_axis``, which excludes it; one
+    process builds no mesh from the default ``tpu.mesh``."""
     config = _small_config(1)
     assert build_mesh(config) is None
     config["model"]["UNet1d"]["activation_sharding"] = ["dp", "sp"]
@@ -712,10 +714,11 @@ def test_config_unet_mesh_keys_reach_the_model():
     with pytest.raises(ValueError, match="fused_resnet"):
         build_model(config, device="cpu")  # serving: JAX predict raises too
     assert not build_model(config, device="cpu", trainable=True).fused_resnet
-    del config["model"]["UNet1d"]["activation_sharding"]
     config["model"]["UNet1d"]["kernel_dp_axis"] = "dp"
     with pytest.raises(ValueError, match="kernel_dp_axis"):
-        build_model(config, device="cpu")
+        build_model(config, device="cpu", trainable=True)
+    del config["model"]["UNet1d"]["activation_sharding"]
+    assert build_model(config, device="cpu").kernel_dp_axis == "dp"
 
 
 def test_trainer_and_sampler_refuse_an_unsharded_model():
