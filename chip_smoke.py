@@ -133,7 +133,27 @@ CUDA card with sm_90a). Phases, each of which must pass:
      ``FourierFeatures`` at its defaults against float64; (e)
      ``convert-checkpoint`` of seeded weights in the reference's
      CustomTransformer names and ``predict`` from the converted file, its
-     ``pred`` bitwise equal to ``predict_batch`` in this process.
+     ``pred`` bitwise equal to ``predict_batch`` in this process;
+ 13. data and tensor parallelism: K3 at a tp = 2 rank's column shard of a
+     mid conv, (34, 30000, 5000) bf16, against its plain version, timed
+     with its plain version and ``torch._weight_int8pack_mm`` beside its
+     byte bound; then two ranks spawned in one gloo group, both on this
+     card, each path held on rank 0 against the same call in one process
+     on the global batch: (a) dp = 2, DDP over the rows: a
+     ``Trainer.train_step`` of the canonical training config on a global
+     batch of 2 (float32 and bf16, no EMA; phase 6's gradient gates; K1
+     14, K2 29, K4 14, K5 29, K7a 1, K7b 1 a rank), with DDP's buckets
+     and the other collectives a step counted, and a 50-step ``predict``
+     of two windows in the serving config (K1 700, K2 1450, K3 200, K7a
+     50 a rank; phase 3's gate; the gathered inputs bitwise); (b) tp = 2,
+     the JAX rule's wide leaves split: the int8 serving ``predict`` of one
+     window (K3 200 a rank on its column shard; rank 0's int8 shard
+     bitwise the slice of the whole quantization) and a bf16 train step
+     whose gathered gradients meet phase 6's gates, with the float32
+     parameter bytes a rank (half the model's) and the peak memory; (c)
+     the CustomTransformer's float32 step at dp = 2 and at tp = 2. The
+     ms/window and ms/step a rank measure no dp or tp speed: the ranks
+     share one card.
 
 Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
@@ -301,6 +321,15 @@ SP_REF_MIN_SEQ = MZ // 2**6 + 1
 CLI_WINDOWS = 4
 CLI_MZ = 256
 CLI_STEPS = 10
+# phase 13: dp and tp ranks (processes of one gloo group) sharing the one
+# card. K3 on a tp rank's column shard of a mid conv: the canonical
+# (34, 30000, 10000) with its 10000 output columns split in DPTP.
+DPTP = 2
+DPTP_DEVICE = "cuda"  # each rank's device (one card for all)
+K3_TP_SHAPE = (RT, 30000, 10000 // DPTP)
+# The JAX rule's split leaves at tp = 2 hold 1,204,620,000 of the canonical
+# model's 1,204,738,383 parameters: a rank holds about half the bytes.
+TP_PARAM_SHARE = (0.49, 0.51)
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): device memory
 # bytes/s, and FLOP/s by the type of the operations.
 HBM_BYTES_PER_S = 3.35e12
@@ -559,7 +588,7 @@ def _k3_compare(name, out, ref, tol):
     return _compare(name, out, ref, tol, atol_scale=float(ref.float().abs().max()))
 
 
-def k3_library(x, q, s, ref, tol) -> dict:
+def k3_library(x, q, s, ref, tol, shape="(34, 30000, 10000)") -> dict:
     """``library_ms`` of K3: ``torch._weight_int8pack_mm`` (x (M, K), int8
     weights (N, K), per-column scales in x's dtype), the one PyTorch call
     that forms x @ int8 weights x scale; its (N, K) weights and bf16 scales
@@ -572,7 +601,7 @@ def k3_library(x, q, s, ref, tol) -> dict:
         out = torch._weight_int8pack_mm(x, wt, st)
         _k3_compare("torch._weight_int8pack_mm (scales rounded to bf16)", out, ref, tol)
         ms = cuda_time(lambda: torch._weight_int8pack_mm(x, wt, st), 20)
-        log(f"  torch._weight_int8pack_mm at (34, 30000, 10000) bf16: {ms:.4f} ms")
+        log(f"  torch._weight_int8pack_mm at {shape} bf16: {ms:.4f} ms")
         return dict(library_ms=ms, library="torch._weight_int8pack_mm")
     except SmokeFailure:
         raise
@@ -1316,13 +1345,13 @@ def _train_config(config, **tpu):
     return cfg
 
 
-def _pair_batch(seed, mz=None):
+def _pair_batch(seed, mz=None, rows=1):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     mz = mz or MZ
     return {k: rng.uniform(0, 1, s).astype(np.float32) for k, s in
-            (("ms2_1", (1, RT, mz)), ("ms1_1", (1, RT)), ("ms2_2", (1, RT, mz)))}
+            (("ms2_1", (rows, RT, mz)), ("ms1_1", (rows, RT)), ("ms2_2", (rows, RT, mz)))}
 
 
 def _step_backward(model, process, batch, t, eps) -> float:
@@ -2851,6 +2880,364 @@ def phase_families(config, seed, gen, results):
     log(f"  phase 12: {results['families']['phase_s']:.1f} s")
 
 
+def phase_k3_tp(gen, results):
+    """K3 at a tp = 2 rank's column shard of a mid conv, (34, 30000, 5000)
+    bf16: against its plain version, timed around the wrapper, its plain
+    version and ``torch._weight_int8pack_mm``, beside its byte bound."""
+    import torch
+
+    from dquartic_tpu_torch.ops import int8_matmul as im
+
+    M, K, N = K3_TP_SHAPE
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    q, s = im.quantize_weight_matrix(torch.randn((K, N), generator=gen, device="cuda"))
+    ref = im.int8_matmul_reference(x, q, s)
+    tol = (2**-7, 2**-8)
+    err = _k3_compare(f"K3 int8_matmul bfloat16 at the tp shard ({M}, {K}, {N})",
+                      im.int8_matmul(x, q, s), ref, tol)
+    ms = cuda_time(lambda: im.int8_matmul(x, q, s), 20)
+    plain = cuda_time(lambda: im.int8_matmul_reference(x, q, s), 20)
+    dev = device_ms(lambda: im.int8_matmul(x, q, s), 10, "int8_matmul_mma")["all"][0]
+    lib = k3_library(x, q, s, ref, tol, shape=f"({M}, {K}, {N})")
+    bnd = k3_bound(M, K, N)
+    log(f"  time int8_matmul bf16 ({M}, {K}, {N}) (a tp = {DPTP} rank's mid conv): kernel "
+        f"{ms:.4f} ms, device {dev:.4f} ms, plain {plain:.4f} ms, library "
+        f"{lib.get('library_ms')}, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    results["int8_matmul"]["tp_shard"] = dict(M=M, K=K, N=N, ms=ms, device_ms=dev,
+                                              plain_ms=plain, max_abs_err=err, **lib, **bnd)
+    del x, q, s, ref
+    torch.cuda.empty_cache()
+
+
+def _dptp_config(config, dp=1, tp=1, batch=1):
+    cfg = json.loads(json.dumps(config))
+    cfg["tpu"]["mesh"] = {"dp": dp, "sp": 1, "tp": tp}
+    cfg["model"]["batch_size"] = batch
+    return cfg
+
+
+def _dptp_rank(rank, init_method, config, seed, out_dir):
+    """One of the DPTP ranks on cuda:0, each path run at dp = DPTP and at
+    tp = DPTP and held on rank 0 against the same call in one process (on
+    the global batch) while the other ranks wait with their memory freed:
+    (a) dp: a train step (float32, bf16) and a 50-step predict of two
+    windows; (b) tp: an int8 predict of one window and a bf16 train step;
+    (c) the CustomTransformer's step at dp and at tp."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.parallel import initialize_runtime, local_rows, make_mesh
+    from dquartic_tpu_torch.parallel.tensor import gather, leaf_specs
+    from dquartic_tpu_torch.utils.builder import build_model, build_process, build_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_runtime("gloo", rank, DPTP, init_method, timeout_s=900)
+    meshes = {"dp": make_mesh(dp=DPTP), "tp": make_mesh(tp=DPTP)}
+    dev = torch.device(DPTP_DEVICE)
+    out = {"rank": rank}
+    lead = rank == 0
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # every all_reduce and all_gather of this rank, counted around
+    # torch.distributed (DDP's bucket all_reduces run in its reducer and
+    # are read from its logging data)
+    calls = {"all_reduce": 0, "all_gather": 0}
+    for fn in tuple(calls):
+        real = getattr(dist, fn)
+
+        def counted(*args, _real=real, _fn=fn, **kwargs):
+            calls[_fn] += 1
+            return _real(*args, **kwargs)
+
+        setattr(dist, fn, counted)
+
+    def step_grads(trainer, batch, t, eps):
+        """One train_step; its loss, launches, collectives and (on rank 0)
+        every gradient whole on the host, gathered over tp."""
+        calls.update(all_reduce=0, all_gather=0)
+        reset_launch_counts()
+        m = trainer.train_step(batch, 1e-4, t=t, eps=eps)
+        torch.cuda.synchronize()
+        counts, colls = launch_counts(), dict(calls)
+        specs = leaf_specs(trainer.model)
+        grads = []
+        for n, p in zip(trainer.param_names, trainer.optimizer.params):
+            gr = p.grad
+            if n in specs:
+                spec, dim = specs[n]
+                gr = gather(gr, spec.group, dim)
+            grads.append(gr.float().cpu() if lead else None)
+        return float(m["loss"]), counts, colls, grads
+
+    def timed(trainer, batch, gen, n=2):
+        runs = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step(batch, 1e-4, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        return sorted(runs)[len(runs) // 2]
+
+    def hold(what, loss, grads, ref_cfg, batch, t, eps, dtype):
+        """On rank 0: the one-process step of ``ref_cfg`` on the global
+        batch, its loss and gradients against the mesh's (phase 6 gates)."""
+        ref_tr = build_trainer(ref_cfg, device=dev, seed=seed)
+        ref_loss = float(ref_tr.train_step(batch, 1e-4, t=t, eps=eps)["loss"])
+        ref_g = [p.grad.float().cpu() for p in ref_tr.optimizer.params]
+        del ref_tr
+        rel = _rel_l2(grads, ref_g)
+        # a gradient that is zero up to rounding (the CustomTransformer's key
+        # biases: a shift of every logit of a row, which softmax ignores)
+        # has no direction to hold: the cosine skips tensors below 1e-6 of
+        # the largest
+        top = max(float(b.norm()) for b in ref_g)
+        worst = min(_cos(a, b) for a, b in zip(grads, ref_g) if float(b.norm()) > 1e-6 * top)
+        rel_tol, cos_tol = STEP_GRAD_TOL[dtype]
+        _rank_log(rank, f"{what} {dtype} vs one process: loss {loss:.6f} vs {ref_loss:.6f}; "
+                  f"gradient rel L2 {rel:.3e} (tol {rel_tol:g}), worst per-tensor cosine "
+                  f"{worst:.6f} (tol {cos_tol:g})")
+        check(abs(loss - ref_loss) <= MODEL_REL_TOL[dtype] * abs(ref_loss),
+              f"{what} {dtype}: loss disagrees with one process")
+        check(rel <= rel_tol and worst >= cos_tol,
+              f"{what} {dtype}: gradients disagree with one process")
+        return dict(loss=loss, ref_loss=ref_loss, grad_rel_l2=rel, worst_cos=worst)
+
+    # (a) dp = DPTP: one train step on a global batch of DPTP windows, each
+    # rank its row, against one process on the whole batch
+    mesh = meshes["dp"]
+    gbatch = {k: torch.as_tensor(v, device=dev)
+              for k, v in _pair_batch(seed + 20, rows=DPTP).items()}
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    t = torch.randint(0, 1000, (DPTP,), generator=g, device=dev)
+    eps = torch.randn((DPTP, RT, MZ), generator=g, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        # no EMA: two ranks' float32 states and DDP's buckets share the card
+        base = _train_config(config, compute_dtype=dtype, ema_decay=None)
+        cfg = _dptp_config(base, dp=DPTP, batch=DPTP)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
+        # DDP's bucket all_reduces run in its reducer: counted by a comm hook
+        # that runs DDP's own all_reduce hook
+        reduced = []
+
+        def count_buckets(state, bucket):
+            reduced.append(bucket.buffer().numel())
+            return default_hooks.allreduce_hook(state, bucket)
+
+        trainer._denoise.register_comm_hook(mesh.dp_group, count_buckets)
+        loss, counts, colls, grads = step_grads(trainer, local_rows(gbatch, mesh), t, eps)
+        check(counts == _expect(STEP_LAUNCHES, cfg=cfg), f"dp train launches {counts}")
+        buckets = len(reduced)
+        colls["all_reduce"] -= buckets  # the hook's all_reduces are the buckets
+        check(sum(reduced) == sum(p.numel() for p in trainer.optimizer.params),
+              f"DDP reduced {sum(reduced)} gradient values")
+        ms = timed(trainer, local_rows(gbatch, mesh), g)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[f"dp_train_{dtype}"] = dict(launches=counts, collectives=colls, ddp_buckets=buckets,
+                                        ms_per_step=ms, peak_gib=peak)
+        _rank_log(rank, f"dp={DPTP} train_step {dtype}: loss {loss:.6f}, launches {counts}; "
+                  f"collectives a step: {buckets} DDP bucket all_reduces + {colls}; "
+                  f"ms/step {ms:.2f} ({DPTP} ranks sharing one card: no dp speed), peak "
+                  f"{peak:.2f} GiB")
+        del trainer
+        free()
+        if lead:
+            out[f"dp_train_{dtype}"].update(hold(f"dp={DPTP} train_step", loss, grads,
+                                                 _dptp_config(base, batch=DPTP), gbatch, t,
+                                                 eps, dtype))
+        del grads
+        free()
+
+    # (a) dp = DPTP: a 50-step predict of DPTP windows in the serving
+    # config, each rank its window; the records gathered
+    pbatch = _pair_batch(seed + 22, rows=DPTP)
+    cfg = _dptp_config(config, dp=DPTP, batch=DPTP)
+    model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
+    sampler = DDIMSampler(model, build_process(cfg), mesh=mesh)
+    reset_launch_counts()
+    rec = sampler.predict([local_rows(pbatch, mesh)], num_steps=STEPS, seed=seed, device=dev)[0]
+    counts = launch_counts()
+    check(counts == _expect(SIMPLE_FORWARD, STEPS), f"dp predict launches {counts}")
+    check(rec["pred"].shape == (DPTP, RT, MZ) and bool(np.isfinite(rec["pred"]).all()),
+          "bad dp prediction")
+    x_t, ms2, ms1 = (v[:1] for v in _model_inputs(torch.Generator(device=dev).manual_seed(seed)))
+    ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
+    out["dp_predict"] = dict(launches=counts, ms_per_window=ms)
+    _rank_log(rank, f"dp={DPTP} predict {STEPS} steps of {DPTP} windows: launches {counts}; "
+              f"ms/window {ms:.2f} ({DPTP} ranks sharing one card: no dp speed)")
+    del model, sampler
+    free()
+    if lead:
+        ref_model = build_model(_dptp_config(config, batch=DPTP), device=dev, seed=seed)
+        ref = DDIMSampler(ref_model, build_process(cfg)).predict(
+            [pbatch], num_steps=STEPS, seed=seed, device=dev)[0]
+        del ref_model
+        rel = float(np.linalg.norm(rec["pred"] - ref["pred"]) / np.linalg.norm(ref["pred"]))
+        same = all(np.array_equal(rec[k], ref[k]) for k in ("ms2_1", "ms1_1", "mixture"))
+        _rank_log(rank, f"dp={DPTP} predict vs one process on the {DPTP} windows, same seed: "
+                  f"pred rel L2 {rel:.3e} (tol {MODEL_REL_TOL['bfloat16']:g}), inputs gathered "
+                  f"bitwise {same}")
+        check(rel <= MODEL_REL_TOL["bfloat16"] and same, "dp predict disagrees with one process")
+        out["dp_predict"]["pred_rel_l2"] = rel
+    free()
+
+    # (b) tp = DPTP: the int8 serving predict of one window, the mid convs
+    # on their column shards (K3 at (34, 30000, 5000))
+    mesh = meshes["tp"]
+    pbatch = _pair_batch(seed + 23)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(_dptp_config(config, tp=DPTP), device=dev, seed=seed, mesh=mesh)
+    wq = model.mid_block1.block1.proj.weight_q
+    check(tuple(wq.shape) == K3_TP_SHAPE[1:], f"tp int8 shard {tuple(wq.shape)}")
+    wq0 = wq.cpu() if lead else None
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters()) + sum(
+        b.numel() * b.element_size() for b in model.buffers())
+    sampler = DDIMSampler(model, build_process(config), mesh=mesh)
+    calls.update(all_reduce=0, all_gather=0)
+    reset_launch_counts()
+    rec = sampler.predict([pbatch], num_steps=STEPS, seed=seed, device=dev)[0]
+    counts, colls = launch_counts(), dict(calls)
+    check(counts == _expect(SIMPLE_FORWARD, STEPS), f"tp predict launches {counts}")
+    x_t, ms2, ms1 = _model_inputs(torch.Generator(device=dev).manual_seed(seed))
+    ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["tp_predict"] = dict(launches=counts, collectives=colls, ms_per_window=ms,
+                             serving_bytes=nbytes, peak_gib=peak)
+    _rank_log(rank, f"tp={DPTP} int8 predict {STEPS} steps: launches {counts}, collectives "
+              f"{colls}; serving weights {nbytes / 1e9:.3f} GB a rank; ms/window {ms:.2f} "
+              f"({DPTP} ranks sharing one card: no tp speed), peak {peak:.2f} GiB")
+    del model, sampler
+    free()
+    if lead:
+        ref_model = build_model(_dptp_config(config), device=dev, seed=seed)
+        whole = ref_model.mid_block1.block1.proj.weight_q.cpu()
+        sliced = torch.equal(wq0, whole[:, :K3_TP_SHAPE[2]])
+        ref = DDIMSampler(ref_model, build_process(config)).predict(
+            [pbatch], num_steps=STEPS, seed=seed, device=dev)[0]
+        del ref_model
+        rel = float(np.linalg.norm(rec["pred"] - ref["pred"]) / np.linalg.norm(ref["pred"]))
+        _rank_log(rank, f"tp={DPTP} int8 predict vs one process: pred rel L2 {rel:.3e} (tol "
+                  f"{MODEL_REL_TOL['bfloat16']:g}); rank 0's int8 shard is the slice of the "
+                  f"whole quantization bitwise: {sliced}")
+        check(rel <= MODEL_REL_TOL["bfloat16"] and sliced, "tp predict disagrees with one process")
+        out["tp_predict"].update(pred_rel_l2=rel, int8_shard_is_slice=sliced)
+    free()
+
+    # (b) tp = DPTP: a bf16 train step, the gathered gradients against one
+    # process; parameter bytes and peak memory a rank
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 24).items()}
+    g = torch.Generator(device=dev).manual_seed(seed + 25)
+    t = torch.randint(0, 1000, (1,), generator=g, device=dev)
+    eps = torch.randn((1, RT, MZ), generator=g, device=dev)
+    cfg = _dptp_config(_train_config(config, compute_dtype="bfloat16"), tp=DPTP)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
+    held = sum(p.numel() for p in trainer.optimizer.params)
+    loss, counts, colls, grads = step_grads(trainer, tbatch, t, eps)
+    check(counts == _expect(STEP_LAUNCHES, cfg=cfg), f"tp train launches {counts}")
+    ms = timed(trainer, tbatch, g)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["tp_train"] = dict(launches=counts, collectives=colls, param_bytes=4 * held,
+                           ms_per_step=ms, peak_gib=peak)
+    _rank_log(rank, f"tp={DPTP} train_step bf16: loss {loss:.6f}, launches {counts}, "
+              f"collectives {colls}; float32 parameters a rank {4 * held / 1e9:.3f} GB; "
+              f"ms/step {ms:.2f} ({DPTP} ranks sharing one card: no tp speed), peak "
+              f"{peak:.2f} GiB")
+    del trainer
+    free()
+    if lead:
+        whole = sum(g.numel() for g in grads)
+        out["tp_train"].update(whole_param_bytes=4 * whole, **hold(
+            f"tp={DPTP} train_step", loss, grads,
+            _dptp_config(_train_config(config, compute_dtype="bfloat16")), tbatch, t, eps,
+            "bfloat16"))
+        share = held / whole
+        _rank_log(rank, f"tp={DPTP}: a rank holds {share:.4f} of the {4 * whole / 1e9:.3f} GB of "
+                  f"float32 parameters")
+        check(TP_PARAM_SHARE[0] <= share <= TP_PARAM_SHARE[1], f"tp share {share}")
+    del grads
+    free()
+
+    # (c) the CustomTransformer (float32): a step at dp = DPTP on DPTP
+    # windows and at tp = DPTP on one, each against one process
+    for axis in ("dp", "tp"):
+        mesh = meshes[axis]
+        rows = DPTP if axis == "dp" else 1
+        cbatch = {k: torch.as_tensor(v, device=dev)
+                  for k, v in _pair_batch(seed + 26, rows=rows).items()}
+        g = torch.Generator(device=dev).manual_seed(seed + 27)
+        t = torch.randint(0, 1000, (rows,), generator=g, device=dev)
+        eps = torch.randn((rows, RT, MZ), generator=g, device=dev)
+        base = _ct_config(config, compute_dtype="float32")
+        cfg = _dptp_config(base, batch=rows, **{axis: DPTP})
+        trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
+        loss, counts, colls, grads = step_grads(trainer, local_rows(cbatch, mesh), t, eps)
+        held = sum(p.numel() for p in trainer.optimizer.params)
+        out[f"ct_{axis}"] = dict(collectives=colls, params_held=held)
+        del trainer
+        free()
+        if lead:
+            out[f"ct_{axis}"].update(hold(f"CustomTransformer {axis}={DPTP} train_step", loss,
+                                          grads, _dptp_config(base, batch=rows), cbatch, t, eps,
+                                          "float32"))
+        del grads
+        free()
+
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_dp_tp(config, seed, gen, results):
+    """Phase 13: K3 at a tp rank's shard in this process, then DPTP ranks
+    spawned on the one card in a gloo group, at dp = DPTP and tp = DPTP."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    phase_k3_tp(gen, results)
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        # a failed rank fails the phase with its traceback; the others are stopped
+        tmp.spawn(_dptp_rank, args=(f"tcp://127.0.0.1:{port}", config, seed, out_dir),
+                  nprocs=DPTP, join=True)
+        ranks = []
+        for r in range(DPTP):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    log(f"  {DPTP} ranks done in {time.perf_counter() - t0:.1f} s")
+    lead = ranks[0]
+    for name, row in results.items():
+        if not isinstance(row, dict) or "source" not in row:
+            continue
+        row["dp_launches_per_rank"] = dict(
+            predict=lead["dp_predict"]["launches"][name],
+            train_step=lead["dp_train_bfloat16"]["launches"][name])
+        row["tp_launches_per_rank"] = dict(predict=lead["tp_predict"]["launches"][name],
+                                           train_step=lead["tp_train"]["launches"][name])
+    results["dp_tp"] = dict(
+        note=f"{DPTP} ranks (processes in one gloo group) sharing one card: the times say "
+             "nothing of the speed of data or tensor parallelism",
+        ranks=ranks, phase_s=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -2961,6 +3348,8 @@ def main(argv=None) -> int:
         log("== phase 12: the remaining model families: unconditional UNet1d, CustomTransformer, "
             "FourierFeatures")
         phase_families(config, args.seed, gen, results)
+        log(f"== phase 13: data and tensor parallelism, dp = {DPTP} and tp = {DPTP} on one card")
+        phase_dp_tp(config, args.seed, gen, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -2975,6 +3364,7 @@ def main(argv=None) -> int:
     log(f"sequence parallel: {json.dumps(results.pop('sp'))}")
     log(f"command line: {json.dumps(results.pop('cli'))}")
     log(f"model families: {json.dumps(results.pop('families'))}")
+    log(f"data and tensor parallelism: {json.dumps(results.pop('dp_tp'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -92,7 +92,7 @@ def _resolve_device(device, what: str):
         if device.type == "cuda" and device.index is None:
             device = local_device()
         initialize_runtime(device=device)
-    if device.type == "cuda":
+    if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     return device
 

@@ -17,7 +17,8 @@ On a ``mesh`` every rank calls the same methods with the same seed:
 * ``sp``: each rank computes its slice of m/z and the model returns the
   whole prediction (``activation_sharding``);
 * ``tp``: the model's wide leaves are split over the ``tp`` group
-  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`), and the model
+  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`, at JAX's
+  default width where ``build_model`` has not split them), and the model
   returns the whole prediction on every rank.
 
 The DDIM steps are per element, so every rank of a replica gets the
@@ -38,8 +39,7 @@ from ..utils.device import resolve_device
 
 
 class DDIMSampler:
-    def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None,
-                 tp_min_features: int = 2048):
+    def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None):
         self.model = model
         self.process = process
         self.mesh = mesh
@@ -49,7 +49,7 @@ class DDIMSampler:
                     f"a mesh with sp={mesh.sp} needs a model whose activation_sharding splits "
                     "m/z over it (build_model sets it from the mesh)")
             model.mesh = mesh
-        shard_model(model, mesh, tp_min_features)
+        shard_model(model, mesh)  # unless build_model split it already
 
     @property
     def _dp(self) -> int:

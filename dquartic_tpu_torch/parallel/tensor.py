@@ -45,6 +45,10 @@ import torch.distributed as dist
 from torch import nn
 
 
+# the smallest axis the rule splits: the JAX Trainer's default
+MIN_TP_FEATURES = 2048
+
+
 def spec_for_shape(shape, tp: int, min_tp_features: int) -> Optional[int]:
     """The axis of a (flax) ``shape`` that the JAX rule splits over ``tp``
     (:func:`dquartic_tpu.parallel.sharding._spec_for_shape`), or None."""
@@ -93,7 +97,8 @@ def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(x.dtype)
 
 
-def _own(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+def rank_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's contiguous slice of ``x`` along ``dim`` (a view)."""
     size, r = dist.get_world_size(group), dist.get_rank(group)
     if x.shape[dim] % size:
         raise ValueError(f"length {x.shape[dim]} does not split over {size} tp ranks")
@@ -115,14 +120,14 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _own(g, ctx.group, ctx.dim).contiguous(), None, None
+        return rank_slice(g, ctx.group, ctx.dim).contiguous(), None, None
 
 
 class _Slice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        return _own(x, group, dim).contiguous()
+        return rank_slice(x, group, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -211,7 +216,7 @@ def product(spec: TPSpec, out_axis: bool, x: torch.Tensor,
 
 
 def tp_plan(names_and_shapes: Dict[str, Tuple[int, ...]], tp: int,
-            min_tp_features: int = 2048) -> Dict[str, int]:
+            min_tp_features: int = MIN_TP_FEATURES) -> Dict[str, int]:
     """``{torch name: torch axis}`` of the parameters the JAX rule splits
     over ``tp``, from the model's names and (whole) torch shapes."""
     from ..compat.jax_params import torch_layouts
@@ -237,19 +242,13 @@ def _split(name: str):
     return mod, leaf
 
 
-def shard_model(model: nn.Module, mesh, min_tp_features: int = 2048) -> nn.Module:
+def shard_model(model: nn.Module, mesh, min_tp_features: int = MIN_TP_FEATURES) -> nn.Module:
     """Split the JAX rule's leaves of ``model`` over ``mesh``'s tp group in
     place: each keeps its rank's shard (on the meta device too, before the
     model is materialized), and each module that holds one gets a
-    :class:`TPSpec` as ``module.tp``. A model already split at the same
-    ``min_tp_features`` is left as it is; at another, it raises."""
-    if mesh is None or mesh.tp == 1:
-        return model
-    done = getattr(model, "tp_min_features", None)
-    if done is not None:
-        if done != min_tp_features:
-            raise ValueError(f"the model is split over tp at min_tp_features={done}, "
-                             f"not {min_tp_features}")
+    :class:`TPSpec` as ``module.tp``. A model already split is left as it
+    is."""
+    if mesh is None or mesh.tp == 1 or getattr(model, "tp_min_features", None) is not None:
         return model
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
     plan = tp_plan(shapes, mesh.tp, min_tp_features)

@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel.tensor import gather, rank_slice
+
 
 @dataclasses.dataclass(frozen=True)
 class WarmupCosineSchedule:
@@ -137,8 +139,6 @@ class _Sharded:
         if t is None:
             return None
         if dim is not None and self.tp_group is not None:
-            from ..parallel.tensor import gather
-
             t = gather(t, self.tp_group, dim)
         return t.to(device)
 
@@ -146,9 +146,7 @@ class _Sharded:
         """This rank's shard of a whole state tensor."""
         if t is None or dim is None or self.tp_group is None:
             return t
-        size, r = dist.get_world_size(self.tp_group), dist.get_rank(self.tp_group)
-        n = t.shape[dim] // size
-        return t.narrow(dim, r * n, n)
+        return rank_slice(t, self.tp_group, dim)
 
 
 class ClippedAdamW(_Sharded):

@@ -52,8 +52,8 @@ import torch
 from ..core.diffusion import DDIMProcess
 from ..parallel.distributed import row_range
 from ..parallel.sequence import sp_all_reduce
-from ..parallel.tensor import full_state_dict, gather, leaf_specs, own, shard_model, \
-    shard_state_dict
+from ..parallel.tensor import MIN_TP_FEATURES, full_state_dict, gather, leaf_specs, own, \
+    shard_model, shard_state_dict
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
 from .optim import ClippedAdamW, ClippedFactoredRMS, WarmupCosineSchedule, make_optimizer
@@ -79,7 +79,7 @@ class Trainer:
         seed: int = 0,
         sync_every_batch: bool = False,
         mesh=None,
-        tp_min_features: int = 2048,
+        tp_min_features: int = MIN_TP_FEATURES,
     ):
         self.model = model
         self.mesh = mesh
@@ -108,14 +108,14 @@ class Trainer:
         # for each of the optimizer's parameters, (tp spec, axis) or None
         self._splits = [specs.get(n) for n in self.param_names]
         if any(s is not None for s in self._splits):
-            self.optimizer.shard(mesh.tp_group, [s and s[1] for s in self._splits])
+            self.optimizer.shard(mesh.tp_group, [None if s is None else s[1] for s in self._splits])
         self._denoise = model
         if mesh is not None and mesh.dp > 1:
             from torch.nn.parallel import DistributedDataParallel
 
             # the replicas are built alike from one seed: no broadcast at start
             self._denoise = DistributedDataParallel(
-                model, process_group=mesh.dp_group, broadcast_buffers=False, init_sync=False,
+                model, process_group=mesh.dp_group, init_sync=False,
                 gradient_as_bucket_view=True, bucket_cap_mb=DP_BUCKET_MB)
         self.step = 0
         self.ema_params: Optional[list] = None

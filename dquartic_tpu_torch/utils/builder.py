@@ -23,13 +23,11 @@ from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
 from ..parallel.distributed import row_range
 from ..parallel.mesh import Mesh, make_mesh
-from ..parallel.tensor import leaf_specs, own, shard_model, shard_state_dict
+from ..parallel.tensor import MIN_TP_FEATURES, leaf_specs, own, shard_model, shard_state_dict
 from ..train import Trainer, make_optimizer
 from .device import resolve_device
 from .logging import NoOpLogger, make_logger
 
-# the smallest axis the JAX rule splits over tp: its Trainer's default
-TP_MIN_FEATURES = 2048
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 # Modules whose parameters stay float32 in every dtype, as JAX keeps them:
 # the gains of RMSNorm and LayerNorm1d, LayerNorm1d's bias, and the
@@ -162,7 +160,7 @@ def _transformer_kwargs(config: Dict[str, Any], mesh) -> Dict[str, Any]:
 def build_model(
     config: Dict[str, Any], device=None, seed: int = 0, trainable: bool = False, mesh=None,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
-    tp_min_features: int = TP_MIN_FEATURES,
+    tp_min_features: int = MIN_TP_FEATURES,
 ) -> torch.nn.Module:
     """The ``model.use_model`` denoiser (``"UNet1d"`` or
     ``"CustomTransformer"``, from the config block of that name) with seeded
@@ -343,7 +341,7 @@ def build_logger(config: Dict[str, Any], mesh=None):
 
 
 def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=None,
-                  mesh=None, tp_min_features: int = TP_MIN_FEATURES) -> Trainer:
+                  mesh=None) -> Trainer:
     """Trainer over the trainable ``model.use_model`` denoiser (float32
     master weights computing in
     ``tpu.compute_dtype``) with the ``tpu.optimizer`` and ``tpu.ema_decay``
@@ -352,8 +350,7 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     :func:`build_mesh` of ``tpu.mesh`` and the batch size), logging its
     epochs to ``logger``
     (None: :func:`build_logger` of the config). On a mesh the trainer runs
-    dp as DDP and tp on the leaves :func:`build_model` split at
-    ``tp_min_features`` (the JAX ``Trainer``'s argument).
+    dp as DDP and tp on the leaves :func:`build_model` split.
 
     ``tpu.checkpoint_backend`` must be ``"msgpack"``, the default: the
     port's checkpoints are ``torch.save`` files under the JAX package's
@@ -372,8 +369,7 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     device = resolve_device(device, "build_trainer")
     if mesh is None:
         mesh = build_mesh(config, config["model"].get("batch_size"))
-    model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh,
-                        tp_min_features=tp_min_features)
+    model = build_model(config, device=device, seed=seed, trainable=True, mesh=mesh)
     if logger is None:
         logger = build_logger(config, mesh)
     return Trainer(
@@ -384,5 +380,4 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
         logger=logger,
         seed=seed,
         mesh=mesh,
-        tp_min_features=tp_min_features,
     )

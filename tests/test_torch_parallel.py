@@ -1,7 +1,10 @@
-"""Data and tensor parallelism of the port: the (dp, sp, tp) mesh, the
-Trainer (DDP over the rows, the JAX rule's leaves split over tp) and the
-sampler on it, checkpoints across tp sizes and per-process feeding, against
-the JAX package and against one process.
+"""Data and tensor parallelism of the port: the (dp, sp, tp) mesh, the JAX
+tp rule, the seeded split model, one Trainer step (DDP over the rows, the
+JAX rule's leaves split over tp) on five meshes against the JAX step, the
+two double-counting faults caught, and a JAX checkpoint loaded onto a tp
+mesh. The paths (every family, the sampler, checkpoints across tp sizes,
+feeding) are in tests/test_torch_parallel_paths.py, the launcher in
+tests/test_torch_parallel_cli.py.
 
 The ranks are processes of one gloo group on the CPU (one pool of eight for
 the module; a mesh of n ranks runs on ranks 0 .. n-1), where the port's
@@ -33,20 +36,21 @@ import torch.distributed as dist
 import dquartic_tpu_torch.parallel.tensor as ptensor
 import dquartic_tpu_torch.train.optim as poptim
 from dquartic_tpu_torch.core import DDIMProcess, make_schedule
-from dquartic_tpu_torch.infer import DDIMSampler
 from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.models.transformer import CustomTransformer
 from dquartic_tpu_torch.parallel import (
     Mesh, full_state_dict, initialize_runtime, local_rows, make_mesh, shard_model,
 )
 from dquartic_tpu_torch.train import Trainer, make_optimizer
-from dquartic_tpu_torch.utils.builder import build_dataset, build_model, init_weights
+from dquartic_tpu_torch.utils.builder import build_model
 from dquartic_tpu_torch.utils.config import load_train_config
 
 WORLD = 8
 MESHES = [(2, 1, 1), (1, 1, 2), (2, 1, 2), (2, 2, 1), (2, 2, 2)]
-RT, MZ = 4, 16
-# the JAX rule at test widths: the tiny model's widest axes are 16 to 384
+RT, MZ = 4, 32
+# the JAX rule at test widths: the tiny model's widest axes are 16 to 384;
+# at m/z 32 its mid convs are 128 x 128, so the factored optimizer factors
+# them (optax's min_dim_size_to_factor 128) across their split axis
 MIN = 16
 LR = 1e-3
 TINY = dict(dim=4, channels=1, dim_mults=(1, 2), conditional=True, init_cond_channels=1,
@@ -61,8 +65,11 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 # --------------------------------------------------------------------- #
 
 
-def _rank_main(rank, init_method, inq, outq):
+def _rank_main(rank, init_method, inq, outq, module):
+    import importlib
+
     torch.set_num_threads(1)
+    funcs = vars(importlib.import_module(module))
     initialize_runtime("gloo", rank, WORLD, init_method, timeout_s=120)
     # every process makes every mesh's groups, in one order
     meshes = {s: make_mesh(*s, ranks=range(int(np.prod(s)))) for s in MESHES}
@@ -72,7 +79,7 @@ def _rank_main(rank, init_method, inq, outq):
             break
         name, shape, args = task
         try:
-            res = globals()[name](meshes[shape], *args) if rank < np.prod(shape) else None
+            res = funcs[name](meshes[shape], *args) if rank < np.prod(shape) else None
             outq.put((rank, True, res))
         except Exception:  # reported to the test, which fails with it
             outq.put((rank, False, traceback.format_exc()))
@@ -81,10 +88,10 @@ def _rank_main(rank, init_method, inq, outq):
 
 class _Ranks:
     """WORLD processes in one gloo group; ``run(name, shape, *args)`` calls
-    ``name(mesh, *args)`` on the ranks of the (dp, sp, tp) mesh ``shape``
-    and returns their results in mesh-rank order."""
+    ``module.name(mesh, *args)`` on the ranks of the (dp, sp, tp) mesh
+    ``shape`` and returns their results in mesh-rank order."""
 
-    def __init__(self):
+    def __init__(self, module):
         ctx = mp.get_context("spawn")
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
@@ -92,7 +99,8 @@ class _Ranks:
         self.inqs = [ctx.Queue() for _ in range(WORLD)]
         self.outq = ctx.Queue()
         self.procs = [ctx.Process(target=_rank_main, daemon=True,
-                                  args=(r, f"tcp://127.0.0.1:{port}", self.inqs[r], self.outq))
+                                  args=(r, f"tcp://127.0.0.1:{port}", self.inqs[r], self.outq,
+                                        module))
                       for r in range(WORLD)]
         for p in self.procs:
             p.start()
@@ -124,7 +132,7 @@ class _Ranks:
 
 @pytest.fixture(scope="module")
 def ranks():
-    pool = _Ranks()
+    pool = _Ranks(__name__)
     yield pool
     pool.close()
 
@@ -158,6 +166,14 @@ def _unet(mesh, sd, **kw):
     if sd is not None:
         model.load_state_dict({k: _t(v) for k, v in sd.items()})
     return model
+
+
+def _small_config():
+    config = load_train_config(CONFIG)
+    config["model"]["UNet1d"].update(dim_mults=[1, 2], downsample_dim=MZ)
+    config["model"]["batch_size"] = 2
+    config["tpu"].update(fused_resnet=True, linear_attn_impl="pallas_t")
+    return config
 
 
 # --------------------------------------------------------------------- #
@@ -363,7 +379,8 @@ def _jax_step(kind):
     state, m = jtr.train_step(jtr._fresh_state(params),
                               {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(LR), key)
     _JAX_STEPS[kind] = dict(
-        sd=jax_params_to_torch(params), batch=batch, t=np.asarray(t), eps=np.asarray(eps),
+        state=state, sd=jax_params_to_torch(params), batch=batch, t=np.asarray(t),
+        eps=np.asarray(eps),
         loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
         params=_flat(state.params), ema=_flat(state.ema_params))
     return _JAX_STEPS[kind]
@@ -420,186 +437,37 @@ def test_the_step_checks_catch_double_counting(ranks, fault):
         _check_step(out, ref, (1, 1, 2))
 
 
-# --------------------------------------------------------------------- #
-# every family under DDP and tp: two steps against one process          #
-# --------------------------------------------------------------------- #
+def _load_jax(mesh, path, kind):
+    from dquartic_tpu_torch.train import load_checkpoint
 
-
-FAMILIES = {
-    "unet_fused": dict(),
-    "unet_tfer": dict(simple=False, tfer_depth=2),
-    "unet_uncond": dict(conditional=False),
-    "ct": None,
-}
-
-
-def _family_model(family, seed):
-    torch.manual_seed(0)
-    if family == "ct":
-        model = CustomTransformer(**CT)
-        model.init_weights(torch.Generator().manual_seed(seed))
-    else:
-        model = UNet1d(**{**TINY, **FAMILIES[family]}, fused_resnet=True)
-        init_weights(model, torch.Generator().manual_seed(seed))
-    return model
-
-
-# Adam's first update is about lr·sign(g), so a gradient near zero whose
-# sign the summation order flips moves its parameter by 2·lr; at this lr
-# the second step's loss and norm move by far less than rtol 1e-5 for it.
-FAMILY_LR = 1e-6
-
-
-def _two_steps(mesh, family, batches):
-    model = _family_model(family, 3)
-    tr = Trainer(model, _process(), mesh=mesh, tp_min_features=MIN)
-    gen = torch.Generator().manual_seed(9)
-    out = []
-    for b in batches:
-        m = tr.train_step(local_rows({k: _t(v) for k, v in b.items()}, mesh), FAMILY_LR,
-                          generator=gen)
-        out.append((float(m["loss"]), float(m["grad_norm"])))
-    return out, _np(full_state_dict(model))
-
-
-@pytest.mark.parametrize("family", list(FAMILIES))
-def test_every_family_takes_two_steps_on_dp_and_tp(ranks, family):
-    """Two steps at (dp, tp) = (2, 2), the draws from one seeded generator,
-    against one process: DDP's reducer sees a gradient for every parameter
-    (a parameter without one raises at the second step), and the losses,
-    norms and parameters agree."""
-    batches = [_batch(2, 21), _batch(2, 22)]
-    out = ranks.run("_two_steps", (2, 1, 2), family, batches)
-    ref, ref_sd = _two_steps(None, family, batches)
-    for metrics, sd in out:
-        np.testing.assert_allclose(metrics, ref, rtol=1e-5)
-        for k, v in ref_sd.items():
-            np.testing.assert_allclose(sd[k], v, rtol=1e-5, atol=2 * FAMILY_LR, err_msg=k)
-
-
-# --------------------------------------------------------------------- #
-# the sampler                                                           #
-# --------------------------------------------------------------------- #
-
-
-def _small_config():
-    config = load_train_config(CONFIG)
-    config["model"]["UNet1d"].update(dim_mults=[1, 2], downsample_dim=MZ)
-    config["model"]["batch_size"] = 2
-    config["tpu"].update(fused_resnet=True, linear_attn_impl="pallas_t")
-    return config
-
-
-def _predict(mesh, quantize, batch):
-    config = _small_config()
-    config["tpu"]["quantize_mid"] = quantize
-    model = build_model(config, device="cpu", seed=5, mesh=mesh, tp_min_features=MIN)
-    sampler = DDIMSampler(model, _process(), mesh=mesh, tp_min_features=MIN)
-    rec = sampler.predict([local_rows(batch, mesh)], num_steps=3, seed=7, device="cpu")[0]
-    g = torch.Generator().manual_seed(2)
-    x_t = torch.randn((2, RT, MZ), generator=g)
-    ms2 = _t(batch["ms2_1"]) * 0.5 + _t(batch["ms2_2"]) * 0.5
-    x0, _ = sampler.sample(*local_rows((x_t, ms2, _t(batch["ms1_1"])), mesh), num_steps=3)
-    return rec, x0.numpy()
-
-
-@pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("shape", [(2, 1, 1), (1, 1, 2)])
-def test_predict_and_sample_match_one_process(ranks, shape, quantize):
-    """predict over dp = 2 (each rank fed its row) and tp = 2 (the wide
-    leaves split, the int8 mid convs on their column shards) returns on
-    every rank the records of one process on the global batch; ``sample``
-    returns the rank's rows of it."""
-    batch = _batch(2, 31)
-    out = ranks.run("_predict", shape, quantize, batch)
-    ref, ref_x0 = _predict(None, quantize, batch)
-    for r, (rec, x0) in enumerate(out):
-        for k, v in ref.items():
-            np.testing.assert_allclose(rec[k], v, rtol=1e-5, atol=1e-6, err_msg=k)
-        rows = local_rows(ref_x0, Mesh(dp=shape[0], rank=r * (shape[0] > 1)))
-        np.testing.assert_allclose(x0, rows, rtol=1e-5, atol=1e-6)
-
-
-# --------------------------------------------------------------------- #
-# checkpoints across tp sizes                                           #
-# --------------------------------------------------------------------- #
-
-
-class _Epochs:
-    """A dataset of one batch an epoch, the same every epoch."""
-
-    def __init__(self, batch):
-        self.batch = batch
-
-    def __len__(self):
-        return 1
-
-    def __iter__(self):
-        yield {k: _t(v) for k, v in self.batch.items()}
-
-
-def _train(mesh, kind, path, epochs, batch):
-    model = _family_model("unet_fused", 4)
+    model = _unet(None, None)
     tr = Trainer(model, _process(), optimizer=make_optimizer(model.parameters(), kind=kind),
                  mesh=mesh, tp_min_features=MIN)
-    tr.train(_Epochs(batch), epochs=epochs, warmup_epochs=1, learning_rate=LR,
-             checkpoint_path=path)
-    return _np(full_state_dict(model)), tr.step
+    tr._load(load_checkpoint(path, "cpu"))
+    payload = tr.checkpoint_payload(0, 0.0)
+    return None if payload is None else (
+        _np(payload["params"]), _np(payload["ema_params"]),
+        [None if v is None else v.numpy() for k in ("v_row", "v_col", "v")
+         for v in payload["opt_state"][k]], payload["step"])
 
 
-@pytest.mark.parametrize("kind", ["adamw", "factored"])
-def test_checkpoints_move_between_tp_sizes(ranks, tmp_path, kind):
-    """A run checkpointed at tp = 2 resumes at tp = 1 to the next step of an
-    uninterrupted run, and one checkpointed at tp = 1 resumes at tp = 2;
-    the file holds whole leaves and optimizer state (the one a single
-    process writes)."""
-    batch = _batch(1, 41)
-    full, steps = _train(None, kind, str(tmp_path / "whole" / "best.ckpt"), 2, batch)
-    assert steps == 2
-    a, b = str(tmp_path / "a" / "best.ckpt"), str(tmp_path / "b" / "best.ckpt")
-    ranks.run("_train", (1, 1, 2), kind, a, 1, batch)
-    ckpt = torch.load(str(tmp_path / "a" / "dquartic_latest_checkpoint.ckpt"), weights_only=True)
-    whole_shapes = {k: tuple(v.shape) for k, v in _family_model("unet_fused", 4).state_dict().items()}
-    assert {k: tuple(v.shape) for k, v in ckpt["params"].items()} == whole_shapes
-    resumed_1, _ = _train(None, kind, a, 2, batch)
-    _train(None, kind, b, 1, batch)
-    resumed_2 = ranks.run("_train", (1, 1, 2), kind, b, 2, batch)
-    for got in [resumed_1] + [r[0] for r in resumed_2]:
-        for k, v in full.items():
-            np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=2 * LR, err_msg=k)
+def test_a_jax_checkpoint_loads_onto_a_tp_mesh(ranks, tmp_path):
+    """The JAX Trainer's msgpack file after a factored step, resumed at
+    tp = 2: rank 0's checkpoint of the state it holds, gathered whole, is
+    bitwise the one-process load (parameters, EMA and the factored
+    statistics, whose split axes differ from the leaves')."""
+    from dquartic_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 
-
-# --------------------------------------------------------------------- #
-# per-process feeding                                                   #
-# --------------------------------------------------------------------- #
-
-
-def test_each_dp_rank_feeds_only_its_rows(tmp_path, monkeypatch):
-    """build_dataset on a dp = 2 mesh: each rank's batches are its rows of
-    the one-process batches (same RNG, same pairs), and it fetches those
-    rows alone; a global batch dp does not divide raises."""
-    from dquartic_tpu_torch.data import dataset as pdataset
-
-    rng = np.random.default_rng(0)
-    np.save(tmp_path / "ms2.npy", rng.uniform(0, 9, (8, RT, MZ)).astype(np.float32))
-    np.save(tmp_path / "ms1.npy", rng.uniform(0, 9, (8, RT)).astype(np.float32))
-    config = _small_config()
-    config["data"].update(ms2_data_path=str(tmp_path / "ms2.npy"),
-                          ms1_data_path=str(tmp_path / "ms1.npy"), parquet_directory=None)
-    config["model"]["batch_size"] = 4
-    ref = [{k: v.numpy() for k, v in b.items()}
-           for b in build_dataset(config, seed=3, device="cpu")]
-    fetched = []
-    real = pdataset.DIAMSDataset._fetch
-    monkeypatch.setattr(pdataset.DIAMSDataset, "_fetch",
-                        lambda self, i: fetched.append(i) or real(self, i))
-    for d in range(2):
-        fetched.clear()
-        got = list(build_dataset(config, seed=3, device="cpu", mesh=Mesh(dp=2, tp=2, rank=2 * d)))
-        assert len(got) == len(ref) == 2 and len(fetched) == 2 * 2 * 2  # 2 rows x 2 pairs
-        for g, r in zip(got, ref):
-            for k in r:
-                np.testing.assert_array_equal(g[k].numpy(), r[k][2 * d:2 * d + 2], err_msg=k)
-    config["model"]["batch_size"] = 3
-    with pytest.raises(ValueError, match="global batch rows 3 not divisible by process count 2"):
-        build_dataset(config, device="cpu", mesh=Mesh(dp=2))
+    path = str(tmp_path / "dquartic_latest_checkpoint.ckpt")
+    jax_save_checkpoint(path, {"epoch": np.int64(0), "best_loss": np.float64(1.0),
+                               "state": _jax_step("factored")["state"]})
+    ref = _load_jax(None, path, "factored")
+    got = ranks.run("_load_jax", (1, 1, 2), path, "factored")
+    assert got[1] is None and got[0][3] == ref[3] == 1
+    for part in range(2):
+        for k, v in ref[part].items():
+            np.testing.assert_array_equal(got[0][part][k], v, err_msg=k)
+    for a, b in zip(got[0][2], ref[2]):
+        assert (a is None) == (b is None)
+        if b is not None:
+            np.testing.assert_array_equal(a, b)
