@@ -3039,16 +3039,23 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         trainer._denoise.register_comm_hook(mesh.dp_group, count_buckets)
         loss, counts, colls, grads = step_grads(trainer, local_rows(gbatch, mesh), t, eps)
         check(counts == _expect(STEP_LAUNCHES, cfg=cfg), f"dp train launches {counts}")
-        buckets = len(reduced)
-        colls["all_reduce"] -= buckets  # the hook's all_reduces are the buckets
-        check(sum(reduced) == sum(p.numel() for p in trainer.optimizer.params),
-              f"DDP reduced {sum(reduced)} gradient values")
+        # the first step reduces every gradient in one all_reduce; DDP then
+        # rebuilds its buckets in the order the backward makes them
+        first = len(reduced)
+        colls["all_reduce"] -= first  # the hook's all_reduces are the buckets
+        n_grads = sum(p.numel() for p in trainer.optimizer.params)
+        check(sum(reduced) == n_grads, f"DDP reduced {sum(reduced)} gradient values")
+        reduced.clear()
         ms = timed(trainer, local_rows(gbatch, mesh), g)
+        buckets = len(reduced) // 2
+        check(sum(reduced) == 2 * n_grads, f"DDP reduced {sum(reduced)} values in two steps")
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[f"dp_train_{dtype}"] = dict(launches=counts, collectives=colls, ddp_buckets=buckets,
-                                        ms_per_step=ms, peak_gib=peak)
+                                        ddp_buckets_first_step=first, ms_per_step=ms,
+                                        peak_gib=peak)
         _rank_log(rank, f"dp={DPTP} train_step {dtype}: loss {loss:.6f}, launches {counts}; "
-                  f"collectives a step: {buckets} DDP bucket all_reduces + {colls}; "
+                  f"collectives a step: {buckets} DDP bucket all_reduces ({first} in the first "
+                  f"step) + {colls}; "
                   f"ms/step {ms:.2f} ({DPTP} ranks sharing one card: no dp speed), peak "
                   f"{peak:.2f} GiB")
         del trainer

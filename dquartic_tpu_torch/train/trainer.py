@@ -173,10 +173,11 @@ class Trainer:
         eps: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """One optimizer step on a pair batch (``ms2_1``, ``ms1_1``,
-        ``ms2_2``). The timesteps and noise are the injected ``t`` (b,)
-        and ``eps`` (N(0, 1) like ``ms2_1``), or are drawn from
-        ``generator``. Returns device scalars ``loss`` and ``grad_norm``
-        (before clipping)."""
+        ``ms2_2``; under dp, the rank's rows). The timesteps and noise are
+        the injected ``t`` (B,) and ``eps`` (N(0, 1), B rows like
+        ``ms2_1``), or are drawn from ``generator``; B is the global batch,
+        the rank's rows times dp. Returns device scalars ``loss`` and
+        ``grad_norm`` (before clipping), both global."""
         b = self._device_batch(batch)
         w0, w1 = self.mixture_weights
         ms2_cond = w0 * b["ms2_1"] + w1 * b["ms2_2"]

@@ -7,7 +7,7 @@ feeding) are in tests/test_torch_parallel_paths.py, the launcher in
 tests/test_torch_parallel_cli.py.
 
 The ranks are processes of one gloo group on the CPU (one pool of eight for
-the module; a mesh of n ranks runs on ranks 0 .. n-1), where the port's
+the module, the largest mesh's; a mesh of n ranks runs on ranks 0 .. n-1), where the port's
 kernel wrappers run their plain versions and the collectives are real.
 Inputs and weights are made with numpy from a seed in this process, which
 also runs the JAX side on one device (JAX's own tests hold its meshes equal
@@ -45,7 +45,6 @@ from dquartic_tpu_torch.train import Trainer, make_optimizer
 from dquartic_tpu_torch.utils.builder import build_model
 from dquartic_tpu_torch.utils.config import load_train_config
 
-WORLD = 8
 MESHES = [(2, 1, 1), (1, 1, 2), (2, 1, 2), (2, 2, 1), (2, 2, 2)]
 RT, MZ = 4, 32
 # the JAX rule at test widths: the tiny model's widest axes are 16 to 384;
@@ -65,14 +64,14 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 # --------------------------------------------------------------------- #
 
 
-def _rank_main(rank, init_method, inq, outq, module):
+def _rank_main(rank, init_method, inq, outq, module, world, shapes):
     import importlib
 
     torch.set_num_threads(1)
     funcs = vars(importlib.import_module(module))
-    initialize_runtime("gloo", rank, WORLD, init_method, timeout_s=120)
+    initialize_runtime("gloo", rank, world, init_method, timeout_s=120)
     # every process makes every mesh's groups, in one order
-    meshes = {s: make_mesh(*s, ranks=range(int(np.prod(s)))) for s in MESHES}
+    meshes = {s: make_mesh(*s, ranks=range(int(np.prod(s)))) for s in shapes}
     while True:
         task = inq.get()
         if task is None:
@@ -87,21 +86,23 @@ def _rank_main(rank, init_method, inq, outq, module):
 
 
 class _Ranks:
-    """WORLD processes in one gloo group; ``run(name, shape, *args)`` calls
-    ``module.name(mesh, *args)`` on the ranks of the (dp, sp, tp) mesh
-    ``shape`` and returns their results in mesh-rank order."""
+    """Processes in one gloo group, as many as the largest of the (dp, sp,
+    tp) mesh ``shapes``; ``run(name, shape, *args)`` calls
+    ``module.name(mesh, *args)`` on the ranks of the mesh ``shape`` and
+    returns their results in mesh-rank order."""
 
-    def __init__(self, module):
+    def __init__(self, module, shapes=MESHES):
+        self.world = world = max(int(np.prod(s)) for s in shapes)
         ctx = mp.get_context("spawn")
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        self.inqs = [ctx.Queue() for _ in range(WORLD)]
+        self.inqs = [ctx.Queue() for _ in range(world)]
         self.outq = ctx.Queue()
         self.procs = [ctx.Process(target=_rank_main, daemon=True,
                                   args=(r, f"tcp://127.0.0.1:{port}", self.inqs[r], self.outq,
-                                        module))
-                      for r in range(WORLD)]
+                                        module, world, shapes))
+                      for r in range(world)]
         for p in self.procs:
             p.start()
 
@@ -109,7 +110,7 @@ class _Ranks:
         for q in self.inqs:
             q.put((name, shape, args))
         got, failed = {}, []
-        for _ in range(WORLD):  # every answer, so that none is left for the next task
+        for _ in range(self.world):  # every answer, so that none is left for the next task
             try:
                 rank, ok, res = self.outq.get(timeout=300)
             except queue.Empty:

@@ -2,8 +2,9 @@
 through DDP and tp, the sampler (float and int8), checkpoints moved across
 tp sizes through the training loop, and per-process feeding, each against
 one process. The ranks, helpers and tolerances are those of
-tests/test_torch_parallel.py (a pool of its own here, eight gloo ranks on
-the CPU; the rank processes import no JAX)."""
+tests/test_torch_parallel.py (a pool of its own here, four gloo ranks on
+the CPU; the rank processes import no JAX), and build_trainer on each
+mesh of up to four ranks."""
 
 import numpy as np
 import pytest
@@ -14,15 +15,19 @@ from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.models.transformer import CustomTransformer
 from dquartic_tpu_torch.parallel import Mesh, full_state_dict, local_rows
 from dquartic_tpu_torch.train import Trainer, make_optimizer
-from dquartic_tpu_torch.utils.builder import build_dataset, build_model, init_weights
+from dquartic_tpu_torch.utils.builder import build_dataset, build_model, build_trainer, init_weights
 from test_torch_parallel import (
     CT, LR, MIN, MZ, RT, TINY, _batch, _np, _process, _Ranks, _small_config, _t,
 )
 
 
+# the meshes of this module's ranks (at most four)
+BUILT = [(2, 1, 1), (1, 1, 2), (2, 1, 2), (2, 2, 1)]
+
+
 @pytest.fixture(scope="module")
 def ranks():
-    pool = _Ranks(__name__)
+    pool = _Ranks(__name__, BUILT)
     yield pool
     pool.close()
 
@@ -82,6 +87,32 @@ def test_every_family_takes_two_steps_on_dp_and_tp(ranks, family):
         np.testing.assert_allclose(metrics, ref, rtol=1e-5)
         for k, v in ref_sd.items():
             np.testing.assert_allclose(sd[k], v, rtol=1e-5, atol=2 * FAMILY_LR, err_msg=k)
+
+
+def _built_step(mesh, batch):
+    config = _small_config()
+    if mesh is not None:
+        config["tpu"]["mesh"] = mesh.shape
+    tr = build_trainer(config, device="cpu", seed=5, mesh=mesh)
+    m = tr.train_step(local_rows({k: _t(v) for k, v in batch.items()}, mesh), LR,
+                      generator=torch.Generator().manual_seed(3))
+    return float(m["loss"]), float(m["grad_norm"]), tr.model.kernel_dp_axis, \
+        tr.model.activation_sharding
+
+
+@pytest.mark.parametrize("shape", BUILT)
+def test_build_trainer_takes_every_mesh(ranks, shape):
+    """build_trainer on each mesh (the builder's flags: kernel_dp_axis on a
+    dp mesh without sp, activation_sharding with sp) takes the
+    one-process step's loss and gradient norm from the same seed and
+    generator."""
+    batch = _batch(2, 51)
+    ref = _built_step(None, batch)
+    dp, sp, _ = shape
+    for loss, norm, dp_axis, sharding in ranks.run("_built_step", shape, batch):
+        np.testing.assert_allclose((loss, norm), ref[:2], rtol=1e-5)
+        assert dp_axis == ("dp" if dp > 1 and sp == 1 else None)
+        assert sharding == (("dp", "sp") if sp > 1 else None)
 
 
 # --------------------------------------------------------------------- #
