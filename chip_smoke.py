@@ -2962,8 +2962,9 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         setattr(dist, fn, counted)
 
     def step_grads(trainer, batch, t, eps):
-        """One train_step; its loss, launches, collectives and (on rank 0)
-        every gradient whole on the host, gathered over tp."""
+        """One train_step; its loss and gradient norm (before clipping),
+        launches, collectives and (on rank 0) every gradient whole on the
+        host, gathered over tp (clipped: the norm holds their scale)."""
         calls.update(all_reduce=0, all_gather=0)
         reset_launch_counts()
         m = trainer.train_step(batch, 1e-4, t=t, eps=eps)
@@ -2977,7 +2978,7 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
                 spec, dim = specs[n]
                 gr = gather(gr, spec.group, dim)
             grads.append(gr.float().cpu() if lead else None)
-        return float(m["loss"]), counts, colls, grads
+        return (float(m["loss"]), float(m["grad_norm"])), counts, colls, grads
 
     def timed(trainer, batch, gen, n=2):
         runs = []
@@ -2990,11 +2991,14 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
             runs.append(start.elapsed_time(end))
         return sorted(runs)[len(runs) // 2]
 
-    def hold(what, loss, grads, ref_cfg, batch, t, eps, dtype):
+    def hold(what, metrics, grads, ref_cfg, batch, t, eps, dtype):
         """On rank 0: the one-process step of ``ref_cfg`` on the global
-        batch, its loss and gradients against the mesh's (phase 6 gates)."""
+        batch, its loss, gradient norm and gradients against the mesh's
+        (phase 6 gates; the norm, taken before clipping, at the loss's)."""
+        loss, norm = metrics
         ref_tr = build_trainer(ref_cfg, device=dev, seed=seed)
-        ref_loss = float(ref_tr.train_step(batch, 1e-4, t=t, eps=eps)["loss"])
+        ref_m = ref_tr.train_step(batch, 1e-4, t=t, eps=eps)
+        ref_loss, ref_norm = float(ref_m["loss"]), float(ref_m["grad_norm"])
         ref_g = [p.grad.float().cpu() for p in ref_tr.optimizer.params]
         del ref_tr
         rel = _rel_l2(grads, ref_g)
@@ -3006,13 +3010,17 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         worst = min(_cos(a, b) for a, b in zip(grads, ref_g) if float(b.norm()) > 1e-6 * top)
         rel_tol, cos_tol = STEP_GRAD_TOL[dtype]
         _rank_log(rank, f"{what} {dtype} vs one process: loss {loss:.6f} vs {ref_loss:.6f}; "
+                  f"gradient norm {norm:.6f} vs {ref_norm:.6f}; "
                   f"gradient rel L2 {rel:.3e} (tol {rel_tol:g}), worst per-tensor cosine "
                   f"{worst:.6f} (tol {cos_tol:g})")
         check(abs(loss - ref_loss) <= MODEL_REL_TOL[dtype] * abs(ref_loss),
               f"{what} {dtype}: loss disagrees with one process")
+        check(abs(norm - ref_norm) <= MODEL_REL_TOL[dtype] * abs(ref_norm),
+              f"{what} {dtype}: gradient norm disagrees with one process")
         check(rel <= rel_tol and worst >= cos_tol,
               f"{what} {dtype}: gradients disagree with one process")
-        return dict(loss=loss, ref_loss=ref_loss, grad_rel_l2=rel, worst_cos=worst)
+        return dict(loss=loss, ref_loss=ref_loss, grad_norm=norm, ref_grad_norm=ref_norm,
+                    grad_rel_l2=rel, worst_cos=worst)
 
     # (a) dp = DPTP: one train step on a global batch of DPTP windows, each
     # rank its row, against one process on the whole batch
@@ -3037,7 +3045,7 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
             return default_hooks.allreduce_hook(state, bucket)
 
         trainer._denoise.register_comm_hook(mesh.dp_group, count_buckets)
-        loss, counts, colls, grads = step_grads(trainer, local_rows(gbatch, mesh), t, eps)
+        metrics, counts, colls, grads = step_grads(trainer, local_rows(gbatch, mesh), t, eps)
         check(counts == _expect(STEP_LAUNCHES, cfg=cfg), f"dp train launches {counts}")
         # the first step reduces every gradient in one all_reduce; DDP then
         # rebuilds its buckets in the order the backward makes them
@@ -3053,7 +3061,8 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         out[f"dp_train_{dtype}"] = dict(launches=counts, collectives=colls, ddp_buckets=buckets,
                                         ddp_buckets_first_step=first, ms_per_step=ms,
                                         peak_gib=peak)
-        _rank_log(rank, f"dp={DPTP} train_step {dtype}: loss {loss:.6f}, launches {counts}; "
+        _rank_log(rank, f"dp={DPTP} train_step {dtype}: loss {metrics[0]:.6f}, launches "
+                  f"{counts}; "
                   f"collectives a step: {buckets} DDP bucket all_reduces ({first} in the first "
                   f"step) + {colls}; "
                   f"ms/step {ms:.2f} ({DPTP} ranks sharing one card: no dp speed), peak "
@@ -3061,7 +3070,7 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         del trainer
         free()
         if lead:
-            out[f"dp_train_{dtype}"].update(hold(f"dp={DPTP} train_step", loss, grads,
+            out[f"dp_train_{dtype}"].update(hold(f"dp={DPTP} train_step", metrics, grads,
                                                  _dptp_config(base, batch=DPTP), gbatch, t,
                                                  eps, dtype))
         del grads
@@ -3152,13 +3161,13 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
     torch.cuda.reset_peak_memory_stats()
     trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
     held = sum(p.numel() for p in trainer.optimizer.params)
-    loss, counts, colls, grads = step_grads(trainer, tbatch, t, eps)
+    metrics, counts, colls, grads = step_grads(trainer, tbatch, t, eps)
     check(counts == _expect(STEP_LAUNCHES, cfg=cfg), f"tp train launches {counts}")
     ms = timed(trainer, tbatch, g)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out["tp_train"] = dict(launches=counts, collectives=colls, param_bytes=4 * held,
                            ms_per_step=ms, peak_gib=peak)
-    _rank_log(rank, f"tp={DPTP} train_step bf16: loss {loss:.6f}, launches {counts}, "
+    _rank_log(rank, f"tp={DPTP} train_step bf16: loss {metrics[0]:.6f}, launches {counts}, "
               f"collectives {colls}; float32 parameters a rank {4 * held / 1e9:.3f} GB; "
               f"ms/step {ms:.2f} ({DPTP} ranks sharing one card: no tp speed), peak "
               f"{peak:.2f} GiB")
@@ -3167,7 +3176,7 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
     if lead:
         whole = sum(g.numel() for g in grads)
         out["tp_train"].update(whole_param_bytes=4 * whole, **hold(
-            f"tp={DPTP} train_step", loss, grads,
+            f"tp={DPTP} train_step", metrics, grads,
             _dptp_config(_train_config(config, compute_dtype="bfloat16")), tbatch, t, eps,
             "bfloat16"))
         share = held / whole
@@ -3190,15 +3199,15 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
         base = _ct_config(config, compute_dtype="float32")
         cfg = _dptp_config(base, batch=rows, **{axis: DPTP})
         trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
-        loss, counts, colls, grads = step_grads(trainer, local_rows(cbatch, mesh), t, eps)
+        metrics, counts, colls, grads = step_grads(trainer, local_rows(cbatch, mesh), t, eps)
         held = sum(p.numel() for p in trainer.optimizer.params)
         out[f"ct_{axis}"] = dict(collectives=colls, params_held=held)
         del trainer
         free()
         if lead:
-            out[f"ct_{axis}"].update(hold(f"CustomTransformer {axis}={DPTP} train_step", loss,
-                                          grads, _dptp_config(base, batch=rows), cbatch, t, eps,
-                                          "float32"))
+            out[f"ct_{axis}"].update(hold(f"CustomTransformer {axis}={DPTP} train_step",
+                                          metrics, grads, _dptp_config(base, batch=rows), cbatch,
+                                          t, eps, "float32"))
         del grads
         free()
 

@@ -16,10 +16,9 @@ On a ``mesh`` every rank calls the same methods with the same seed:
   replicas, so its records are those of one process on the global batch;
 * ``sp``: each rank computes its slice of m/z and the model returns the
   whole prediction (``activation_sharding``);
-* ``tp``: the model's wide leaves are split over the ``tp`` group
-  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`, at JAX's
-  default width where ``build_model`` has not split them), and the model
-  returns the whole prediction on every rank.
+* ``tp``: the model's wide leaves are split over the ``tp`` group, as
+  ``build_model(mesh=...)`` splits them (an unsplit model raises), and
+  the model returns the whole prediction on every rank.
 
 The DDIM steps are per element, so every rank of a replica gets the
 unsharded result for that seed.
@@ -34,7 +33,7 @@ import torch
 
 from ..core.diffusion import DDIMProcess
 from ..parallel.distributed import row_range
-from ..parallel.tensor import gather, shard_model
+from ..parallel.tensor import gather
 from ..utils.device import resolve_device
 
 
@@ -49,7 +48,10 @@ class DDIMSampler:
                     f"a mesh with sp={mesh.sp} needs a model whose activation_sharding splits "
                     "m/z over it (build_model sets it from the mesh)")
             model.mesh = mesh
-        shard_model(model, mesh)  # unless build_model split it already
+        if mesh is not None and mesh.tp > 1 and getattr(model, "tp_min_features", None) is None:
+            raise ValueError(
+                f"a mesh with tp={mesh.tp} needs a model whose wide leaves are split over it "
+                "(build_model splits them from the mesh)")
 
     @property
     def _dp(self) -> int:

@@ -55,14 +55,13 @@ def _launcher_hint(n: int) -> str:
             "-m dquartic_tpu_torch.cli ...`, or call initialize_runtime in each")
 
 
-def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, group: Optional[Any] = None,
+def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1,
               ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """A (dp, sp, tp) mesh over the global ``ranks`` (default: every process
     of the running group), whose number is ``dp·sp·tp``. Every process of
     the running group must call it alike, members or not, since each axis
     group is made with ``torch.distributed.new_group``; a process outside
-    ``ranks`` gets None. ``group``, for a mesh of ``sp`` alone, is a running
-    group of ``sp`` ranks to use as the ``sp`` axis."""
+    ``ranks`` gets None."""
     if min(dp, sp, tp) < 1:
         raise ValueError(f"mesh axes must be >= 1 (got dp={dp}, sp={sp}, tp={tp})")
     n = dp * sp * tp
@@ -72,13 +71,6 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, group: Optional[Any] = None
         raise ValueError(
             f"a mesh of dp={dp}, sp={sp}, tp={tp} needs a running torch.distributed process "
             f"group of {n} ranks in every process: {_launcher_hint(n)}")
-    if group is not None:
-        if dp != 1 or tp != 1:
-            raise ValueError("make_mesh(group=...) names the sp axis of a mesh of sp alone")
-        size = dist.get_world_size(group)
-        if size != sp:
-            raise ValueError(f"the sp axis needs a group of {sp} ranks; this one holds {size}")
-        return Mesh(sp=sp, sp_group=group, rank=dist.get_rank(group))
     ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
     if len(ranks) != n:
         raise ValueError(f"dp*sp*tp = {dp}*{sp}*{tp} = {n} does not match the {len(ranks)} "

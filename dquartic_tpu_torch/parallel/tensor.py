@@ -31,8 +31,9 @@ group (Megatron's column-parallel input). Replicated parameters then get
 identical gradients with no reduction over tp, and a sharded one its
 shard's.
 
-bf16 tensors travel as float32 (exact), since gloo's CUDA collectives
-cover float32; sums of bf16 partials are then rounded once.
+A gather moves bf16 tensors as they are, except over gloo, whose CUDA
+collectives lack bf16: there they travel as float32 (exact). A sum of bf16
+partials is taken in float32 on every backend, so it is rounded once.
 """
 
 from __future__ import annotations
@@ -83,15 +84,18 @@ class TPSpec:
 # --------------------------------------------------------------------- #
 
 
-def _wire(x: torch.Tensor) -> torch.Tensor:
-    return x.float() if x.dtype == torch.bfloat16 else x.contiguous()
+def _wire(x: torch.Tensor, group) -> torch.Tensor:
+    # gloo's CUDA collectives lack bf16; widening to float32 is exact
+    if x.dtype == torch.bfloat16 and dist.get_backend(group) == "gloo":
+        return x.float()
+    return x.contiguous()
 
 
 def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' tensors concatenated along ``dim`` in rank order (no
     autograd)."""
     size = dist.get_world_size(group)
-    w = _wire(x)
+    w = _wire(x, group)
     parts = [torch.empty_like(w) for _ in range(size)]
     dist.all_gather(parts, w, group=group)
     return torch.cat(parts, dim=dim).to(x.dtype)
@@ -246,10 +250,12 @@ def shard_model(model: nn.Module, mesh, min_tp_features: int = MIN_TP_FEATURES) 
     """Split the JAX rule's leaves of ``model`` over ``mesh``'s tp group in
     place: each keeps its rank's shard (on the meta device too, before the
     model is materialized), and each module that holds one gets a
-    :class:`TPSpec` as ``module.tp``. A model already split is left as it
-    is."""
-    if mesh is None or mesh.tp == 1 or getattr(model, "tp_min_features", None) is not None:
+    :class:`TPSpec` as ``module.tp``, and the model its
+    ``tp_min_features``. A model split already raises."""
+    if mesh is None or mesh.tp == 1:
         return model
+    if getattr(model, "tp_min_features", None) is not None:
+        raise ValueError("the model's wide leaves are split over tp already")
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
     plan = tp_plan(shapes, mesh.tp, min_tp_features)
     by_module: Dict[str, Dict[str, int]] = {}

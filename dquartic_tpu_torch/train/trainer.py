@@ -30,10 +30,12 @@ On a ``mesh`` (one process per rank, every rank running the same loop):
   its slice of m/z and the loss on the whole prediction, each rank's
   backward leaves its partial gradients, and the step sums them over the
   group before clipping.
-* ``tp``: the wide leaves are split over the ``tp`` group
-  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`, at
-  ``tp_min_features``); each rank keeps its shards, their gradients,
-  optimizer state and EMA; the clipping norm is the global one.
+* ``tp``: the wide leaves are split over the ``tp`` group at
+  ``tp_min_features``, by ``build_model(mesh=...)`` or, for a model given
+  whole, by the Trainer
+  (:func:`~dquartic_tpu_torch.parallel.tensor.shard_model`); each rank
+  keeps its shards, their gradients, optimizer state and EMA; the
+  clipping norm is the global one.
 
 The loss and the gradient norm in the metrics are the global ones; the
 EMA is alike on every replica. Only mesh rank 0 writes checkpoints, the
@@ -91,7 +93,12 @@ class Trainer:
                     "m/z over it (build_trainer sets it from tpu.mesh)")
             model.mesh = mesh
             self.sp_group = mesh.sp_group
-        shard_model(model, mesh, tp_min_features)
+        split_at = getattr(model, "tp_min_features", None)
+        if split_at is None:
+            shard_model(model, mesh, tp_min_features)
+        elif split_at != tp_min_features:
+            raise ValueError(f"the model's wide leaves are split at min_tp_features {split_at}, "
+                             f"not the Trainer's {tp_min_features}")
         self.process = process
         self.optimizer = optimizer if optimizer is not None else make_optimizer(model.parameters())
         self.ema_decay = ema_decay

@@ -36,6 +36,7 @@ import torch.distributed as dist
 import dquartic_tpu_torch.parallel.tensor as ptensor
 import dquartic_tpu_torch.train.optim as poptim
 from dquartic_tpu_torch.core import DDIMProcess, make_schedule
+from dquartic_tpu_torch.infer import DDIMSampler
 from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.models.transformer import CustomTransformer
 from dquartic_tpu_torch.parallel import (
@@ -295,42 +296,84 @@ def test_tp_init_gathers_to_the_one_process_model():
             assert torch.equal(v, want), name
 
 
+def test_the_split_has_one_owner():
+    """build_model (or the Trainer, for a model given whole) splits the
+    wide leaves: the sampler refuses an unsplit model on a tp mesh, the
+    Trainer one split at another width, and a model is split once."""
+    mesh = Mesh(tp=2, rank=0)
+    with pytest.raises(ValueError, match="split over it"):
+        DDIMSampler(UNet1d(**TINY), _process(), mesh=mesh)
+    model = shard_model(UNet1d(**TINY), mesh, MIN)
+    DDIMSampler(model, _process(), mesh=mesh)
+    with pytest.raises(ValueError, match="split at min_tp_features 16, not the Trainer's 2048"):
+        Trainer(model, _process(), mesh=mesh)
+    with pytest.raises(ValueError, match="split over tp already"):
+        shard_model(model, mesh, MIN)
+
+
 # --------------------------------------------------------------------- #
 # one Trainer step against JAX                                          #
 # --------------------------------------------------------------------- #
 
 
-@contextlib.contextmanager
-def _fault(kind):
-    """A fault of the trouble list, patched in for the negative tests."""
-    if kind is None:
-        yield
-        return
-    if kind == "gather_sums":
-        real = ptensor._Gather.backward
+def _gather_sums(real):
+    def backward(ctx, g):  # sums the cotangent over the ranks, then slices
+        return real(ctx, ptensor._sum(g, ctx.group))
 
-        def backward(ctx, g):  # sums the cotangent over the ranks, then slices
-            return real(ctx, ptensor._sum(g, ctx.group))
+    return staticmethod(backward)
 
-        ptensor._Gather.backward = staticmethod(backward)
-        try:
-            yield
-        finally:
-            ptensor._Gather.backward = staticmethod(real)
-        return
-    real = poptim.global_norm
 
-    def every_rank(tensors, split=None, group=None):  # counts replicated leaves tp times
+def _norm_every_rank(real):
+    def global_norm(tensors, split=None, group=None):  # counts replicated leaves tp times
         sq = torch.stack(torch._foreach_norm([t.float() for t in tensors])).square().sum()
         if group is not None:
             dist.all_reduce(sq, group=group)
         return sq.sqrt()
 
-    poptim.global_norm = every_rank
+    return global_norm
+
+
+def _local_mean(real):
+    def _mean(self, t, over_split):  # the tp all_reduce removed
+        return t.div_(dist.get_world_size(self.tp_group)) if over_split else t
+
+    return _mean
+
+
+def _split_not_updated(real):
+    def step(self, lr):  # the split leaves keep their values
+        split = [p for p, d in zip(self.params, self._dims()) if d is not None]
+        kept = [p.detach().clone() for p in split]
+        norm = real(self, lr)
+        with torch.no_grad():
+            torch._foreach_copy_(split, kept)
+        return norm
+
+    return step
+
+
+# the faults patched in for the negative tests: (owner, attribute, patch)
+FAULTS = {
+    "gather_sums": [(ptensor._Gather, "backward", _gather_sums)],
+    "norm_every_rank": [(poptim, "global_norm", _norm_every_rank)],
+    "factored_local_mean": [(poptim.ClippedFactoredRMS, "_mean", _local_mean)],
+    "split_not_updated": [(poptim.ClippedAdamW, "step", _split_not_updated),
+                          (poptim.ClippedFactoredRMS, "step", _split_not_updated)],
+}
+
+
+@contextlib.contextmanager
+def _fault(kind):
+    """A fault patched in for the negative tests (None: none)."""
+    patches = FAULTS.get(kind, [])
+    real = [owner.__dict__[name] for owner, name, _ in patches]
+    for (owner, name, patch), r in zip(patches, real):
+        setattr(owner, name, patch(r.__func__ if isinstance(r, staticmethod) else r))
     try:
         yield
     finally:
-        poptim.global_norm = real
+        for (owner, name, _), r in zip(patches, real):
+            setattr(owner, name, r)
 
 
 def _step(mesh, sd, batch, t, eps, kind, fault=None):
@@ -347,7 +390,31 @@ def _step(mesh, sd, batch, t, eps, kind, fault=None):
     return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                 params=_np(full_state_dict(model)), shapes=shapes,
                 moments=sum(v.numel() for v in moments),
+                opt=_named_state(tr, kind), grads=_whole_grads(model),
                 ema=None if payload is None else _np(payload["ema_params"]))
+
+
+def _whole_grads(model):
+    """The clipped gradient the optimizer took, gathered whole, by name."""
+    specs = ptensor.leaf_specs(model)
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad
+        if n in specs:
+            g = ptensor.gather(g, specs[n][0].group, specs[n][1])
+        out[n] = g.numpy()
+    return out
+
+
+def _named_state(tr, kind):
+    """The optimizer's state gathered whole, keyed as the JAX state maps
+    onto the port (``jax_checkpoint_to_port``): {moment: {name: array}}."""
+    sd = tr.optimizer.state_dict(whole="cpu")
+    if kind == "adamw":
+        return {k: {n: sd["state"][i][k].numpy() for i, n in enumerate(tr.param_names)}
+                for k in ("exp_avg", "exp_avg_sq")}
+    return {k: {n: None if v is None else v.numpy() for n, v in zip(tr.param_names, sd[k])}
+            for k in ("v_row", "v_col", "v")}
 
 
 _JAX_STEPS = {}
@@ -358,6 +425,7 @@ def _jax_step(kind):
     draws and the state after it (computed once per optimizer)."""
     if kind in _JAX_STEPS:
         return _JAX_STEPS[kind]
+    import flax
     import jax
     import jax.numpy as jnp
 
@@ -366,7 +434,7 @@ def _jax_step(kind):
     from dquartic_tpu.models import UNet1d as JaxUNet1d
     from dquartic_tpu.train import Trainer as JaxTrainer
     from dquartic_tpu.train.optim import make_optimizer as jax_make_optimizer
-    from dquartic_tpu_torch.compat.jax_params import jax_params_to_torch
+    from dquartic_tpu_torch.compat.jax_params import _opt_state_to_port, jax_params_to_torch
     from test_torch_model import random_params
     from test_torch_trainer import _flat, _jax_draws
 
@@ -379,15 +447,35 @@ def _jax_step(kind):
     t, eps = _jax_draws(key, 2, batch["ms2_1"].shape)
     state, m = jtr.train_step(jtr._fresh_state(params),
                               {k: jnp.asarray(v) for k, v in batch.items()}, jnp.float32(LR), key)
+    opt = _opt_state_to_port(flax.serialization.to_state_dict(state.opt_state), state.params)
     _JAX_STEPS[kind] = dict(
         state=state, sd=jax_params_to_torch(params), batch=batch, t=np.asarray(t),
         eps=np.asarray(eps),
         loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-        params=_flat(state.params), ema=_flat(state.ema_params))
+        params=_flat(state.params), ema=_flat(state.ema_params),
+        opt={k: {n: None if a is None else np.asarray(a) for n, a in v.items()}
+             for k, v in opt.items() if k not in ("kind", "count")})
     return _JAX_STEPS[kind]
 
 
+def _scaled(got, want, tol, what, slack=0.0):
+    """|got - want| within ``tol`` of the leaf's largest magnitude, plus
+    ``slack`` (elementwise)."""
+    err = np.abs(np.asarray(got, np.float64) - want) - slack
+    err = np.max(err) / max(np.max(np.abs(want)), 1e-30)
+    assert err <= tol, f"{what}: {err:.3g} of the leaf's largest magnitude"
+
+
+def _rounding(p1):
+    """What the float32 roundings of the two steps' parameter arithmetic
+    (two each at most: the decay's product and the update's sum) move the
+    difference of their (p1 - p0)/lr."""
+    return 4 * np.spacing(np.abs(p1).astype(np.float32)).astype(np.float64) / LR
+
+
 def _check_step(out, ref, shape):
+    """Loss, norm, parameters and EMA at the tolerances of the module
+    docstring, then the optimizer (:func:`_check_optimizer`)."""
     from dquartic_tpu_torch.compat.jax_params import torch_to_jax_params
     from test_torch_trainer import _flat
 
@@ -397,9 +485,37 @@ def _check_step(out, ref, shape):
         got = _flat(torch_to_jax_params(o["params"]))
         for k, v in ref["params"].items():
             np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=2 * LR, err_msg=f"rank {r} {k}")
+        _check_optimizer(o, ref, r)
     ema = _flat(torch_to_jax_params(out[0]["ema"]))
     for k, v in ref["ema"].items():
         np.testing.assert_allclose(ema[k], v, rtol=1e-5, atol=2 * LR * 1e-3, err_msg=k)
+
+
+def _check_optimizer(o, ref, r):
+    """What atol 2·lr on the parameters cannot see (a first update is
+    about lr·O(1)), each within 1e-4 of its leaf's largest magnitude. The
+    state, gathered whole, against JAX's: Adam's moments, the factored row,
+    column and full statistics (the port's gradients hold JAX's to about
+    3.1e-5 of that on these meshes, their squares to 4.7e-5). The update
+    (p1 - p0)/lr against
+    the one a one-process optimizer takes from the whole clipped gradients:
+    against JAX's it is about sign(g) on every leaf Adam or the factored
+    optimizer does not factor, which the summation order flips where g is
+    near 0."""
+    for mk, want in ref["opt"].items():
+        for n, v in want.items():
+            assert (o["opt"][mk][n] is None) == (v is None), (mk, n)
+            if v is not None:
+                _scaled(o["opt"][mk][n], v, 1e-4, f"rank {r} {mk} {n}")
+    names = list(o["grads"])
+    params = [torch.nn.Parameter(_t(ref["sd"][n]).clone()) for n in names]
+    for p, n in zip(params, names):
+        p.grad = _t(o["grads"][n])
+    make_optimizer(params, kind="factored" if "v" in ref["opt"] else "adamw").step(LR)
+    for p, n in zip(params, names):
+        p0 = ref["sd"][n].astype(np.float64)
+        _scaled((o["params"][n] - p0) / LR, (p.detach().numpy() - p0) / LR, 1e-4,
+                f"rank {r} update {n}", _rounding(o["params"][n]))
 
 
 @pytest.mark.parametrize("kind", ["adamw", "factored"])
@@ -436,6 +552,24 @@ def test_the_step_checks_catch_double_counting(ranks, fault):
                     fault)
     with pytest.raises(AssertionError):
         _check_step(out, ref, (1, 1, 2))
+
+
+@pytest.mark.parametrize("fault,kind", [("factored_local_mean", "factored"),
+                                        ("split_not_updated", "adamw"),
+                                        ("split_not_updated", "factored")])
+def test_the_step_checks_catch_optimizer_faults(ranks, fault, kind):
+    """The optimizer's tp faults make the step check fail, and its check
+    of the optimizer's state and update fails on its own: the factored
+    means over a split axis taken on the shard (their tp all_reduce
+    removed), and a step that leaves the split leaves as they were (Adam's
+    parameters then stay within atol 2·lr)."""
+    ref = _jax_step(kind)
+    out = ranks.run("_step", (1, 1, 2), ref["sd"], ref["batch"], ref["t"], ref["eps"], kind,
+                    fault)
+    with pytest.raises(AssertionError):
+        _check_step(out, ref, (1, 1, 2))
+    with pytest.raises(AssertionError, match="of the leaf's largest magnitude"):
+        _check_optimizer(out[0], ref, 0)
 
 
 def _load_jax(mesh, path, kind):

@@ -6,6 +6,8 @@ tests/test_torch_parallel.py (a pool of its own here, four gloo ranks on
 the CPU; the rank processes import no JAX), and build_trainer on each
 mesh of up to four ranks."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from dquartic_tpu_torch.parallel import Mesh, full_state_dict, local_rows
 from dquartic_tpu_torch.train import Trainer, make_optimizer
 from dquartic_tpu_torch.utils.builder import build_dataset, build_model, build_trainer, init_weights
 from test_torch_parallel import (
-    CT, LR, MIN, MZ, RT, TINY, _batch, _np, _process, _Ranks, _small_config, _t,
+    CT, LR, MIN, MZ, RT, TINY, _batch, _np, _process, _Ranks, _scaled, _small_config, _t,
 )
 
 
@@ -71,7 +73,7 @@ def _two_steps(mesh, family, batches):
         m = tr.train_step(local_rows({k: _t(v) for k, v in b.items()}, mesh), FAMILY_LR,
                           generator=gen)
         out.append((float(m["loss"]), float(m["grad_norm"])))
-    return out, _np(full_state_dict(model))
+    return out, _np(full_state_dict(model)), _opt_flat(tr.optimizer.state_dict(whole="cpu"))
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
@@ -79,14 +81,16 @@ def test_every_family_takes_two_steps_on_dp_and_tp(ranks, family):
     """Two steps at (dp, tp) = (2, 2), the draws from one seeded generator,
     against one process: DDP's reducer sees a gradient for every parameter
     (a parameter without one raises at the second step), and the losses,
-    norms and parameters agree."""
+    norms, parameters and Adam's moments (gathered whole; within 1e-4 of
+    each one's largest magnitude, which atol 2·lr cannot see) agree."""
     batches = [_batch(2, 21), _batch(2, 22)]
     out = ranks.run("_two_steps", (2, 1, 2), family, batches)
-    ref, ref_sd = _two_steps(None, family, batches)
-    for metrics, sd in out:
+    ref, ref_sd, ref_opt = _two_steps(None, family, batches)
+    for metrics, sd, opt in out:
         np.testing.assert_allclose(metrics, ref, rtol=1e-5)
         for k, v in ref_sd.items():
             np.testing.assert_allclose(sd[k], v, rtol=1e-5, atol=2 * FAMILY_LR, err_msg=k)
+        _moments_agree(opt, ref_opt, family)
 
 
 def _built_step(mesh, batch):
@@ -197,6 +201,44 @@ def test_checkpoints_move_between_tp_sizes(ranks, tmp_path, kind):
     for got in [resumed_1] + [r[0] for r in resumed_2]:
         for k, v in full.items():
             np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=2 * LR, err_msg=k)
+    # the optimizer state the resumed runs write, which atol 2·lr cannot see
+    want = _opt_arrays(tmp_path / "whole")
+    for d in (a, b):
+        _moments_agree(_opt_arrays(os.path.dirname(d)), want, d)
+
+
+def _moments_agree(got, want, what):
+    """Each optimizer moment within 1e-4 of its largest magnitude; one that
+    is zero up to rounding (below 1e-6 of the largest moment of its kind:
+    the CustomTransformer's key biases, whose gradient softmax cancels) is
+    held below that on both sides."""
+    assert got.keys() == want.keys()
+    top = {}
+    for k, v in want.items():
+        kind = k.split()[1]
+        top[kind] = max(top.get(kind, 0.0), float(np.abs(v).max()))
+    for k, v in want.items():
+        floor = 1e-6 * top[k.split()[1]]
+        if np.abs(v).max() < floor:
+            assert np.abs(got[k]).max() < floor, f"{what} {k}"
+        else:
+            _scaled(got[k], v, 1e-4, f"{what} {k}")
+
+
+def _opt_arrays(directory):
+    """The optimizer state of a directory's latest checkpoint, by position
+    and moment."""
+    return _opt_flat(torch.load(os.path.join(directory, "dquartic_latest_checkpoint.ckpt"),
+                                weights_only=True)["opt_state"])
+
+
+def _opt_flat(st):
+    """An optimizer's state_dict by position and moment."""
+    if "state" in st:
+        return {f"{i} {k}": v.numpy() for i, m in st["state"].items()
+                for k, v in m.items() if k != "step"}
+    return {f"{i} {k}": v.numpy() for k in ("v_row", "v_col", "v")
+            for i, v in enumerate(st[k]) if v is not None}
 
 
 # --------------------------------------------------------------------- #

@@ -83,14 +83,15 @@ RT = 4
 def _rank_main(rank, init_method, inq, outq):
     torch.set_num_threads(1)
     initialize_runtime("gloo", rank, WORLD, init_method, timeout_s=120)
-    groups = {WORLD: dist.group.WORLD, 2: dist.new_group([0, 1])}
+    # every process makes both meshes' groups, in one order
+    meshes = {sp: make_mesh(sp=sp, ranks=range(sp)) for sp in (WORLD, 2)}
     while True:
         task = inq.get()
         if task is None:
             break
         name, sp, args = task
         try:
-            res = globals()[name](make_mesh(sp=sp, group=groups[sp]), *args) if rank < sp else None
+            res = globals()[name](meshes[sp], *args) if rank < sp else None
             outq.put((rank, True, res))
         except Exception:  # reported to the test, which fails with it
             outq.put((rank, False, traceback.format_exc()))
