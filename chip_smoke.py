@@ -153,7 +153,24 @@ CUDA card with sm_90a). Phases, each of which must pass:
      parameter bytes a rank (half the model's) and the peak memory; (c)
      the CustomTransformer's float32 step at dp = 2 and at tp = 2. The
      ms/window and ms/step a rank measure no dp or tp speed: the ranks
-     share one card.
+     share one card;
+ 14. the prediction hook and the identifiability loop: (a) ``train``
+     through the CLI, in this process, on the canonical config (34 x 40000,
+     bf16, fused ResnetBlocks; the factored optimizer) for one epoch of one
+     batch with ``tpu.log_predictions`` and ``prediction_num_steps`` [10,
+     50]: the hook's ``pred`` against ``DDIMSampler.sample`` on a model
+     loaded from ``ema_state_dict()`` with the same noise, the train state
+     and mode bitwise unchanged by the hook, its launches (K1 840, K2
+     1740, K7a 60), the table and cosines in ``metrics.jsonl``, the 12
+     panels where matplotlib is installed (where it is not, a recorder
+     takes the renderer's place, said on a line of the log); (b)
+     scripts/run_identifiability_torch.py's loop at the canonical width
+     (x0, uniform, EMA 0.999, windows made on the card): ms/step, peak
+     memory, the kernels a step and a 50-step sample, one eval; (c) the
+     loop at m/z 2560: the window generator twice on one seed, bitwise;
+     2N steps against N, a save, a resume and N more (the largest
+     difference of the train state, and the parameters that differ);
+     ms/step.
 
 Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
@@ -426,8 +443,13 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 
 # Profiles taken of one set of calls before a kernel that ran is counted as
 # missing: torch.profiler drops records in short windows, now and then all
-# of one kernel's.
-PROFILE_TRIES = 3
+# of one kernel's, and once every record of three profiles in a row.
+PROFILE_TRIES = 5
+
+# Each profile taken again, in the order taken: what the profile before it
+# missed. The kernels line carries them, so runs show whether the profiler
+# drops records more often over time (why it drops them is not known).
+PROFILE_RETRIES = []
 
 
 # A spin of the card (torch.cuda._sleep, kernel "spin_kernel") before and
@@ -485,6 +507,7 @@ def device_ms(fn, reps, *names, warmup=1):
         missing = [name for name in names if not sums[name][1]]
         if not missing:
             break
+        PROFILE_RETRIES.append({"missing": missing})
         log(f"  the profiler saw no device time of {missing}: profiling again")
     check(not missing, f"the profiler saw no device time of {missing}")
     return {k: (us / 1e3 / reps, n / reps, mean / 1e3) for k, (us, n, mean) in sums.items()}
@@ -503,6 +526,8 @@ def device_kernels(fn, reps, kernels_expected=None, warmup=1):
         n = sum(count for _, _, count in events)
         if kernels_expected is None or n >= kernels_expected * reps:
             break
+        PROFILE_RETRIES.append({"kernels_seen": n, "expected": kernels_expected * reps})
+        log(f"  the profiler saw {n} of {kernels_expected * reps} kernels: profiling again")
     kinds = sorted({key.replace("(anonymous namespace)::", "").split("(")[0]
                     .replace("void ", "") for key, _, _ in events})
     return (sum(us for _, us, _ in events) / 1e3 / reps, n / reps, kinds,
@@ -3254,6 +3279,318 @@ def phase_dp_tp(config, seed, gen, results):
         ranks=ranks, phase_s=time.perf_counter() - t0)
 
 
+# phase 14: (a) the CLI's train with tpu.log_predictions at full width, one
+# epoch of one batch of HOOK_BATCH pairs from HOOK_WINDOWS windows (the
+# hook's own pair is the one left), the hook's step counts cut to
+# HOOK_STEPS for time, the factored optimizer (checkpoints of 9.6 GB, not
+# AdamW's 19 GB); (b) the identifiability loop at the canonical width, one
+# warm-up and IDF_FULL_STEPS timed steps at IDF_FULL_BATCH pairs, then one
+# eval; (c) the loop at the experiment's width IDF_MZ: the generator twice
+# on one seed, 2 IDF_RESUME_N steps against IDF_RESUME_N + save + resume +
+# IDF_RESUME_N, and IDF_TIMED_STEPS steps timed for the acceptance runs'
+# estimate. The recipe of (b) and (c): x0, uniform, EMA 0.999, the
+# on-device generator (IDF_INFINITE).
+HOOK_WINDOWS, HOOK_BATCH = 3, 2
+HOOK_STEPS = [10, 50]
+IDF_FULL_BATCH = 2
+IDF_FULL_STEPS = 3
+IDF_MZ = 2560
+IDF_RESUME_N = 5
+IDF_TIMED_STEPS = 20
+IDF_RECIPE = dict(pred="x0", weighting="uniform", ema="0.999", infinite=True, overfit=False)
+# the hook's pred against DDIMSampler.sample on a model loaded from the EMA:
+# the same kernels on the same tensors; bitwise expected, held to this
+# relative L2 (bf16 compute) if a library call rounds otherwise
+HOOK_PRED_TOL = 1e-3
+
+
+def _import_idf():
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import run_identifiability_torch as idf
+
+    return idf
+
+
+def _train_state(trainer):
+    """Clones of the trainer's parameters, EMA and optimizer state."""
+    opt = trainer.optimizer.state_dict()
+    return ([p.detach().clone() for p in trainer.optimizer.params],
+            [e.clone() for e in trainer.ema_params],
+            [v.clone() for k in ("v_row", "v_col", "v") for v in opt.get(k, []) if v is not None],
+            opt.get("count"))
+
+
+def _state_diff(a, b) -> float:
+    """The largest |difference| between two ``_train_state``s."""
+    check(a[3] == b[3] and all(len(x) == len(y) for x, y in zip(a[:3], b[:3])),
+          "the two states differ in structure")
+    return max(float((x.float() - y.float()).abs().max()) for part in range(3)
+               for x, y in zip(a[part], b[part]))
+
+
+def phase_viz_hook(seed, results):
+    """(a) ``train`` through the CLI with the prediction hook at full width."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import dquartic_tpu_torch.utils.viz as viz
+    from dquartic_tpu_torch.infer import DDIMSampler
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.utils.builder import build_model
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not have_mpl:
+        log("  matplotlib is not installed on this machine: no PNG is rendered here; the "
+            "renderer is replaced by a recorder, and rendering is held on the CPU by "
+            "tests/test_torch_viz.py")
+    seen, hook_runs = [], []
+    draw = viz.plot_single_prediction
+
+    def recorder(*arrays, **kw):
+        seen.append([np.array(a) for a in arrays])
+        if have_mpl:
+            return draw(*arrays, **kw)
+        return [os.path.join(kw["out_dir"], f"{kw['prefix']}{i}.png") for i in range(6)]
+
+    call = viz.PredictionLoggingHook.__call__
+
+    def watched(self, epoch, best_loss, trainer):
+        before = _train_state(trainer)
+        training = trainer.model.training
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        call(self, epoch, best_loss, trainer)
+        torch.cuda.synchronize()
+        hook_runs.append(dict(epoch=epoch, trainer=trainer, s=time.perf_counter() - t0,
+                              launches=launch_counts(),
+                              diff=_state_diff(before, _train_state(trainer)),
+                              mode_kept=trainer.model.training == training))
+        del before
+
+    with tempfile.TemporaryDirectory(prefix="dq_viz_") as tmp:
+        rng = np.random.default_rng(seed + 14)
+        paths = {k: os.path.join(tmp, f"{k}.npy") for k in ("ms2", "ms1")}
+        np.save(paths["ms2"], rng.uniform(0, 100, (HOOK_WINDOWS, RT, MZ)).astype(np.float32))
+        np.save(paths["ms1"], rng.uniform(0, 50, (HOOK_WINDOWS, RT)).astype(np.float32))
+        with open(CONFIG) as f:
+            cfg = json.load(f)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        cfg["data"].update(parquet_directory=None, ms2_data_path=paths["ms2"],
+                           ms1_data_path=paths["ms1"])
+        cfg["model"].update(checkpoint_path=os.path.join(ckpt_dir, "best_model.ckpt"),
+                            num_epochs=1, batch_size=HOOK_BATCH)
+        cfg["wandb"]["use_wandb"] = False
+        cfg["tpu"].update(compute_dtype="bfloat16", fused_resnet=True, optimizer="factored",
+                          log_predictions=True, prediction_num_steps=HOOK_STEPS,
+                          log_every_n_epochs=1)
+        config_path = _write_json(os.path.join(tmp, "config.json"), cfg)
+        viz.plot_single_prediction = recorder
+        viz.PredictionLoggingHook.__call__ = watched
+        reset_launch_counts()
+        try:
+            wall = _cli(["train", config_path])
+        finally:
+            viz.plot_single_prediction = draw
+            viz.PredictionLoggingHook.__call__ = call
+        check(len(hook_runs) == 1, f"the hook ran {len(hook_runs)} times, not once")
+        run = hook_runs[0]
+        trainer = run.pop("trainer")
+        check(run["diff"] == 0.0 and run["mode_kept"],
+              f"the hook changed the train state: max |diff| {run['diff']}, mode kept "
+              f"{run['mode_kept']}")
+        check(len(seen) == len(HOOK_STEPS), f"{len(seen)} renders, not {len(HOOK_STEPS)}")
+
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        tables = [r for r in records if r.get("_table") == "predictions_table"]
+        check(len(tables) == 1 and [row[0] for row in tables[0]["rows"]] == HOOK_STEPS,
+              f"metrics.jsonl holds {len(tables)} prediction tables")
+        cosines = {k: r[k] for r in records for k in r if k.startswith("predictions/cosine_")}
+        check(sorted(cosines) == sorted(f"predictions/cosine_{n}steps" for n in HOOK_STEPS),
+              f"logged cosines {sorted(cosines)}")
+        pngs = sorted(p for p in os.listdir(ckpt_dir) if p.endswith(".png"))
+        if have_mpl:
+            check(len(pngs) == 6 * len(HOOK_STEPS) and all(
+                os.path.exists(p) for row in tables[0]["rows"] for p in row[4:]),
+                  f"panels written: {pngs}")
+
+        # the hook's pred against the sampler on a model loaded from the EMA
+        serve_cfg = load_train_config(config_path)
+        ref = build_model(serve_cfg, device="cuda", trainable=True)
+        ref.load_state_dict(trainer.ema_state_dict())
+        ref.requires_grad_(False).eval()
+        sampler = DDIMSampler(ref, trainer.process)
+        errs, same = [], []
+        for ns, arrays in zip(HOOK_STEPS, seen):
+            g = torch.Generator(device="cuda").manual_seed(viz.noise_seed(0, run["epoch"], ns))
+            noise = torch.randn((1, RT, MZ), generator=g, device="cuda")
+            cond = torch.from_numpy(arrays[2]).cuda()[None]
+            ms1 = torch.from_numpy(arrays[3]).cuda()[None]
+            pred, _ = sampler.sample(noise, cond, ms1, num_steps=ns)
+            pred = pred[0].float().cpu().numpy()
+            same.append(bool(np.array_equal(pred, arrays[4])))
+            errs.append(float(np.linalg.norm(pred - arrays[4]) / (np.linalg.norm(pred) + 1e-30)))
+        del ref, sampler, trainer
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(a[4]).all() for a in seen), "the hook's pred is not finite")
+        check(max(errs) <= HOOK_PRED_TOL, f"the hook's pred is {errs} (rel L2) from the "
+              "sampler's on a model loaded from the EMA")
+        expect = _expect({k: v for k, v in SIMPLE_FORWARD.items() if k != "int8_matmul"},
+                         sum(HOOK_STEPS))
+        check(run["launches"] == expect, f"hook launches {run['launches']} != {expect}")
+        log(f"  CLI train, full width (34 x {MZ}, bf16, fused, factored), 1 step of "
+            f"{HOOK_BATCH} pairs + the hook at {HOOK_STEPS} steps: {wall:.2f} s wall, the hook "
+            f"{run['s']:.2f} s; launches in the hook {run['launches']}; train state and mode "
+            f"unchanged by the hook (max |diff| {run['diff']}); pred vs DDIMSampler.sample on "
+            f"a model loaded from ema_state_dict(): bitwise {same}, rel L2 {errs}; cosines "
+            f"{cosines}; panels {len(pngs)} PNG (matplotlib {'present' if have_mpl else 'absent'})")
+        results["viz_hook"] = dict(wall_s=wall, hook_s=run["s"], bitwise=same, rel_l2=errs,
+                                   cosines=cosines, pngs=len(pngs), matplotlib=have_mpl,
+                                   launches={k: v for k, v in run["launches"].items() if v})
+
+
+def _idf_steps(idf, exp, first, n, timed=False):
+    """Global steps first .. first + n - 1: (ms per step, losses on the host)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = [idf.train_step(exp, s) for s in range(first, first + n)]
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    return start.elapsed_time(end) / n, wall, torch.stack(losses).tolist()
+
+
+def phase_idf_full(seed, results):
+    """(b) the identifiability loop at the canonical width: steps and one eval."""
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    idf = _import_idf()
+    with tempfile.TemporaryDirectory(prefix="dq_idf_full_") as tmp:
+        knobs = idf.Knobs(root=tmp, steps=IDF_FULL_STEPS + 1, total=24000, batch=IDF_FULL_BATCH,
+                          mz=MZ, device="cuda", **IDF_RECIPE)
+        t0 = time.perf_counter()
+        exp = idf.setup(knobs)
+        setup_s = time.perf_counter() - t0
+        idf.train_step(exp, 1)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ms, wall, losses = _idf_steps(idf, exp, 2, IDF_FULL_STEPS)
+        per_step = {k: v / IDF_FULL_STEPS for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(bool(np.isfinite(losses).all()), f"losses {losses}")
+        target, other, mix, m1i, _ = idf._pair(exp.ms2, exp.ms1, *idf.eval_pairs(knobs)[0][1:],
+                                                exp.device)
+        reset_launch_counts()
+        with torch.inference_mode():
+            idf.sample50(exp, None, exp.eval_noise, mix, m1i)
+        sample = {k: v for k, v in launch_counts().items() if v}
+        t0 = time.perf_counter()
+        recs = idf.run_eval(exp, IDF_FULL_STEPS + 1)
+        eval_s = time.perf_counter() - t0
+        check(len(recs) == 6 and all(np.isfinite(r["sep50"]) for r in recs),
+              f"eval records {recs}")
+        check(all(per_step.get(k, 0) > 0 for k in STEP_LAUNCHES if k != "int8_matmul"),
+              f"a step did not launch every kernel: {per_step}")
+        log(f"  identifiability loop at 34 x {MZ} ({exp.trainer.num_parameters() / 1e9:.3f} B "
+            f"parameters, batch {IDF_FULL_BATCH}, bf16, remat, factored, EMA, x0, uniform, "
+            f"on-device windows): set-up {setup_s:.1f} s; {ms:.2f} ms/step on the device "
+            f"clock ({wall:.2f} wall), peak {peak:.2f} GiB, losses {losses}; launches a step "
+            f"{per_step}; a 50-step sample {sample}; one eval (6 records, 612 forwards) "
+            f"{eval_s:.1f} s: {json.dumps(recs)}")
+        results["idf_full"] = dict(ms_per_step=ms, wall_ms_per_step=wall, peak_gib=peak,
+                                   losses=losses, launches_per_step=per_step,
+                                   launches_per_sample=sample, eval_s=eval_s, evals=recs,
+                                   setup_s=setup_s)
+        del exp
+    torch.cuda.empty_cache()
+
+
+def phase_idf_small(seed, results):
+    """(c) the loop at the experiment's width: repeatable generator, resume,
+    ms/step."""
+    import torch
+
+    idf = _import_idf()
+    one = idf.make_windows(torch.Generator(device="cuda").manual_seed(seed), 16, IDF_MZ)
+    two = idf.make_windows(torch.Generator(device="cuda").manual_seed(seed), 16, IDF_MZ)
+    gen_same = all(torch.equal(a, b) for a, b in zip(one, two))
+    check(gen_same, "the window generator gave two results on one seed")
+    n = IDF_RESUME_N
+    with tempfile.TemporaryDirectory(prefix="dq_idf_") as tmp:
+        def knobs(name):
+            return idf.Knobs(root=os.path.join(tmp, name), steps=2 * n, total=24000, batch=8,
+                             mz=IDF_MZ, device="cuda", **IDF_RECIPE)
+
+        whole = idf.setup(knobs("whole"))
+        params = whole.trainer.num_parameters()
+        _idf_steps(idf, whole, 1, 2 * n)
+        first = idf.setup(knobs("legs"))
+        _idf_steps(idf, first, 1, n)
+        idf.save(first, n)
+        ckpt_mb = os.path.getsize(os.path.join(tmp, "legs", "state.ckpt")) / 2**20
+        del first
+        second = idf.setup(knobs("legs"))
+        check(idf.resume(second) == n, "resume read another step")
+        _idf_steps(idf, second, n + 1, n)
+        a, b = _train_state(whole.trainer), _train_state(second.trainer)
+        diff = _state_diff(a, b)
+        differ = []
+        if diff:
+            names = second.trainer.param_names
+            differ = sorted(((float((x - y).abs().max()), nm) for nm, x, y in
+                             zip(names, a[0], b[0]) if not torch.equal(x, y)), reverse=True)
+        del a, b, second
+        ms, wall, losses = _idf_steps(idf, whole, 2 * n + 1, IDF_TIMED_STEPS)
+        check(all(v == v for v in losses), f"losses {losses}")
+        log(f"  identifiability loop at 34 x {IDF_MZ} ({params / 1e6:.3f} M parameters, batch "
+            f"8): the generator bitwise equal on one seed: {gen_same}; {2 * n} steps against "
+            f"{n} + save ({ckpt_mb:.1f} MiB) + resume + {n}: max |diff| of the train state "
+            f"{diff}" + (f", {len(differ)} parameters differ, largest {differ[:6]}"
+                         if differ else " (bitwise)")
+            + f"; {ms:.2f} ms/step on the device clock ({wall:.2f} wall) over "
+            f"{IDF_TIMED_STEPS} steps, losses {[round(v, 4) for v in losses[-3:]]}")
+        results["idf_small"] = dict(generator_bitwise=gen_same, resume_max_abs_diff=diff,
+                                    params_differing=[nm for _, nm in differ],
+                                    ms_per_step=ms, wall_ms_per_step=wall, ckpt_mib=ckpt_mb)
+        del whole
+    torch.cuda.empty_cache()
+
+
+def phase_viz_idf(seed, results):
+    """Phase 14: the prediction hook and the identifiability loop."""
+    import torch
+
+    from dquartic_tpu_torch.ops import KERNELS
+
+    t0 = time.perf_counter()
+    phase_viz_hook(seed, results)
+    phase_idf_full(seed, results)
+    phase_idf_small(seed, results)
+    for name in KERNELS:
+        row = results.get(name)
+        if not isinstance(row, dict) or "source" not in row:
+            continue
+        row["viz_idf_launches"] = dict(
+            hook=results["viz_hook"]["launches"].get(name, 0),
+            idf_step=results["idf_full"]["launches_per_step"].get(name, 0),
+            idf_sample=results["idf_full"]["launches_per_sample"].get(name, 0))
+    results["viz_idf"] = dict(hook=results.pop("viz_hook"), idf_full=results.pop("idf_full"),
+                              idf_small=results.pop("idf_small"),
+                              phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -3366,6 +3703,8 @@ def main(argv=None) -> int:
         phase_families(config, args.seed, gen, results)
         log(f"== phase 13: data and tensor parallelism, dp = {DPTP} and tp = {DPTP} on one card")
         phase_dp_tp(config, args.seed, gen, results)
+        log("== phase 14: the prediction hook through the CLI and the identifiability loop")
+        phase_viz_idf(args.seed, results)
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
@@ -3381,8 +3720,9 @@ def main(argv=None) -> int:
     log(f"command line: {json.dumps(results.pop('cli'))}")
     log(f"model families: {json.dumps(results.pop('families'))}")
     log(f"data and tensor parallelism: {json.dumps(results.pop('dp_tp'))}")
+    log(f"prediction hook and identifiability: {json.dumps(results.pop('viz_idf'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "profile_retries": PROFILE_RETRIES}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

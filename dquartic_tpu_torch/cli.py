@@ -32,6 +32,7 @@ them.
 from __future__ import annotations
 
 import ast
+import os
 import time
 from datetime import datetime
 
@@ -141,16 +142,31 @@ def train(config_path, parquet_directory, ms2_data_path, ms1_data_path, batch_si
         use_wandb=use_wandb,
         threads=threads,
     )
-    if config["tpu"].get("log_predictions"):
-        raise click.ClickException(
-            "tpu.log_predictions: the periodic prediction tables need utils/viz.py, which "
-            "the port does not have yet (ROADMAP.md Queue 1 item 5); set it to false")
     device = _resolve_device(device, "train")
 
     mesh = _build_mesh(config)
     dataset = build_dataset(config, mesh=mesh, device=device)
     trainer = build_trainer(config, device=device, mesh=mesh)
     m = config["model"]
+
+    # Periodic prediction tables (reference model_interface.py:432-439):
+    # every log_every_n_epochs, deconvolve one random window at several
+    # step counts and log the panels. The hook runs between epochs, when
+    # no prefetch thread draws from the dataset; on a mesh every rank
+    # samples and the lead alone renders and logs.
+    prediction_hook = None
+    if config["tpu"].get("log_predictions"):
+        from .infer import DDIMSampler
+        from .utils.viz import PredictionLoggingHook
+
+        prediction_hook = PredictionLoggingHook(
+            DDIMSampler(trainer.model, trainer.process, mesh=mesh),
+            dataset.inner.dataset,
+            trainer.logger,
+            out_dir=os.path.dirname(m["checkpoint_path"]) or ".",
+            num_steps=config["tpu"]["prediction_num_steps"],
+            backend=config["tpu"].get("plot_backend", "matplotlib"),
+        )
     trainer.train(
         dataset,
         epochs=m["num_epochs"],
@@ -160,6 +176,7 @@ def train(config_path, parquet_directory, ms2_data_path, ms1_data_path, batch_si
         log_every_n_epochs=config["tpu"]["log_every_n_epochs"],
         checkpoint_every_n_epochs=config["tpu"]["checkpoint_every_n_epochs"],
         best_every_n_epochs=config["tpu"].get("best_every_n_epochs", 1),
+        prediction_hook=prediction_hook,
     )
     if trainer.logger is not None:
         trainer.logger.finish()

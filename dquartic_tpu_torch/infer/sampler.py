@@ -4,7 +4,9 @@ Port of :class:`dquartic_tpu.infer.sampler.DDIMSampler` (``sample``,
 ``predict_batch``, ``predict``) and of the prediction parquet files
 (``save_predictions_parquet``, ``load_predictions_parquet``; pyarrow is
 imported inside them). The model holds its own weights, so no parameter
-tree is passed; noise comes from an explicit :class:`torch.Generator`.
+tree is passed (``sample`` takes other tensors by name, e.g. a Trainer's
+EMA, without copying the model); noise comes from an explicit
+:class:`torch.Generator`.
 Everything runs under ``torch.inference_mode``.
 
 On a ``mesh`` every rank calls the same methods with the same seed:
@@ -37,6 +39,20 @@ from ..parallel.tensor import gather
 from ..utils.device import resolve_device
 
 
+def with_params(model: torch.nn.Module, params: Optional[Dict[str, torch.Tensor]] = None):
+    """``model`` as a denoiser that runs on ``params`` (tensors by
+    state_dict name, e.g. a Trainer's ``ema_state_dict()``) in place of its
+    own, through ``torch.func.functional_call``: nothing is copied and the
+    model's own tensors are left as they are. ``params`` None: the model."""
+    if params is None:
+        return model
+
+    def denoise(*args):
+        return torch.func.functional_call(model, params, args)
+
+    return denoise
+
+
 class DDIMSampler:
     def __init__(self, model: torch.nn.Module, process: DDIMProcess, mesh=None):
         self.model = model
@@ -64,10 +80,13 @@ class DDIMSampler:
         ms2_cond: Optional[torch.Tensor] = None,
         ms1_cond: Optional[torch.Tensor] = None,
         num_steps: int = 1000,
+        params: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Reverse-diffuse ``x_t`` into a clean MS2 map; returns
-        ``(x0_hat, pred_noise)``."""
-        return self.process.sample(self.model, x_t, ms2_cond, ms1_cond, num_steps=num_steps)
+        ``(x0_hat, pred_noise)``, with the model's own weights or with
+        ``params`` (:func:`with_params`)."""
+        return self.process.sample(with_params(self.model, params), x_t, ms2_cond, ms1_cond,
+                                   num_steps=num_steps)
 
     def predict_batch(
         self,

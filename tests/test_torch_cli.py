@@ -2,9 +2,11 @@
 JAX package's: ``generate-config``, ``train`` with its checkpoints, metrics
 and resume, ``predict`` to npz and parquet (read back by the JAX package),
 ``predict`` from a checkpoint the JAX package wrote, ``convert-checkpoint``,
-and the refusals: no card without ``--device``, ``tpu.log_predictions``."""
+the prediction panels of ``tpu.log_predictions``, and the refusal to run
+without a card unless ``--device`` names one."""
 
 import json
+import os
 
 import jax
 import numpy as np
@@ -167,12 +169,31 @@ def test_no_card_without_device(run, monkeypatch, command):
     assert not (tmp_path / "never.npz").exists()
 
 
-def test_log_predictions_raises(tmp_path):
-    """tpu.log_predictions needs the prediction tables (utils/viz.py), not
-    ported: train refuses it rather than train without them."""
-    np.save(tmp_path / "ms2.npy", np.ones((N, RT, MZ), np.float32))
-    np.save(tmp_path / "ms1.npy", np.ones((N, RT), np.float32))
-    res = CliRunner().invoke(cli, ["train", "--device", "cpu",
-                                   _write_config(tmp_path, log_predictions=True)])
-    assert res.exit_code != 0 and "log_predictions" in res.output and "ROADMAP" in res.output
-    assert not (tmp_path / "ckpt").exists()
+def test_log_predictions_writes_panels(tmp_path):
+    """``tpu.log_predictions``: after each logged epoch (every one at
+    ``log_every_n_epochs`` 1) ``train`` writes the six panels of each step
+    count of ``prediction_num_steps`` beside the checkpoints and logs the
+    cosines and the ``predictions_table`` to ``metrics.jsonl``, as the JAX
+    ``train`` does."""
+    rng = np.random.default_rng(2)
+    np.save(tmp_path / "ms2.npy", rng.uniform(0, 10, (N, RT, MZ)).astype(np.float32))
+    np.save(tmp_path / "ms1.npy", rng.uniform(0, 5, (N, RT)).astype(np.float32))
+    config = _write_config(tmp_path, log_predictions=True, log_every_n_epochs=1,
+                           prediction_num_steps=[2, 3])
+    _invoke(["train", "--device", "cpu", config])
+    records = [json.loads(line) for line in (tmp_path / "ckpt" / "metrics.jsonl").open()]
+    tables = [r for r in records if r.get("_table") == "predictions_table"]
+    assert len(tables) == 2
+    paths = set()
+    for table in tables:
+        assert table["columns"][:4] == ["Num Steps", "Epoch", "Loss", "Reconstruction Cosine"]
+        assert [row[0] for row in table["rows"]] == [2, 3]
+        for row in table["rows"]:
+            assert len(row) == 10 and -1.0 <= row[3] <= 1.0
+            assert all(p.endswith(".png") and os.path.dirname(p) == str(tmp_path / "ckpt")
+                       for p in row[4:])
+            paths.update(row[4:])
+    assert paths == {str(p) for p in (tmp_path / "ckpt").glob("*.png")}
+    assert len(paths) == 6 * 2 * len({row[1] for t in tables for row in t["rows"]})
+    cosines = [k for r in records for k in r if k.startswith("predictions/cosine_")]
+    assert cosines == ["predictions/cosine_2steps", "predictions/cosine_3steps"] * 2
