@@ -91,12 +91,13 @@ CUDA card with sm_90a). Phases, each of which must pass:
      spawned in one gloo group,
      both on this card, each running the unfused canonical model
      (``linear_attn_impl = "auto"``, m/z split in two): the full-width
-     forward (f32, bf16), a 50-step ``predict`` (bf16 with K6a 600 and K6b
-     600 launches per rank, then f32) and ``Trainer.train_step`` (f32,
-     bf16; K6a 24, K6b 12, K6c 12 per rank), with the all_reduces of each
-     forward and step counted (the K6 op's: 12 a forward, 36 a step), each
-     held on rank 0 against
-     the same call in one process (whose two mixers at N = 625 take the
+     forward (f32, bf16), a 10-step ``predict`` in bf16 (K6a 120 and K6b
+     120 launches per rank; its ms/window from CUDA events over that call)
+     and in f32, and ``Trainer.train_step`` (f32, bf16; K6a
+     24, K6b 12, K6c 12 per rank; the counted step timed), with the
+     all_reduces of each forward and step counted (the K6 op's: 12 a
+     forward, 36 a step), each held on rank 0 against the same call in
+     one process (whose two mixers at N = 625 take the
      "xla" path, as at sp = 2); ms/window, ms/step and peak memory per
      rank, which say nothing of the speed of sequence parallelism (two
      ranks share one card);
@@ -170,9 +171,28 @@ CUDA card with sm_90a). Phases, each of which must pass:
      loop at m/z 2560: the window generator twice on one seed, bitwise;
      2N steps against N, a save, a resume and N more (the largest
      difference of the train state, and the parameters that differ);
-     ms/step.
+     ms/step;
+ 15. (a) the async sharded checkpoint backend (``tpu.checkpoint_backend:
+     "orbax"``, ``dquartic_tpu_torch/train/async_ckpt.py``) at full width:
+     phase 6's trainer with the factored optimizer and no EMA, one epoch
+     of two steps through ``Trainer.train`` writing latest and best (K1,
+     K2, K4, K5, K7a, K7b launched), the state's bytes, the ms each save
+     held the training thread, the background write's and the final
+     wait's seconds, the pinned buffers' host memory and the staging's
+     device memory, the msgpack path's ``_save`` of the same state; then
+     the trainer saves again and at once takes its next step while the
+     save is written; a trainer of another seed resumes the state from
+     before the step, bitwise, and its next step's loss is the
+     uninterrupted run's; (b) the examples on the card from the msgpack
+     file of (a): ``predict_and_plot_torch`` (one full-width window, 10
+     steps: K1 140, K2 290, K3 40), ``quantize_checkpoint_torch``
+     (sizes and drift; K1 28, K2 58 in its two float forwards) and
+     ``multichip_deconvolution_torch`` as one rank in the shipping config
+     (10 steps: K1 140, K2 290, K3 40).
 
-Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1 at every mixer).
+Each phase's seconds are logged as it ends and together on a line before
+the kernels line. Phases 1-8 run ``tpu.linear_attn_impl = "pallas_t"`` (K1
+at every mixer).
 Each kernel's entry in the JSON line carries its time, its plain
 version's, the time of one PyTorch call computing the same function where
 one exists (``library_ms``), and ``bound_ms``: the least time for the
@@ -180,7 +200,10 @@ same work on an H100 SXM at 700 W, the larger of its bytes (each input
 read once, each output written once) at 3.35 TB/s and its operations at
 the peak of their type (67 TFLOP/s float32, 989 TFLOP/s bf16 tensor
 cores); K1-K5, K7a, K7b, K8 and K9 also carry ``device_ms``
-(``torch.profiler``). The
+(``torch.profiler``). A short profiled window that saw fewer kernels than
+expected is profiled again until one sees the count of the one before it;
+each retry, with the wrappers' own launch counts over the window, is
+listed under ``profile_retries``. The
 log also gives K1's and K7a's exp floor, their exponentials at 16 a clock
 per SM, beside the bound; the JSON line holds only measured times and
 ``bound_ms``.
@@ -324,10 +347,13 @@ SP_COLLECTIVES = {"forward": 12, "step": 12 * (1 + 2)}
 # K6a's partials are sums over up to 20000 columns: an absolute tolerance
 # of 1e-4 of the largest sum (float32, another summation order)
 SP_STATS_TOL = (1e-4, 1e-4)
-# 50-step float32 predict at sp = 2 against one process, same seed:
-# relative L2 of the prediction; summation order only (halo convs on other
-# shapes, K6 for K1, the "xla" path at N = 625), through 50 steps
+# float32 predict at sp = 2 against one process, same seed: relative L2 of
+# the prediction; summation order only (halo convs on other shapes, K6 for
+# K1, the "xla" path at N = 625); PR 15 read 1.248e-07 through 50 steps
 SP_PREDICT_TOL = 1e-3
+# the steps of phase 10's predicts (bf16 with its launches counted, and
+# float32 against one process): the depth cut of that earlier path (was 50)
+SP_STEPS = 10
 # The one-process reference of phase 10 takes the sp path's dispatch: the
 # two mixers at N = 625 (40000 / 2**6), which sp = 2 cannot split, on the
 # "xla" path there too, and K1 (the arithmetic of K6) at every other one,
@@ -443,12 +469,17 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 
 # Profiles taken of one set of calls before a kernel that ran is counted as
 # missing: torch.profiler drops records in short windows, now and then all
-# of one kernel's, and once every record of three profiles in a row.
+# of one kernel's, and once every record of three profiles in a row. A
+# profile that saw the same count as the one before it ends the retries:
+# such a window loses the same records every time (PR 15's run 7 repeated
+# K7b's 49 of 50 and K9's 36 of 40 five times each).
 PROFILE_TRIES = 5
 
 # Each profile taken again, in the order taken: what the profile before it
-# missed. The kernels line carries them, so runs show whether the profiler
-# drops records more often over time (why it drops them is not known).
+# missed, the wrappers' own launch counts over the profiled calls, and
+# whether the retries ended on a repeated count. The kernels line carries
+# them, so runs show whether the profiler drops records more often over time
+# (why it drops them is not known).
 PROFILE_RETRIES = []
 
 
@@ -461,21 +492,28 @@ PROFILE_PAD_S = 2e-3
 
 
 def _kernel_events(fn, reps, warmup):
-    """(name, device us, count) of every kernel ``torch.profiler`` saw in
-    ``reps`` calls of ``fn`` (after ``warmup``), the padding spins left out."""
+    """(events, launches): (name, device us, count) of every kernel
+    ``torch.profiler`` saw in ``reps`` calls of ``fn`` (after ``warmup``),
+    the padding spins left out, and the port's launch counters' increase
+    over the profiled calls, by wrapper (its own count of what it
+    launched)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from dquartic_tpu_torch.ops import launch_counts
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pad = int(PROFILE_PAD_S * sm_clock_hz())
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(pad)
         for _ in range(reps):
             fn()
         torch.cuda._sleep(pad)
         torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
     events = []
     for e in prof.key_averages():
         if "CUDA" not in str(getattr(e, "device_type", "CUDA")) or not e.count \
@@ -483,7 +521,7 @@ def _kernel_events(fn, reps, warmup):
             continue
         us = getattr(e, "self_device_time_total", None)
         events.append((e.key, e.self_cuda_time_total if us is None else us, e.count))
-    return events
+    return events, launched
 
 
 def device_ms(fn, reps, *names, warmup=1):
@@ -494,11 +532,14 @@ def device_ms(fn, reps, *names, warmup=1):
     each kernel's mean time once: for a call that launches each of its
     kernels once it stands even where the profiler drops records (it drops
     some in these short windows; a whole step's profile counted every
-    launch). Profiles again where a named kernel left no record, and fails
-    where it left none in PROFILE_TRIES profiles."""
+    launch). Profiles again where a named kernel left no record, until a
+    profile sees the count of the one before it, and fails where it left
+    none."""
+    seen = None
     for _ in range(PROFILE_TRIES):
         sums = {name: [0.0, 0, 0.0] for name in names + ("all",)}
-        for key, us, count in _kernel_events(fn, reps, warmup):
+        events, launched = _kernel_events(fn, reps, warmup)
+        for key, us, count in events:
             for name in names + ("all",):
                 if name == "all" or name in key:
                     sums[name][0] += us
@@ -507,9 +548,16 @@ def device_ms(fn, reps, *names, warmup=1):
         missing = [name for name in names if not sums[name][1]]
         if not missing:
             break
-        PROFILE_RETRIES.append({"missing": missing})
-        log(f"  the profiler saw no device time of {missing}: profiling again")
-    check(not missing, f"the profiler saw no device time of {missing}")
+        repeated = sums["all"][1] == seen
+        PROFILE_RETRIES.append({"missing": missing, "kernels_seen": sums["all"][1],
+                                "launched": launched, "repeated": repeated})
+        if repeated:
+            break
+        seen = sums["all"][1]
+        log(f"  the profiler saw no device time of {missing} (the wrappers launched "
+            f"{launched}): profiling again")
+    check(not missing, f"the profiler saw no device time of {missing} (the wrappers launched "
+          f"{launched})")
     return {k: (us / 1e3 / reps, n / reps, mean / 1e3) for k, (us, n, mean) in sums.items()}
 
 
@@ -520,14 +568,24 @@ def device_kernels(fn, reps, kernels_expected=None, warmup=1):
     each distinct kernel's mean time once). Where the profiler drops
     records in a short window the names and, for a call that launches each
     of its kernels once, the last time stand; it profiles again while it
-    saw fewer than ``kernels_expected`` kernels a call."""
+    saw fewer than ``kernels_expected`` kernels a call, until a profile
+    sees the count of the one before it. Each short profile logs the
+    wrappers' own launch counts beside the profiler's."""
+    seen = None
     for _ in range(PROFILE_TRIES):
-        events = _kernel_events(fn, reps, warmup)
+        events, launched = _kernel_events(fn, reps, warmup)
         n = sum(count for _, _, count in events)
         if kernels_expected is None or n >= kernels_expected * reps:
             break
-        PROFILE_RETRIES.append({"kernels_seen": n, "expected": kernels_expected * reps})
-        log(f"  the profiler saw {n} of {kernels_expected * reps} kernels: profiling again")
+        repeated = n == seen
+        PROFILE_RETRIES.append({"kernels_seen": n, "expected": kernels_expected * reps,
+                                "launched": launched, "repeated": repeated})
+        log(f"  the profiler saw {n} of {kernels_expected * reps} kernels; the wrappers "
+            f"launched {launched} in {reps} calls" +
+            (": the same count again, no more profiles" if repeated else ": profiling again"))
+        if repeated:
+            break
+        seen = n
     kinds = sorted({key.replace("(anonymous namespace)::", "").split("(")[0]
                     .replace("void ", "") for key, _, _ in events})
     return (sum(us for _, us, _ in events) / 1e3 / reps, n / reps, kinds,
@@ -2167,14 +2225,27 @@ def _sp_dispatch():
             os.environ["DQUARTIC_LINATTN_MIN_SEQ"] = old
 
 
+def first_call_ms(fn):
+    """``(ms, result)``: CUDA-event ms of one call of ``fn`` (its first: the
+    sample of a rank whose ms/window measures no parallel speed)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), result
+
+
 def _rank_log(rank, msg):
     log(f"  [rank {rank}] {msg}")
 
 
 def _sp_rank(rank, init_method, config, seed, out_dir):
-    """One of the SP ranks on cuda:0: the forward, a 50-step predict and a
-    train step at sp = SP, each then held on rank 0 against the same call
-    in one process (sp = 1) while the other ranks wait."""
+    """One of the SP ranks on cuda:0: the forward, an SP_STEPS-step
+    predict and a train step at sp = SP, each then held on rank 0 against
+    the same call in one process (sp = 1) while the other ranks wait."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2259,45 +2330,45 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
             del ref_model
         free()
 
-    # (b) 50-step predict: bf16 (the main path: counts and ms/window), then
-    # float32 against one process with the same seed
+    # (b) SP_STEPS-step predict: bf16 (the main path: counts and
+    # ms/window), then float32 against one process with the same seed
     batch = _pair_batch(seed + 5)
+    steps = SP_STEPS
     for dtype in ("bfloat16", "float32"):
         cfg = _sp_config(config, dtype, SP)
         model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
         sampler = DDIMSampler(model, build_process(cfg), mesh=mesh)
         reset_launch_counts()
-        t0 = time.perf_counter()
-        pred = sampler.predict([batch], num_steps=STEPS, seed=seed, device=dev)[0]["pred"]
-        wall = time.perf_counter() - t0
+        ms, recs = first_call_ms(
+            lambda: sampler.predict([batch], num_steps=steps, seed=seed, device=dev))
+        pred = recs[0]["pred"]
         counts = launch_counts()
         check(bool(np.isfinite(pred).all()) and pred.shape == (1, RT, MZ), "bad sp prediction")
-        check(counts == _expect(SP_FORWARD, STEPS, cfg), f"sp predict launches {counts}")
+        check(counts == _expect(SP_FORWARD, steps, cfg), f"sp predict launches {counts}")
         if dtype == "bfloat16":
-            x_t, t, ms2, ms1 = inputs()
-            ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
             out.update(predict_launches=counts, ms_per_window=ms)
-            _rank_log(rank, f"predict {STEPS} steps bf16 at sp={SP}: first call {wall:.2f} s "
-                      f"wall, launches K6a {counts['linear_attention_sp_stats']} K6b "
+            _rank_log(rank, f"predict {steps} steps bf16 at sp={SP}: launches "
+                      f"K6a {counts['linear_attention_sp_stats']} K6b "
                       f"{counts['linear_attention_sp_apply']} (expected {SP_FORWARD} x "
-                      f"{STEPS}); ms/window {ms:.2f} (2 ranks sharing one card)")
+                      f"{steps}); ms/window {ms:.2f} (CUDA events over this first call; 2 ranks "
+                      "sharing one card)")
         del model, sampler
         free()
         if lead and dtype == "float32":
             ref_model = build_model(_sp_config(config, dtype, 1), device=dev, seed=seed)
             with _sp_dispatch():
                 ref = DDIMSampler(ref_model, build_process(cfg)).predict(
-                    [batch], num_steps=STEPS, seed=seed, device=dev)[0]["pred"]
+                    [batch], num_steps=steps, seed=seed, device=dev)[0]["pred"]
             rel = float(np.linalg.norm(pred - ref) / np.linalg.norm(ref))
-            _rank_log(rank, f"predict {STEPS} steps float32 at sp={SP} vs one process, same "
+            _rank_log(rank, f"predict {steps} steps float32 at sp={SP} vs one process, same "
                       f"seed: rel L2 {rel:.3e} (tol {SP_PREDICT_TOL:g})")
             check(rel <= SP_PREDICT_TOL, "sp predict disagrees with one process")
             out["predict_rel_l2_float32"] = rel
             del ref_model
         free()
 
-    # (c) one Trainer.train_step at sp = SP against one process, then one
-    # timed step; float32 and bf16 (the path's dtype)
+    # (c) one Trainer.train_step at sp = SP, timed, against one process;
+    # float32 and bf16 (the path's dtype)
     tbatch = {k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 6).items()}
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     t = torch.randint(0, 1000, (1,), generator=g, device=dev)
@@ -2307,16 +2378,15 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
         torch.cuda.reset_peak_memory_stats()
         trainer = build_trainer(cfg, device=dev, seed=seed, mesh=mesh)
         reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()  # the counted step is the timed one (the count costs no device time)
         m = count_collectives("step", lambda: trainer.train_step(tbatch, 1e-4, t=t, eps=eps))
+        end.record()
         counts = launch_counts()
         check(counts == _expect(SP_STEP, cfg=cfg), f"sp train launches {counts}")
         loss = float(m["loss"])
         names = [n for n, _ in trainer.model.named_parameters()]
         grads = [p.grad.float().cpu() for p in trainer.optimizer.params] if lead else None
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        trainer.train_step(tbatch, 1e-4, t=t, eps=eps)
-        end.record()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[f"train_{dtype}"] = dict(ms_per_step=start.elapsed_time(end), peak_gib=peak,
@@ -2369,27 +2439,35 @@ def _sp_rank(rank, init_method, config, seed, out_dir):
     dist.destroy_process_group()
 
 
-def phase_sp(config, seed, gen, results):
-    """Phase 10: K6 against its plain versions and the hand split in this
-    process, then SP ranks spawned on the one card in a gloo group."""
+def _spawn_ranks(fn, n, config, seed):
+    """Spawn ``n`` ranks running ``fn(rank, init_method, config, seed,
+    out_dir)`` in one gloo group, all on this card, and return their
+    ``rank<r>.json``; a failed rank fails the phase with its traceback and
+    the others are stopped."""
     import socket
 
     import torch.multiprocessing as tmp
 
-    phase_sp_kernels(gen, results)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        # a failed rank fails the phase with its traceback; the others are stopped
-        tmp.spawn(_sp_rank, args=(f"tcp://127.0.0.1:{port}", config, seed, out_dir), nprocs=SP,
+        tmp.spawn(fn, args=(f"tcp://127.0.0.1:{port}", config, seed, out_dir), nprocs=n,
                   join=True)
         ranks = []
-        for r in range(SP):
+        for r in range(n):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-    log(f"  {SP} ranks done in {time.perf_counter() - t0:.1f} s")
+    log(f"  {n} ranks done in {time.perf_counter() - t0:.1f} s")
+    return ranks
+
+
+def phase_sp(config, seed, gen, results):
+    """Phase 10: K6 against its plain versions and the hand split in this
+    process, then SP ranks spawned on the one card in a gloo group."""
+    phase_sp_kernels(gen, results)
+    ranks = _spawn_ranks(_sp_rank, SP, config, seed)
     lead = ranks[0]
     for name in ("linear_attention_sp_stats", "linear_attention_sp_apply"):
         results[name]["launches"] = lead["predict_launches"][name]
@@ -3108,13 +3186,13 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
     model = build_model(cfg, device=dev, seed=seed, mesh=mesh)
     sampler = DDIMSampler(model, build_process(cfg), mesh=mesh)
     reset_launch_counts()
-    rec = sampler.predict([local_rows(pbatch, mesh)], num_steps=STEPS, seed=seed, device=dev)[0]
+    ms, recs = first_call_ms(lambda: sampler.predict([local_rows(pbatch, mesh)],
+                                                     num_steps=STEPS, seed=seed, device=dev))
+    rec = recs[0]
     counts = launch_counts()
     check(counts == _expect(SIMPLE_FORWARD, STEPS), f"dp predict launches {counts}")
     check(rec["pred"].shape == (DPTP, RT, MZ) and bool(np.isfinite(rec["pred"]).all()),
           "bad dp prediction")
-    x_t, ms2, ms1 = (v[:1] for v in _model_inputs(torch.Generator(device=dev).manual_seed(seed)))
-    ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
     out["dp_predict"] = dict(launches=counts, ms_per_window=ms)
     _rank_log(rank, f"dp={DPTP} predict {STEPS} steps of {DPTP} windows: launches {counts}; "
               f"ms/window {ms:.2f} ({DPTP} ranks sharing one card: no dp speed)")
@@ -3148,11 +3226,11 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
     sampler = DDIMSampler(model, build_process(config), mesh=mesh)
     calls.update(all_reduce=0, all_gather=0)
     reset_launch_counts()
-    rec = sampler.predict([pbatch], num_steps=STEPS, seed=seed, device=dev)[0]
+    ms, recs = first_call_ms(lambda: sampler.predict([pbatch], num_steps=STEPS, seed=seed,
+                                                     device=dev))
+    rec = recs[0]
     counts, colls = launch_counts(), dict(calls)
     check(counts == _expect(SIMPLE_FORWARD, STEPS), f"tp predict launches {counts}")
-    x_t, ms2, ms1 = _model_inputs(torch.Generator(device=dev).manual_seed(seed))
-    ms = cuda_time(lambda: sampler.sample(x_t, ms2, ms1, STEPS), reps=1, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     out["tp_predict"] = dict(launches=counts, collectives=colls, ms_per_window=ms,
                              serving_bytes=nbytes, peak_gib=peak)
@@ -3244,26 +3322,12 @@ def _dptp_rank(rank, init_method, config, seed, out_dir):
 def phase_dp_tp(config, seed, gen, results):
     """Phase 13: K3 at a tp rank's shard in this process, then DPTP ranks
     spawned on the one card in a gloo group, at dp = DPTP and tp = DPTP."""
-    import socket
-
     import torch
-    import torch.multiprocessing as tmp
 
     phase_k3_tp(gen, results)
     torch.cuda.empty_cache()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    with tempfile.TemporaryDirectory() as out_dir:
-        t0 = time.perf_counter()
-        # a failed rank fails the phase with its traceback; the others are stopped
-        tmp.spawn(_dptp_rank, args=(f"tcp://127.0.0.1:{port}", config, seed, out_dir),
-                  nprocs=DPTP, join=True)
-        ranks = []
-        for r in range(DPTP):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    log(f"  {DPTP} ranks done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_dptp_rank, DPTP, config, seed)
     lead = ranks[0]
     for name, row in results.items():
         if not isinstance(row, dict) or "source" not in row:
@@ -3591,6 +3655,309 @@ def phase_viz_idf(seed, results):
     torch.cuda.empty_cache()
 
 
+# phase 15: (a) the async sharded checkpoint backend (tpu.checkpoint_backend
+# "orbax") at full width: phase 6's trainer settings with the factored
+# optimizer and no EMA (5 GB a save, where AdamW + EMA would be 19 GB:
+# scripts/time_async_ckpt_torch.py takes that one), one epoch of
+# ASYNC_BATCHES batches writing latest and best, then a save with the next
+# step taken at once while it is written, resumed by a trainer of another
+# seed that takes the same step; (b) the
+# examples/*_torch.py on the card from the msgpack file (a) writes of the
+# same state.
+ASYNC_BATCHES = 2
+# the steps of predict_and_plot_torch (one window) and of
+# multichip_deconvolution_torch
+EXAMPLE_STEPS = 10
+# quantize_checkpoint_torch's drift forwards (float mid convs) over its 8 RT
+# rows: the mid attention at n = 8 < FLASH_MIN_SEQ takes the plain path
+DRIFT_FORWARD = {"linear_attention": 14, "fused_resnet_block_t": 29}
+
+
+def _rss_gib() -> float:
+    """This process's resident host memory (``VmRSS``), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def phase_async_ckpt(config, seed, gen, results, optimizer="factored", ema=None,
+                     keep_file=None):
+    """Phase 15 (a): the async backend at full width; with ``keep_file``
+    the msgpack file of the saved state is left there for (b). Returns the
+    measurements."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.utils.builder import build_trainer
+
+    dev = torch.device("cuda")
+    cfg = _train_config(config, compute_dtype="bfloat16", optimizer=optimizer, ema_decay=ema,
+                        checkpoint_backend="orbax")
+    root = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    df = shutil.disk_usage(root)
+    log(f"  checkpoints in {root}: {df.free / 1e9:.1f} GB free of {df.total / 1e9:.1f}")
+    path = os.path.join(root, "best_model.ckpt")
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in _pair_batch(seed + 40 + i).items()}
+               for i in range(ASYNC_BATCHES)]
+    out = dict(optimizer=optimizer, ema_decay=ema)
+    try:
+        a = build_trainer(cfg, device=dev, seed=seed)
+        backend = a._async
+        # the backend timed from outside: each save on the training thread, each
+        # writer thread, the staging copies on the device, the buffers' making
+        saves, real_save = [], backend.save
+
+        def timed_save(p, header, leaves=None):
+            t0 = time.perf_counter()
+            real_save(p, header, leaves)
+            saves.append(dict(path=os.path.basename(p), again=leaves is None,
+                              held_ms=(time.perf_counter() - t0) * 1e3, job=backend._last))
+
+        backend.save = timed_save
+        real_write, write_s = backend._write, {}
+
+        def timed_write(job):
+            t0 = time.perf_counter()
+            real_write(job)
+            write_s[id(job)] = time.perf_counter() - t0
+
+        backend._write = timed_write
+        real_wait = backend.wait
+        waits = []
+
+        def timed_wait():
+            t0 = time.perf_counter()
+            real_wait()
+            waits.append(time.perf_counter() - t0)
+
+        backend.wait = timed_wait
+        real_prepare, prepared = backend.prepare, []
+
+        def timed_prepare(leaves):  # the pinned buffers: host memory made before the loop
+            rss, t0 = _rss_gib(), time.perf_counter()
+            real_prepare(leaves)
+            prepared.append((time.perf_counter() - t0, _rss_gib() - rss))
+
+        backend.prepare = timed_prepare
+        real_stage, staged_gib, stage_events = backend._stage, [], []
+
+        def measured_stage(leaves):  # the device memory and time of a staging's copies
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+            staged = real_stage(leaves)
+            events[1].record()
+            stage_events.append(events)
+            staged_gib.append((torch.cuda.max_memory_allocated() - before) / 2**30)
+            return staged
+
+        backend._stage = measured_stage
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        a.train(batches, epochs=1, warmup_epochs=0, learning_rate=1e-4, checkpoint_path=path)
+        train_s = time.perf_counter() - t0
+        out["state_bytes"] = sum(t.numel() * t.element_size()  # AdamW's moments made
+                                 for t, _ in a._shard_leaves().values())
+        counts = launch_counts()
+        expect = _expect(STEP_LAUNCHES, ASYNC_BATCHES)
+        check(counts == expect, f"async-backend epoch launches {counts} != {expect}")
+        check(len(saves) == 2 and [s["again"] for s in saves] == [False, True],
+              f"the epoch's saves {[(s['path'], s['again']) for s in saves]}: not latest, then "
+              "best again")
+        out.update(
+            train_s=train_s, launches=counts, final_wait_s=waits[-1],
+            prepare_s=prepared[0][0], prepare_host_rss_gib=prepared[0][1],
+            staging_device_gib=max(staged_gib),
+            staging_device_ms=[e[0].elapsed_time(e[1]) for e in stage_events],
+            saves=[dict(path=s["path"], again=s["again"], held_ms=s["held_ms"],
+                        write_s=write_s[id(s["job"])]) for s in saves])
+        latest = backend.latest_path_for(path)
+        files = sorted(os.listdir(latest))
+        check(files == ["meta.json", "shard-00000-of-00001.pt"] and
+              os.path.exists(os.path.join(path, "meta.json")),
+              f"the latest and best directories: {files}")
+        with open(os.path.join(latest, "meta.json")) as f:
+            meta = json.load(f)
+        check((meta["epoch"], meta["step"], meta["optimizer"]) == (0, ASYNC_BATCHES, optimizer),
+              f"latest meta {meta['epoch'], meta['step'], meta['optimizer']}")
+
+        # the msgpack path's _save of the same state (synchronous, mesh rank 0)
+        a._async = None
+        msgpack_path = keep_file or os.path.join(root, "msgpack.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a._save(msgpack_path, 0, 1.0)
+        msgpack_ms = (time.perf_counter() - t0) * 1e3
+        a._async = backend
+        out.update(msgpack_save_held_ms=msgpack_ms,
+                   msgpack_file_gb=os.path.getsize(msgpack_path) / 1e9)
+        log(f"  async backend, {optimizer}{' + EMA' if ema else ''}: state "
+            f"{out['state_bytes'] / 1e9:.3f} GB; pinned host buffers made before the loop in "
+            f"{out['prepare_s']:.2f} s (host RSS +{out['prepare_host_rss_gib']:.2f} GiB); epoch "
+            f"of {ASYNC_BATCHES} steps {train_s:.2f} s, launches {counts}; saves held the "
+            "training thread " +
+            ", ".join(f"{s['path']}{' (same snapshot)' if s['again'] else ''} "
+                      f"{s['held_ms']:.1f} ms (write {s['write_s']:.2f} s)"
+                      for s in out["saves"]) +
+            f"; the staging copies {out['staging_device_ms'][0]:.1f} device ms and "
+            f"+{out['staging_device_gib']:.3f} GiB of device memory; the final "
+            f"wait {out['final_wait_s']:.2f} s; the msgpack path's _save held {msgpack_ms:.1f} "
+            f"ms ({out['msgpack_file_gb']:.3f} GB file)")
+
+        # a save, then at once the uninterrupted run's next step while it is
+        # written: the step's in-place updates must not reach the files (the
+        # staging copies come before them on the trainer's stream). A fresh
+        # trainer of another seed resumes the state from before the step,
+        # bitwise, and its next step's loss is the uninterrupted run's.
+        for p in a.optimizer.params:
+            p.grad = None
+        torch.cuda.empty_cache()
+        pre = {k: t.clone() for k, (t, _) in a._shard_leaves().items()}
+        pre_step = (a.step, a.optimizer.named_state(a.param_names)[0]["count"])
+        a._save(latest, 1, 1.0)
+        losses = []
+        g = torch.Generator(device=dev).manual_seed(seed + 44)
+        losses.append(float(a.train_step(batches[0], 1e-4, generator=g)["loss"]))
+        a._async.wait()
+        moved = [k for k, (t, _) in a._shard_leaves().items() if not torch.equal(t, pre[k])]
+        check(bool(moved), "the step after the save left every leaf as it was")
+        del a
+        torch.cuda.empty_cache()
+        b = build_trainer(cfg, device=dev, seed=seed + 1)
+        t0 = time.perf_counter()
+        meta, tensors, epoch, _, resumed = b._async.restore_or_init(
+            path, b._shard_layout(), optional=("ema/",))
+        check(resumed and epoch == 1, "the fresh trainer did not resume the save before the step")
+        b._load_shards(meta, tensors)
+        del tensors
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        got = {k: t for k, (t, _) in b._shard_leaves().items()}
+        bad = [k for k in pre if k not in got or not torch.equal(got[k], pre[k])]
+        got_step = (b.step, b.optimizer.named_state(b.param_names)[0]["count"])
+        check(not bad and got.keys() == pre.keys() and got_step == pre_step,
+              f"the resumed state is not the state saved before the step: {bad[:5]}, step and "
+              f"count {got_step} / {pre_step}")
+        del got, pre
+        g = torch.Generator(device=dev).manual_seed(seed + 44)
+        losses.append(float(b.train_step(batches[0], 1e-4, generator=g)["loss"]))
+        check(losses[0] == losses[1] and np.isfinite(losses[0]),
+              f"the next step's loss: uninterrupted {losses[0]!r}, resumed {losses[1]!r}")
+        out.update(next_loss=losses[0], leaves_the_step_moved=len(moved))
+        log(f"  a save, then the next step at once while it is written, then wait; a trainer "
+            f"of seed {seed + 1} resumes in {out['resume_s']:.2f} s: every leaf, the step and "
+            f"the count bitwise the state before the step ({len(moved)} leaves the step moved); "
+            f"its next step's loss {losses[1]:.6f} bitwise the uninterrupted run's")
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_examples(seed, ckpt, results):
+    """Phase 15 (b): predict_and_plot_torch (one full-width window, 10
+    steps), quantize_checkpoint_torch (its drift) and
+    multichip_deconvolution_torch (one rank, the shipping config, 10 steps)
+    on the card, from ``ckpt``, each with its K1, K2 and K3 launches
+    counted."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dquartic_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dquartic_tpu_torch.utils.config import load_train_config
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _npy_windows(tmp, seed + 50, MZ)
+        cfg = load_train_config(CONFIG)
+        cfg["data"].update(parquet_directory=None, ms2_data_path=data["ms2"],
+                           ms1_data_path=data["ms1"])
+        cfg["wandb"]["use_wandb"] = False
+        cfg["tpu"].update(compute_dtype="bfloat16", quantize_mid=True, fused_resnet=True,
+                          linear_attn_impl="pallas_t")
+        config_path = _write_json(os.path.join(tmp, "config.json"), cfg)
+
+        def run(name, expect, fn):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn(example(name))
+            wall = time.perf_counter() - t0
+            counts = {k: n for k, n in launch_counts().items() if n}
+            check(counts == expect, f"{name}: launches {counts}, not {expect}")
+            out[name] = dict(wall_s=wall, launches=counts, **res)
+            log(f"  {name}: {wall:.2f} s wall, launches K1 {counts.get('linear_attention', 0)} "
+                f"K2 {counts.get('fused_resnet_block_t', 0)} K3 {counts.get('int8_matmul', 0)} "
+                f"(all: {counts}); {res}")
+            torch.cuda.empty_cache()
+
+        def predict(ex):
+            metrics = ex.predict_and_plot(config_path, ckpt, os.path.join(tmp, "pp"),
+                                          num_steps=EXAMPLE_STEPS, num_windows=1, device=dev)
+            check(len(metrics) == 1 and np.isfinite(metrics[0]["cosine_vs_target"]),
+                  f"predict_and_plot_torch metrics {metrics}")
+            with open(os.path.join(tmp, "pp", "metrics.json")) as f:
+                check(json.load(f) == metrics, "metrics.json is not the metrics returned")
+            return dict(cosine_vs_target=metrics[0]["cosine_vs_target"])
+
+        run("predict_and_plot_torch", {k: n * EXAMPLE_STEPS for k, n in SIMPLE_FORWARD.items()},
+            predict)
+
+        def quantize(ex):
+            res = ex.quantize_checkpoint(config_path, ckpt, os.path.join(tmp, "q.ckpt"), dev)
+            check(np.isfinite(res["drift"]) and 0 < res["drift"] < 0.25 and
+                  res["q_mb"] < res["raw_mb"] / 3, f"quantize_checkpoint_torch {res}")
+            return res
+
+        run("quantize_checkpoint_torch", {k: 2 * n for k, n in DRIFT_FORWARD.items()}, quantize)
+
+        def multichip(ex):
+            device, n = ex.start(dev)
+            check(n == 1, f"multichip_deconvolution_torch: {n} ranks, not one")
+            records, mesh = ex.deconvolve_windows(load_train_config(config_path), ckpt, device,
+                                                  n, num_steps=EXAMPLE_STEPS, num_batches=1,
+                                                  seed=seed)
+            ex.save_records(records, os.path.join(tmp, "mc.npz"))
+            pred = np.load(os.path.join(tmp, "mc.npz"))["pred_0"]
+            check(mesh is None and pred.shape == (1, RT, MZ) and bool(np.isfinite(pred).all()),
+                  f"multichip_deconvolution_torch: pred {pred.shape}")
+            return dict(pred_abs_mean=float(np.abs(pred).mean()))
+
+        run("multichip_deconvolution_torch",
+            {k: n * EXAMPLE_STEPS for k, n in SIMPLE_FORWARD.items()}, multichip)
+    results["examples"] = out
+
+
+def phase_async_and_examples(config, seed, gen, results):
+    """Phase 15: (a), then (b) from (a)'s msgpack file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.ckpt")
+        results["async_ckpt"] = phase_async_ckpt(config, seed, gen, results, keep_file=ckpt)
+        phase_examples(seed, ckpt, results)
+        for name, row in results.items():
+            if isinstance(row, dict) and "source" in row:
+                row["phase15_launches"] = dict(
+                    async_epoch=results["async_ckpt"]["launches"].get(name, 0),
+                    **{ex: results["examples"][ex]["launches"].get(name, 0)
+                       for ex in results["examples"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
@@ -3673,45 +4040,61 @@ def main(argv=None) -> int:
                  "step"),
     }
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    try:
-        log("== phase 1: card and build")
-        phase_info()
-        log("== phase 2: kernels vs plain versions")
-        phase_kernels(gen, results)
-        log("== phase 3: canonical UNet1d forward, kernels vs plain")
-        phase_forward(config, args.seed, gen, SIMPLE_FORWARD)
-        log("== phase 4: 50-step DDIM deconvolution through DDIMSampler.predict")
-        counts, _ = phase_sample(config, args.seed, gen, SIMPLE_FORWARD, results=results)
+    seed = args.seed
+
+    def phase_predict():
+        counts, _ = phase_sample(config, seed, gen, SIMPLE_FORWARD, results=results)
         for name, n in counts.items():
             results[name]["launches"] = n
-        log("== phase 5: backward kernels vs autograd of the plain versions")
-        phase_backward_kernels(gen, results)
-        log("== phase 6: full-width training through build_trainer")
-        phase_train(config, args.seed, gen, results)
-        log("== phase 7: Trainer.train at small depth: checkpoints, resume, EMA predict")
-        phase_train_loop(config, args.seed)
-        log("== phase 8: simple=False UNet1d (transformer bottleneck, flash attention)")
-        phase_tfer(config, args.seed, gen, results)
-        log("== phase 9: row-blocked linear attention (K8, K9) and the unfused UNet1d")
-        phase_rows(config, args.seed, gen, results)
-        log(f"== phase 10: sequence parallel (K6a-c) over an sp = {SP} group on one card")
-        phase_sp(config, args.seed, gen, results)
-        log("== phase 11: the command line: generate-config, train, resume, predict")
-        phase_cli(args.seed, results)
-        log("== phase 12: the remaining model families: unconditional UNet1d, CustomTransformer, "
-            "FourierFeatures")
-        phase_families(config, args.seed, gen, results)
-        log(f"== phase 13: data and tensor parallelism, dp = {DPTP} and tp = {DPTP} on one card")
-        phase_dp_tp(config, args.seed, gen, results)
-        log("== phase 14: the prediction hook through the CLI and the identifiability loop")
-        phase_viz_idf(args.seed, results)
+
+    phases = [
+        ("card and build", phase_info),
+        ("kernels vs plain versions", lambda: phase_kernels(gen, results)),
+        ("canonical UNet1d forward, kernels vs plain",
+         lambda: phase_forward(config, seed, gen, SIMPLE_FORWARD)),
+        ("50-step DDIM deconvolution through DDIMSampler.predict", phase_predict),
+        ("backward kernels vs autograd of the plain versions",
+         lambda: phase_backward_kernels(gen, results)),
+        ("full-width training through build_trainer",
+         lambda: phase_train(config, seed, gen, results)),
+        ("Trainer.train at small depth: checkpoints, resume, EMA predict",
+         lambda: phase_train_loop(config, seed)),
+        ("simple=False UNet1d (transformer bottleneck, flash attention)",
+         lambda: phase_tfer(config, seed, gen, results)),
+        ("row-blocked linear attention (K8, K9) and the unfused UNet1d",
+         lambda: phase_rows(config, seed, gen, results)),
+        (f"sequence parallel (K6a-c) over an sp = {SP} group on one card",
+         lambda: phase_sp(config, seed, gen, results)),
+        ("the command line: generate-config, train, resume, predict",
+         lambda: phase_cli(seed, results)),
+        ("the remaining model families: unconditional UNet1d, CustomTransformer, "
+         "FourierFeatures", lambda: phase_families(config, seed, gen, results)),
+        (f"data and tensor parallelism, dp = {DPTP} and tp = {DPTP} on one card",
+         lambda: phase_dp_tp(config, seed, gen, results)),
+        ("the prediction hook through the CLI and the identifiability loop",
+         lambda: phase_viz_idf(seed, results)),
+        ("the async sharded checkpoint backend at full width, and the examples on the card",
+         lambda: phase_async_and_examples(config, seed, gen, results)),
+    ]
+    phase_s = {}
+    try:
+        for n, (what, run) in enumerate(phases, 1):
+            log(f"== phase {n}: {what}")
+            t0 = time.perf_counter()
+            run()
+            phase_s[n] = time.perf_counter() - t0
+            log(f"== phase {n}: {phase_s[n]:.1f} s")
     except Exception as e:  # any failed phase fails the run, with its traceback
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"total {time.perf_counter() - T_START:.1f} s (build included)")
+    total = time.perf_counter() - T_START
+    log(f"total {total:.1f} s (build included)")
+    log("phase seconds: " + json.dumps({"phases": {str(k): round(v, 1) for k, v in
+                                                   phase_s.items()},
+                                        "total": round(total, 1)}))
     train = results.pop("train")
     log(f"train step: {json.dumps(train)}")
     log(f"simple=False: {json.dumps(results.pop('tfer'))}")
@@ -3721,6 +4104,8 @@ def main(argv=None) -> int:
     log(f"model families: {json.dumps(results.pop('families'))}")
     log(f"data and tensor parallelism: {json.dumps(results.pop('dp_tp'))}")
     log(f"prediction hook and identifiability: {json.dumps(results.pop('viz_idf'))}")
+    log(f"async checkpoints: {json.dumps(results.pop('async_ckpt'))}")
+    log(f"examples: {json.dumps(results.pop('examples'))}")
     kernels = [dict(name=k, route="cuda", **v) for k, v in results.items()]
     print(json.dumps({"kernels": kernels, "profile_retries": PROFILE_RETRIES}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,6 +32,20 @@ from ..ops.linear_attention import rmsnorm_reference
 from ..parallel.sequence import halo_exchange
 from ..parallel.tensor import full, product
 
+# flax.linen.initializers.lecun_normal: a normal truncated at two standard
+# deviations, scaled so that its standard deviation is sqrt(1 / fan_in);
+# this is the standard deviation of the unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` (the default kernel initializer of its Dense
+    and Conv) in place: a normal truncated at two standard deviations,
+    its standard deviation sqrt(1 / fan_in), from ``generator``."""
+    std = fan_in ** -0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
 
 class Conv1d(nn.Conv1d):
     """``nn.Conv1d`` with its parameters cast to the input's dtype at use.

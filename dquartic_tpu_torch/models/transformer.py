@@ -30,12 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.tensor import full
-from .layers import Linear, sinusoidal_pos_emb
-
-# flax.linen.initializers.lecun_normal: a normal truncated at two standard
-# deviations, scaled so that its standard deviation is sqrt(1 / fan_in);
-# this is the standard deviation of the unit normal truncated to [-2, 2].
-_TRUNC_STD = 0.87962566103423978
+from .layers import Linear, lecun_normal_, sinusoidal_pos_emb
 
 
 def apply_rope_pairwise(x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +148,7 @@ class CustomTransformer(nn.Module):
         elif ".norm" in name:
             t.fill_(1.0)
         else:
-            std = t.shape[1] ** -0.5 / _TRUNC_STD
-            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+            lecun_normal_(t, t.shape[1], generator)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -29,6 +29,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # device code optimized in parallel threads within a source: halves the
+    # build (163.4 s -> 78.9 s on 8 cores, the same library size), whose end
+    # waits on the largest sources (linear_attention_bwd.cu, fused_resnet_bwd.cu)
+    "--split-compile=0",
 ]
 
 _P = ctypes.c_void_p

@@ -9,9 +9,10 @@ step, params, opt_state, ema_params}`` (``params`` the model's
 state_dict, ``ema_params`` keyed by parameter name), written atomically
 through a ``.tmp`` file and ``os.replace``: the port's files are
 ``torch.save`` files under the JAX names, whatever the JAX package would
-write there. This is the port's only backend; ``build_trainer`` accepts
-``tpu.checkpoint_backend = "msgpack"`` (the default) and raises for
-``"orbax"`` or an unknown value.
+write there. This is the backend of ``tpu.checkpoint_backend =
+"msgpack"`` (the default); ``"orbax"`` selects the async sharded one,
+:mod:`~dquartic_tpu_torch.train.async_ckpt`, which only the trainer's
+resume reads.
 
 :func:`load_checkpoint` also reads the JAX package's files, flax msgpack
 of ``{epoch, best_loss, state: {step, params, opt_state, ema_params}}``,
@@ -191,6 +192,11 @@ def load_checkpoint(path: str, map_location=None) -> Optional[Dict[str, Any]]:
     and its tensors moved to ``map_location``."""
     if not os.path.exists(path):
         return None
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, not a checkpoint file: the async sharded checkpoints of "
+            "tpu.checkpoint_backend 'orbax' (and the JAX package's Orbax trees) are read only "
+            "by the trainer's resume; serve from a msgpack-backend checkpoint file")
     if _is_torch_checkpoint(path):
         return torch.load(path, map_location=map_location, weights_only=True)
     from ..compat.jax_params import jax_checkpoint_to_port

@@ -198,22 +198,43 @@ class ClippedAdamW(_Sharded):
                            for k, v in st.items()} for i, st in sd["state"].items()}
         return sd
 
-    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
+    def state_layout(self, names: Sequence[str]) -> Dict[str, tuple]:
+        """``{"<moment>/<name>": (this rank's shape, split axis or None)}``
+        of the moments :meth:`named_state` gives once a step was taken."""
+        return {f"{k}/{n}": (tuple(p.shape), d) for p, n, d in zip(self.params, names, self._dims())
+                for k in ("exp_avg", "exp_avg_sq")}
+
+    def named_state(self, names: Sequence[str]):
+        """This rank's state as it is (its shards under tp), in the
+        name-keyed form: ``({"kind", "count"}, {"<moment>/<name>": (tensor,
+        split axis or None)})``."""
+        st = self.adamw.state
+        steps = {float(st[p]["step"]) for p in self.params if p in st}
+        if len(steps) > 1:
+            raise ValueError(f"the AdamW step counts differ between parameters: {sorted(steps)}")
+        moments = {f"{k}/{n}": (st[p][k], d)
+                   for p, n, d in zip(self.params, names, self._dims()) if p in st
+                   for k in ("exp_avg", "exp_avg_sq")}
+        return {"kind": self.kind, "count": int(steps.pop()) if steps else 0}, moments
+
+    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None,
+                        sharded: bool = False) -> None:
         """Load this optimizer's ``state_dict``, or a name-keyed state
         (optax's ``mu``, ``nu`` and ``count`` as ``exp_avg``,
         ``exp_avg_sq`` and ``step``) for the parameters ``names``, in the
-        order of ``self.params``. Under tp the moments are whole and each
-        rank keeps its shard."""
+        order of ``self.params`` (a parameter without moments has no
+        state). Under tp the moments are whole and each rank keeps its
+        shard, or with ``sharded`` they are the rank's shards already."""
         if "kind" in state:
             _check_named(state, self.kind)
             sd = self.adamw.state_dict()
             sd["state"] = {
                 i: {"step": torch.tensor(float(state["count"])),
                     "exp_avg": state["exp_avg"][n], "exp_avg_sq": state["exp_avg_sq"][n]}
-                for i, n in enumerate(names)
+                for i, n in enumerate(names) if n in state.get("exp_avg", {})
             }
             state = sd
-        if self.tp_group is not None:
+        if self.tp_group is not None and not sharded:
             dims = self._dims()
             state = dict(state, state={
                 i: {k: self._own(v, dims[i]) if k != "step" else v for k, v in st.items()}
@@ -348,19 +369,41 @@ class ClippedFactoredRMS(_Sharded):
                 **{k: [self._whole(st[k], sd[j], whole) for st, sd in zip(self.state, sdims)]
                    for j, k in enumerate(keys)}}
 
-    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None) -> None:
+    def _named(self, names: Sequence[str]):
+        for n, st, sd in zip(names, self.state, self._stat_dims()):
+            for j, k in enumerate(("v_row", "v_col", "v")):
+                if st[k] is not None:
+                    yield f"{k}/{n}", st[k], sd[j]
+
+    def state_layout(self, names: Sequence[str]) -> Dict[str, tuple]:
+        """``{"<statistic>/<name>": (this rank's shape, split axis or
+        None)}`` of :meth:`named_state`."""
+        return {key: (tuple(t.shape), d) for key, t, d in self._named(names)}
+
+    def named_state(self, names: Sequence[str]):
+        """This rank's statistics as they are (its shards under tp), in the
+        name-keyed form: ``({"kind", "count"}, {"<statistic>/<name>":
+        (tensor, split axis or None)})``."""
+        return ({"kind": self.kind, "count": self.count},
+                {key: (t, d) for key, t, d in self._named(names)})
+
+    def load_state_dict(self, state: dict, names: Optional[Sequence[str]] = None,
+                        sharded: bool = False) -> None:
         """Load this optimizer's ``state_dict``, or a name-keyed state for
-        the parameters ``names`` in the order of ``self.params``. Under tp
-        the statistics are whole and each rank keeps its shards."""
+        the parameters ``names`` in the order of ``self.params`` (a
+        statistic the parameter does not keep may be absent). Under tp the
+        statistics are whole and each rank keeps its shards, or with
+        ``sharded`` they are the rank's shards already."""
         keys = ("v_row", "v_col", "v")
         if "kind" in state:
             _check_named(state, self.kind)
-            state = {"count": state["count"], **{k: [state[k][n] for n in names] for k in keys}}
+            state = {"count": state["count"],
+                     **{k: [state[k].get(n) for n in names] for k in keys}}
         self.count = int(state["count"])
         sdims = self._stat_dims()
         for i, (p, st) in enumerate(zip(self.params, self.state)):
             for j, k in enumerate(keys):
-                src = self._own(state[k][i], sdims[i][j])
+                src = state[k][i] if sharded else self._own(state[k][i], sdims[i][j])
                 if (st[k] is None) != (src is None):
                     raise ValueError(f"factored optimizer state {k} of parameter {i} "
                                      f"{tuple(p.shape)} does not match")

@@ -38,9 +38,13 @@ On a ``mesh`` (one process per rank, every rank running the same loop):
   clipping norm is the global one.
 
 The loss and the gradient norm in the metrics are the global ones; the
-EMA is alike on every replica. Only mesh rank 0 writes checkpoints, the
-whole state gathered over tp one leaf at a time (the file a single process
-writes); a resume cuts each rank's shards from it.
+EMA is alike on every replica. With ``checkpoint_backend="msgpack"`` (the
+default) only mesh rank 0 writes checkpoints, the whole state gathered
+over tp one leaf at a time (the file a single process writes); a resume
+cuts each rank's shards from it. With ``"orbax"`` (the JAX name of its
+async backend) the saves are async and sharded
+(:mod:`~dquartic_tpu_torch.train.async_ckpt`): every tp rank of the
+first replica writes its own shards, and a resume reads them.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from ..parallel.distributed import row_range
 from ..parallel.sequence import sp_all_reduce
 from ..parallel.tensor import MIN_TP_FEATURES, full_state_dict, gather, leaf_specs, own, \
     shard_model, shard_state_dict
+from .async_ckpt import AsyncCheckpointBackend
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
 from .optim import ClippedAdamW, ClippedFactoredRMS, WarmupCosineSchedule, make_optimizer
@@ -82,7 +87,12 @@ class Trainer:
         sync_every_batch: bool = False,
         mesh=None,
         tp_min_features: int = MIN_TP_FEATURES,
+        checkpoint_backend: str = "msgpack",
     ):
+        if checkpoint_backend not in ("msgpack", "orbax"):
+            raise ValueError(f"Unknown checkpoint_backend: {checkpoint_backend!r}")
+        self.checkpoint_backend = checkpoint_backend
+        self._async = AsyncCheckpointBackend(mesh) if checkpoint_backend == "orbax" else None
         self.model = model
         self.mesh = mesh
         self.sp_group = None
@@ -259,14 +269,25 @@ class Trainer:
         else:
             lr_of_epoch = lambda e: learning_rate  # noqa: E731
 
-        # a split model cuts its shards from the whole state on the host
-        where = "cpu" if any(self._splits) else self.device
-        ckpt, start_epoch, best_loss, resumed = restore_or_init(checkpoint_path, where)
+        if self._async is not None:
+            meta, tensors, start_epoch, best_loss, resumed = self._async.restore_or_init(
+                checkpoint_path, self._shard_layout(), optional=("ema/",))
+            latest = self._async.latest_path_for(checkpoint_path)
+        else:
+            # a split model cuts its shards from the whole state on the host
+            where = "cpu" if any(self._splits) else self.device
+            ckpt, start_epoch, best_loss, resumed = restore_or_init(checkpoint_path, where)
+            latest = latest_path_for(checkpoint_path)
         if resumed:
             # the stored epoch is the last completed one: continue after it
             start_epoch += 1
-            self._load(ckpt)
+            if self._async is not None:
+                self._load_shards(meta, tensors)
+            else:
+                self._load(ckpt)
 
+        if self._async is not None:  # the pinned host buffers, before the loop
+            self._async.prepare(self._shard_prototypes())
         best_epoch = start_epoch
         best_pending = False
         generator = torch.Generator(device=self.device)
@@ -305,14 +326,16 @@ class Trainer:
             if self.is_lead:
                 print(f"[Training] Epoch={epoch + 1}, lr={lr}, loss={avg_loss}")
 
+            saved = False
             if (epoch + 1) % checkpoint_every_n_epochs == 0 or epoch == epochs - 1:
-                self._save(latest_path_for(checkpoint_path), epoch, avg_loss)
+                self._save(latest, epoch, avg_loss)
+                saved = True
             if avg_loss < best_loss:
                 best_loss = avg_loss
                 best_epoch = epoch + 1
                 best_pending = True
             if best_pending and ((epoch + 1) % best_every_n_epochs == 0 or epoch == epochs - 1):
-                self._save(checkpoint_path, epoch, best_loss)
+                self._save(checkpoint_path, epoch, best_loss, again=saved)
                 best_pending = False
 
             if prediction_hook is not None and (epoch == 0 or epoch % log_every_n_epochs == 0):
@@ -322,14 +345,83 @@ class Trainer:
                 print(f"Training stopped at epoch {epoch}")
                 break
 
+        if self._async is not None:
+            self._async.wait()  # the last async save written before returning
         if self.is_lead:
             print(f"Best model checkpoint saved at epoch {best_epoch} with loss: {best_loss:.6f}")
         return self
 
-    def _save(self, path: str, epoch: int, loss: float) -> None:
+    def _save(self, path: str, epoch: int, loss: float, again: bool = False) -> None:
+        """Write the train state to ``path``: the msgpack backend's file
+        from mesh rank 0, or the async backend's shards from every rank of
+        the first replica (``again``: the state of the save just before,
+        whose snapshot is reused)."""
+        if self._async is not None:
+            opt, _ = self.optimizer.named_state(self.param_names)
+            header = {"epoch": epoch, "best_loss": loss, "step": self.step,
+                      "optimizer": opt["kind"], "count": opt["count"]}
+            self._async.save(path, header, None if again else self._shard_leaves())
+            return
         payload = self.checkpoint_payload(epoch, loss)
         if payload is not None:
             save_checkpoint(path, payload)
+
+    # the async backend's keys: "params/<state_dict name>", "ema/<name>",
+    # "opt/<moment>/<name>"; each leaf this rank's tensor as it is
+
+    def _shard_leaves(self):
+        """``{key: (tensor, split axis or None)}`` of this rank's train
+        state, its shards under tp, with no gather."""
+        specs = leaf_specs(self.model)
+        leaves = {f"params/{n}": (t, specs[n][1] if n in specs else None)
+                  for n, t in self.model.state_dict().items()}
+        axes = [None if s is None else s[1] for s in self._splits]
+        if self.ema_params is not None:
+            leaves.update({f"ema/{n}": (e, a)
+                           for n, e, a in zip(self.param_names, self.ema_params, axes)})
+        _, moments = self.optimizer.named_state(self.param_names)
+        leaves.update({f"opt/{k}": v for k, v in moments.items()})
+        return leaves
+
+    def _shard_layout(self):
+        """``{key: (this rank's shape, split axis or None)}`` of the leaves
+        a resume reads."""
+        layout = {k: (tuple(t.shape), a) for k, (t, a) in self._shard_leaves().items()
+                  if not k.startswith("opt/")}
+        layout.update({f"opt/{k}": v
+                       for k, v in self.optimizer.state_layout(self.param_names).items()})
+        return layout
+
+    def _shard_prototypes(self):
+        """:meth:`_shard_leaves` with each optimizer moment that its first
+        step makes (AdamW's) stood for by its parameter, whose shape and
+        dtype it takes."""
+        leaves = self._shard_leaves()
+        params = dict(zip(self.param_names, self.optimizer.params))
+        for key, (_, axis) in self._shard_layout().items():
+            if key not in leaves:  # "opt/<moment>/<name>"
+                leaves[key] = (params[key.split("/", 2)[2]], axis)
+        return leaves
+
+    def _load_shards(self, meta: Dict[str, Any], tensors: Dict[str, torch.Tensor]) -> None:
+        """Load this rank's shards of an async checkpoint (as
+        :meth:`_load` loads a whole one)."""
+        kind = self.optimizer.kind
+        if meta["optimizer"] != kind:
+            raise ValueError(f"optimizer state of kind {meta['optimizer']!r} cannot load into "
+                             f"the {kind!r} optimizer (tpu.optimizer)")
+        params = {k[len("params/"):]: t for k, t in tensors.items() if k.startswith("params/")}
+        self.model.load_state_dict(params)
+        named: Dict[str, Any] = {"kind": kind, "count": meta["count"]}
+        for k, t in tensors.items():
+            if k.startswith("opt/"):
+                moment, name = k[len("opt/"):].split("/", 1)
+                named.setdefault(moment, {})[name] = t
+        self.optimizer.load_state_dict(named, self.param_names, sharded=True)
+        self.step = int(meta["step"])
+        if self.ema_params is not None and f"ema/{self.param_names[0]}" in tensors:
+            torch._foreach_copy_(self.ema_params,
+                                 [tensors[f"ema/{n}"] for n in self.param_names])
 
     def checkpoint_payload(self, epoch: int, loss: float) -> Optional[Dict[str, Any]]:
         """The checkpoint of the train state on mesh rank 0, None on the

@@ -17,7 +17,7 @@ import torch.distributed as dist
 
 from ..core import DDIMProcess, make_schedule
 from ..data import DIAMSDataset, PairBatches, prefetch_iterator
-from ..models.layers import LayerNorm1d, RMSNorm
+from ..models.layers import LayerNorm1d, RMSNorm, lecun_normal_
 from ..models.transformer import CustomTransformer, LayerNorm
 from ..models.unet1d import UNet1d
 from ..ops.quantization import quantize_mid_block_params
@@ -85,7 +85,7 @@ def _unet_leaf(name: str, t: torch.Tensor, generator: torch.Generator) -> None:
     elif name.endswith(("bias", ".b")):
         t.zero_()
     else:
-        t.normal_(0.0, t[0].numel() ** -0.5, generator=generator)
+        lecun_normal_(t, t[0].numel(), generator)
 
 
 @torch.no_grad()
@@ -109,8 +109,9 @@ def init_leaves(model: torch.nn.Module, rule, generator: torch.Generator) -> Non
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights of a UNet1d: norm gains 1, biases
-    (LayerNorm1d's ``b`` among them) 0, other weights N(0, 1/fan_in) (LeCun
-    normal, as the JAX initializers)."""
+    (LayerNorm1d's ``b`` among them) 0, other weights flax's LeCun normal
+    (:func:`~dquartic_tpu_torch.models.layers.lecun_normal_`: truncated at
+    two standard deviations, variance 1/fan_in), as the JAX initializers."""
     init_leaves(model, _unet_leaf, generator)
 
 
@@ -297,20 +298,6 @@ def build_dataset(config: Dict[str, Any], seed: int = 0, mesh=None, device=None)
     return prefetch_iterator(batches, device, size=config["tpu"]["prefetch"])
 
 
-def _check_checkpoint_backend(config: Dict[str, Any]) -> None:
-    """``tpu.checkpoint_backend``: the port writes its checkpoints one way
-    (:mod:`~dquartic_tpu_torch.train.checkpoint`), so only the default
-    ``"msgpack"`` names it; the JAX package's ``"orbax"`` and any unknown
-    value raise rather than train and write something else."""
-    backend = config["tpu"].get("checkpoint_backend", "msgpack")
-    if backend == "orbax":
-        raise ValueError(
-            "tpu.checkpoint_backend 'orbax': the PyTorch port has no Orbax backend; it "
-            "writes torch.save files under the JAX package's .ckpt names (use 'msgpack')")
-    if backend != "msgpack":
-        raise ValueError(f"Unknown checkpoint_backend: {backend!r}")
-
-
 def build_logger(config: Dict[str, Any], mesh=None):
     """The metrics logger of the JAX ``build_trainer``: wandb from the
     config's ``wandb`` block when ``use_wandb`` is set and wandb is
@@ -352,11 +339,12 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
     (None: :func:`build_logger` of the config). On a mesh the trainer runs
     dp as DDP and tp on the leaves :func:`build_model` split.
 
-    ``tpu.checkpoint_backend`` must be ``"msgpack"``, the default: the
-    port's checkpoints are ``torch.save`` files under the JAX package's
-    names, and it has no Orbax backend, so ``"orbax"`` raises, as does an
-    unknown value (as in the JAX ``Trainer``). It resumes from the JAX
-    package's msgpack files too."""
+    ``tpu.checkpoint_backend`` is ``"msgpack"`` (the default: single
+    ``torch.save`` files under the JAX package's names, written from mesh
+    rank 0; the JAX package's msgpack files resume too) or ``"orbax"``,
+    the JAX name of the async sharded backend
+    (:mod:`~dquartic_tpu_torch.train.async_ckpt`, the port's own format);
+    an unknown value raises, as in the JAX ``Trainer``."""
     m = config["model"]
     if config["tpu"].get("quantize_mid") or (
             m["use_model"] == "UNet1d" and m["UNet1d"].get("quantize_mid")):
@@ -365,7 +353,6 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
             "in a training config: int8 weights are frozen post-training artifacts with "
             "no gradient. Train with float32 master weights, then quantize for predict."
         )
-    _check_checkpoint_backend(config)
     device = resolve_device(device, "build_trainer")
     if mesh is None:
         mesh = build_mesh(config, config["model"].get("batch_size"))
@@ -380,4 +367,5 @@ def build_trainer(config: Dict[str, Any], device=None, seed: int = 0, logger=Non
         logger=logger,
         seed=seed,
         mesh=mesh,
+        checkpoint_backend=config["tpu"].get("checkpoint_backend", "msgpack"),
     )

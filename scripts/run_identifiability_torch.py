@@ -17,12 +17,14 @@ target-only plus interferer-only; 0.5 = mixture-like, 1.0 = perfect),
 The same env knobs, names and defaults as the JAX script (IDF_ROOT,
 IDF_STEPS, IDF_TOTAL, IDF_BATCH, IDF_EVAL_EVERY, IDF_LR, IDF_WINDOWS,
 IDF_MZ, IDF_RESUME, IDF_SAVE_EVERY, IDF_MS1W, IDF_PRED, IDF_WEIGHTING,
-IDF_EMA, IDF_OVERFIT, IDF_INFINITE), and three of its own: ``IDF_DEVICE``:
+IDF_EMA, IDF_OVERFIT, IDF_INFINITE), and four of its own: ``IDF_DEVICE``:
 the script runs on the CUDA card unless it names another device (``cpu``);
 without a card and without it, it fails. ``IDF_COMPUTE_DTYPE``
 (``bfloat16``, as the JAX script; ``float32``) and ``IDF_PLAIN=1`` (the
 model's kernels off, its plain PyTorch versions on the card) run the same
 seeds under other numerics, to tell numerics from training dynamics.
+``IDF_SEED`` (0, the JAX script's ``build_trainer`` default) seeds the
+trainer's initial weights, to tell one draw of them from another.
 
 What differs from the JAX script, and why:
 
@@ -87,6 +89,7 @@ RESUME = os.environ.get("IDF_RESUME") == "1"
 DEVICE = os.environ.get("IDF_DEVICE") or None
 COMPUTE_DTYPE = os.environ.get("IDF_COMPUTE_DTYPE", "bfloat16")
 PLAIN = os.environ.get("IDF_PLAIN") == "1"
+SEED = int(os.environ.get("IDF_SEED", "0"))
 RT, MZ = 34, int(os.environ.get("IDF_MZ", "2560"))
 N_HELD = 2
 
@@ -121,6 +124,7 @@ class Knobs:
     device: Optional[str] = DEVICE
     compute_dtype: str = COMPUTE_DTYPE
     plain: bool = PLAIN
+    seed: int = SEED
 
     @property
     def mode(self) -> str:
@@ -416,7 +420,7 @@ def setup(knobs: Knobs, edit: Optional[Callable[[dict], None]] = None) -> Experi
     device = resolve_device(knobs.device, "run_identifiability_torch")
     ms2, ms1 = window_set(knobs.windows, knobs.mz)
     config = write_config(knobs, edit)
-    trainer = build_trainer(config, device=device)
+    trainer = build_trainer(config, device=device, seed=knobs.seed)
     if knobs.plain:
         trainer.model.use_kernels(False)
     process_eval = dataclasses.replace(build_process(config), parity_neighbor_stepping=False)

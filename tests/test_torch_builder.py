@@ -1,9 +1,10 @@
 """``build_trainer``'s handling of the config's checkpoint backend and metrics
 log, against the JAX package's builder and logger.
 
-The JAX ``Trainer`` raises for an unknown ``tpu.checkpoint_backend``; the
-port has one backend (``torch.save`` files under the JAX names), so it
-takes ``"msgpack"`` only. The JAX ``build_trainer`` always builds a
+The JAX ``Trainer`` takes ``tpu.checkpoint_backend`` ``"msgpack"`` or
+``"orbax"`` and raises for any other value; the port takes the same two
+names (``"orbax"`` selects its async sharded backend, the port's own
+format) and raises alike. The JAX ``build_trainer`` always builds a
 logger (``make_logger``): wandb where configured and installed, else
 ``<checkpoint dir>/metrics.jsonl``; the port builds the same one from
 its own copy of the logging module.
@@ -43,11 +44,21 @@ def _batch(seed):
 
 
 @pytest.mark.parametrize("backend,match", [
-    ("orbax", "no Orbax backend"), ("msgpak", "Unknown checkpoint_backend"),
+    ("Orbax", "Unknown checkpoint_backend"), ("msgpak", "Unknown checkpoint_backend"),
 ])
 def test_config_checkpoint_backend_other_than_msgpack_raises(backend, match):
+    """An unknown name raises, as in the JAX ``Trainer`` (which compares
+    the exact string: ``"Orbax"`` is unknown there too)."""
     with pytest.raises(ValueError, match=match):
         build_trainer(_config(checkpoint_backend=backend), device="cpu")
+
+
+def test_config_checkpoint_backend_orbax_builds_the_async_backend():
+    from dquartic_tpu_torch.train.async_ckpt import AsyncCheckpointBackend
+
+    tr = build_trainer(_config(checkpoint_backend="orbax"), device="cpu", seed=1)
+    assert tr.checkpoint_backend == "orbax"
+    assert isinstance(tr._async, AsyncCheckpointBackend)
 
 
 def test_config_checkpoint_backend_msgpack_builds():
@@ -138,3 +149,46 @@ def test_build_mesh_leaves_idle_processes_out(monkeypatch):
     assert port_builder.build_mesh(_config(), batch_size=1) is None
     monkeypatch.setattr(port_builder, "make_mesh", lambda dp, sp, tp: (dp, sp, tp))
     assert port_builder.build_mesh(_config(), batch_size=2) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("simple", [True, False])
+def test_seeded_unet_weights_are_drawn_as_jax_draws_them(simple):
+    """``build_model``'s seeded UNet1d draws each kernel as the JAX
+    UNet1d's ``init`` does, from flax's ``lecun_normal``: a normal
+    truncated at two standard deviations, its standard deviation
+    sqrt(1 / fan_in); gains 1 and biases 0. Per kernel, |w|·sqrt(fan_in)
+    stays within 2 / 0.8796 = 2.2737 on both sides (an untruncated normal
+    reaches 3-5 at these sizes), and the standard deviation of a kernel of
+    4096 or more weights is within 5 % of JAX's."""
+    import jax
+
+    from dquartic_tpu.utils.builder import build_model as jax_build_model
+    from dquartic_tpu_torch.compat.jax_params import jax_params_to_torch
+    from dquartic_tpu_torch.utils.builder import build_model
+
+    cfg = _config()
+    cfg["model"]["UNet1d"].update(downsample_dim=256, simple=simple, tfer_depth=1)
+    cfg["tpu"]["fused_resnet"] = simple
+    rt, mz = 4, 256
+    x = np.zeros((1, rt, mz), np.float32)
+    jparams = jax_build_model(cfg).init(jax.random.PRNGKey(0), x, np.zeros((1,), np.int32), x,
+                                        np.zeros((1, rt), np.float32))
+    ref = jax_params_to_torch(jparams, cfg["model"]["UNet1d"]["dim_mults"])
+    port = build_model(cfg, device="cpu", seed=0, trainable=True).state_dict()
+    assert set(port) == set(ref)
+    bound = 2 / 0.87962566103423978 + 1e-4
+    kernels = 0
+    for name, t in port.items():
+        w, r = t.double().numpy(), np.asarray(ref[name], np.float64)
+        if name.endswith(".g"):
+            assert (w == 1).all() and (r == 1).all(), name
+        elif name.endswith(("bias", ".b")):
+            assert (w == 0).all() and (r == 0).all(), name
+        else:
+            fan_in = w[0].size
+            assert np.abs(w).max() * fan_in ** 0.5 <= bound, name
+            assert np.abs(r).max() * fan_in ** 0.5 <= bound, name
+            if w.size >= 4096:
+                kernels += 1
+                assert abs(w.std() / r.std() - 1) < 0.05, name
+    assert kernels >= 4

@@ -63,6 +63,7 @@ from dquartic_tpu_torch.core import DDIMProcess, make_schedule
 from dquartic_tpu_torch.data import DIAMSDataset
 from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.train import Trainer, make_optimizer
+from dquartic_tpu_torch.utils.builder import build_trainer
 from test_torch_model import SMALL, random_params
 from test_torch_parallel import _scaled
 from test_torch_trainer import _jax_draws
@@ -403,6 +404,18 @@ def test_numerics_knobs_reach_the_trainer(tmp_path, dtype, plain):
     assert exp.trainer.model.compute_dtype == getattr(torch, dtype)
     flags = [m.kernels for m in exp.trainer.model.modules() if hasattr(m, "kernels")]
     assert flags and all(f is not plain for f in flags)
+
+
+def test_seed_knob_seeds_the_trainers_initial_weights(tmp_path):
+    """IDF_SEED: the trainer's initial weights, the build_trainer seed (0 by
+    default, as the JAX script's); the windows and the eval noise stay."""
+    runs = {seed: idf.setup(_knobs(tmp_path / str(seed), seed=seed), _tiny) for seed in (0, 1)}
+    assert idf.Knobs().seed == 0
+    ref = build_trainer(runs[0].config, device="cpu", seed=0)
+    p0, p1 = (list(runs[s].trainer.optimizer.params) for s in (0, 1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, ref.optimizer.params))
+    assert not all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(runs[0].eval_noise, runs[1].eval_noise)
 
 
 def test_main_writes_the_jax_scripts_records_and_the_figure(tmp_path):

@@ -17,6 +17,7 @@ from dquartic_tpu_torch.models import UNet1d
 from dquartic_tpu_torch.models.transformer import CustomTransformer
 from dquartic_tpu_torch.parallel import Mesh, full_state_dict, local_rows
 from dquartic_tpu_torch.train import Trainer, make_optimizer
+from dquartic_tpu_torch.train.optim import WarmupCosineSchedule
 from dquartic_tpu_torch.utils.builder import build_dataset, build_model, build_trainer, init_weights
 from test_torch_parallel import (
     CT, LR, MIN, MZ, RT, TINY, _batch, _np, _process, _Ranks, _scaled, _small_config, _t,
@@ -181,30 +182,69 @@ def _train(mesh, kind, path, epochs, batch):
     return _np(full_state_dict(model)), tr.step
 
 
+def _step_from(ckpt, kind, batch):
+    """The reference of a one-process resume of ``ckpt`` (a latest file of
+    epoch 0) to epoch 1: the state loaded by hand into a model of another
+    seed, then the step with the learning rate and draws ``train`` gives
+    epoch 1 of 2. Its parameters and optimizer state by position."""
+    model = _family_model("unet_fused", 5)
+    tr = Trainer(model, _process(), optimizer=make_optimizer(model.parameters(), kind=kind),
+                 tp_min_features=MIN)
+    model.load_state_dict(ckpt["params"])
+    tr.optimizer.load_state_dict(ckpt["opt_state"], tr.param_names)
+    tr.step = int(ckpt["step"])
+    lr = float(np.float32(WarmupCosineSchedule.clamped(LR, 1, 2)(1)))
+    tr.train_step({k: _t(v) for k, v in batch.items()}, lr,
+                  generator=torch.Generator().manual_seed(tr.seed * 1_000_003 + 1))
+    return _np(full_state_dict(model)), _opt_flat(tr.optimizer.state_dict())
+
+
+def _latest(directory):
+    return torch.load(os.path.join(directory, "dquartic_latest_checkpoint.ckpt"),
+                      weights_only=True)
+
+
 @pytest.mark.parametrize("kind", ["adamw", "factored"])
 def test_checkpoints_move_between_tp_sizes(ranks, tmp_path, kind):
-    """A run checkpointed at tp = 2 resumes at tp = 1 to the next step of an
-    uninterrupted run, and one checkpointed at tp = 1 resumes at tp = 2;
-    the file holds whole leaves and optimizer state (the one a single
-    process writes)."""
+    """A run checkpointed at tp = 2 resumes at tp = 1, and one checkpointed
+    at tp = 1 resumes at tp = 2; the file holds whole leaves and optimizer
+    state (the one a single process writes). Both resumes take the
+    parameters of an uninterrupted run's second step, and the tp = 2 one
+    its optimizer moments. Adam's and the factored optimizer's first update
+    is about lr·sign(g), so the gradients near 0 whose sign the tp = 2
+    summation order flips move their parameters by 2·lr at the first step,
+    which moves every gradient of the second: the tp = 1 resume of the
+    tp = 2 file is therefore held, bitwise, against that file's state
+    loaded by hand and stepped (``_step_from``), and the file against the
+    one-process file of the same epoch."""
     batch = _batch(1, 41)
     full, steps = _train(None, kind, str(tmp_path / "whole" / "best.ckpt"), 2, batch)
     assert steps == 2
     a, b = str(tmp_path / "a" / "best.ckpt"), str(tmp_path / "b" / "best.ckpt")
     ranks.run("_train", (1, 1, 2), kind, a, 1, batch)
-    ckpt = torch.load(str(tmp_path / "a" / "dquartic_latest_checkpoint.ckpt"), weights_only=True)
-    whole_shapes = {k: tuple(v.shape) for k, v in _family_model("unet_fused", 4).state_dict().items()}
-    assert {k: tuple(v.shape) for k, v in ckpt["params"].items()} == whole_shapes
-    resumed_1, _ = _train(None, kind, a, 2, batch)
     _train(None, kind, b, 1, batch)
+    a1, b1 = _latest(tmp_path / "a"), _latest(tmp_path / "b")
+    whole_shapes = {k: tuple(v.shape) for k, v in _family_model("unet_fused", 4).state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in a1["params"].items()} == whole_shapes
+    assert a1["step"] == b1["step"] == 1
+    for k, v in b1["params"].items():
+        np.testing.assert_allclose(a1["params"][k], v, rtol=1e-5, atol=2 * LR, err_msg=k)
+    _moments_agree(_opt_flat(a1["opt_state"]), _opt_flat(b1["opt_state"]), "tp = 2 file")
+
+    resumed_1, _ = _train(None, kind, a, 2, batch)
     resumed_2 = ranks.run("_train", (1, 1, 2), kind, b, 2, batch)
     for got in [resumed_1] + [r[0] for r in resumed_2]:
         for k, v in full.items():
             np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=2 * LR, err_msg=k)
     # the optimizer state the resumed runs write, which atol 2·lr cannot see
-    want = _opt_arrays(tmp_path / "whole")
-    for d in (a, b):
-        _moments_agree(_opt_arrays(os.path.dirname(d)), want, d)
+    ref_params, ref_opt = _step_from(a1, kind, batch)
+    for k, v in ref_params.items():
+        np.testing.assert_array_equal(resumed_1[k], v, err_msg=k)
+    got = _opt_arrays(tmp_path / "a")
+    assert got.keys() == ref_opt.keys()
+    for k, v in ref_opt.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    _moments_agree(_opt_arrays(tmp_path / "b"), _opt_arrays(tmp_path / "whole"), b)
 
 
 def _moments_agree(got, want, what):
@@ -228,8 +268,7 @@ def _moments_agree(got, want, what):
 def _opt_arrays(directory):
     """The optimizer state of a directory's latest checkpoint, by position
     and moment."""
-    return _opt_flat(torch.load(os.path.join(directory, "dquartic_latest_checkpoint.ckpt"),
-                                weights_only=True)["opt_state"])
+    return _opt_flat(_latest(directory)["opt_state"])
 
 
 def _opt_flat(st):
