@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .schedules import DiffusionSchedule
 
 # (x_t, t (b,) int64, init_cond, attn_cond) -> prediction (eps or x0)
@@ -126,7 +127,8 @@ class DDIMProcess:
 
         x, eps = x_t, torch.zeros_like(x_t)
         for t, t_prev in zip(steps.tolist(), steps_prev.tolist()):
-            x, eps = self.ddim_step(denoise_fn, x, t, t_prev, ms2_n, ms1_n)
+            with profiling.span("ddim.step"):
+                x, eps = self.ddim_step(denoise_fn, x, t, t_prev, ms2_n, ms1_n)
 
         x_out = self.unnormalize(x)
         pred_noise = self.unnormalize(eps)

@@ -36,6 +36,7 @@ import torch
 from ..core.diffusion import DDIMProcess
 from ..parallel.distributed import row_range
 from ..parallel.tensor import gather
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 
@@ -124,15 +125,19 @@ class DDIMSampler:
         generator = torch.Generator(device=device).manual_seed(seed)
         out: List[Dict[str, np.ndarray]] = []
         for batch in dataset:
-            ms2_1, ms1_1, ms2_2 = (torch.as_tensor(batch[k], device=device)
-                                   for k in ("ms2_1", "ms1_1", "ms2_2"))
-            ms2_cond = mixture_weights[0] * ms2_1 + mixture_weights[1] * ms2_2
-            pred, pred_noise = self.predict_batch(generator, ms2_cond, ms1_1, num_steps)
-            rec = {"ms2_1": ms2_1, "ms1_1": ms1_1, "mixture": ms2_cond, "pred": pred.float(),
-                   "pred_noise": pred_noise.float()}
-            if self._dp > 1:  # the replicas' rows, in rank order
-                rec = {k: gather(v.contiguous(), self.mesh.dp_group, 0) for k, v in rec.items()}
-            out.append({k: v.cpu().numpy() for k, v in rec.items()})
+            with profiling.request("predict"):
+                with profiling.span("predict.to_device"):
+                    ms2_1, ms1_1, ms2_2 = (torch.as_tensor(batch[k], device=device)
+                                           for k in ("ms2_1", "ms1_1", "ms2_2"))
+                ms2_cond = mixture_weights[0] * ms2_1 + mixture_weights[1] * ms2_2
+                pred, pred_noise = self.predict_batch(generator, ms2_cond, ms1_1, num_steps)
+                rec = {"ms2_1": ms2_1, "ms1_1": ms1_1, "mixture": ms2_cond,
+                       "pred": pred.float(), "pred_noise": pred_noise.float()}
+                if self._dp > 1:  # the replicas' rows, in rank order
+                    rec = {k: gather(v.contiguous(), self.mesh.dp_group, 0)
+                           for k, v in rec.items()}
+                with profiling.span("predict.to_host"):
+                    out.append({k: v.cpu().numpy() for k, v in rec.items()})
         return out
 
 

@@ -67,6 +67,7 @@ from .attention import Attention, LinearAttentionBlock, PreNorm, Residual, Trans
 from .fused_blocks import ResnetBlockT
 from ..parallel.sequence import sharded_levels, sp_gather, sp_slice
 from ..parallel.sharding import shard_batch
+from ..utils import profiling
 from .layers import (
     ConditionalScaleShift, Conv1d, Downsample, Linear, ResnetBlock, SinusoidalPosEmb, Upsample,
 )
@@ -291,6 +292,10 @@ class UNet1d(nn.Module):
         """x (b, rt, mz) or (rt, mz); time (b,); init_cond like x; attn_cond
         (b, rt) or (b, rt, mz_c) (both ignored by the unconditional model).
         Returns (b, rt·out_dim, mz)."""
+        with profiling.span("unet.forward"):
+            return self._forward(x, time, init_cond, attn_cond)
+
+    def _forward(self, x, time, init_cond, attn_cond):
         if x.dim() == 2:
             x = x[None]
         b, rt, mz = x.shape
@@ -363,11 +368,13 @@ class UNet1d(nn.Module):
                 f"bottleneck width {mid_dim}*{mzp} at mz={mz} does not match the "
                 f"{self.mid_ch} channels this model was built for"
             )
-        x = x.reshape(b, rt, self.mid_ch).transpose(1, 2)
-        x = self._block(self.mid_block1, x, t)
-        x = self.mid_attn(x, cond)
-        x = self._block(self.mid_block2, x, t)
-        x = x.transpose(1, 2).reshape(b * rt, mid_dim, mzp)
+        grad = profiling.backward_span("unet.mid.backward")
+        with profiling.span("unet.mid"):
+            x = grad.entry(x.reshape(b, rt, self.mid_ch).transpose(1, 2))
+            x = self._block(self.mid_block1, x, t)
+            x = self.mid_attn(x, cond)
+            x = self._block(self.mid_block2, x, t)
+            x = grad.exit(x).transpose(1, 2).reshape(b * rt, mid_dim, mzp)
         if group is not None and k == n_levels:
             x = sp_slice(x, group)
 

@@ -60,6 +60,7 @@ from ..parallel.distributed import row_range
 from ..parallel.sequence import sp_all_reduce
 from ..parallel.tensor import MIN_TP_FEATURES, full_state_dict, gather, leaf_specs, own, \
     shard_model, shard_state_dict
+from ..utils import profiling
 from .async_ckpt import AsyncCheckpointBackend
 from .callbacks import CallbackHandler
 from .checkpoint import latest_path_for, restore_or_init, save_checkpoint
@@ -195,29 +196,35 @@ class Trainer:
         ``ms2_1``), or are drawn from ``generator``; B is the global batch,
         the rank's rows times dp. Returns device scalars ``loss`` and
         ``grad_norm`` (before clipping), both global."""
-        b = self._device_batch(batch)
-        w0, w1 = self.mixture_weights
-        ms2_cond = w0 * b["ms2_1"] + w1 * b["ms2_2"]
-        t, eps = self._draws(b["ms2_1"], generator, t, eps)
-        self.optimizer.zero_grad()
-        loss, _ = self.process.train_loss(
-            self._denoise, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps
-        )
-        loss.backward()
-        if self.sp_group is not None:  # each rank holds its partial gradients
-            for p in self.optimizer.params:
-                if p.grad is not None:
-                    sp_all_reduce(p.grad, self.sp_group)
-        loss = loss.detach()
-        if self.mesh is not None and self.mesh.dp > 1:  # the mean over the replicas' rows
-            loss = sp_all_reduce(loss.clone(), self.mesh.dp_group).div_(self.mesh.dp)
-        grad_norm = self.optimizer.step(lr)
-        if self.ema_params is not None:
-            d = self.ema_decay
-            params = [p.detach() for p in self.optimizer.params]
-            torch._foreach_mul_(self.ema_params, d)
-            torch._foreach_add_(self.ema_params, params, alpha=1.0 - d)
-        self.step += 1
+        with profiling.request("train_step"):
+            with profiling.span("train_step.batch"):
+                b = self._device_batch(batch)
+                w0, w1 = self.mixture_weights
+                ms2_cond = w0 * b["ms2_1"] + w1 * b["ms2_2"]
+                t, eps = self._draws(b["ms2_1"], generator, t, eps)
+            self.optimizer.zero_grad()
+            with profiling.span("train_step.forward"):
+                loss, _ = self.process.train_loss(
+                    self._denoise, b["ms2_1"], ms2_cond, b["ms1_1"], t=t, eps=eps
+                )
+            with profiling.span("train_step.backward"):
+                loss.backward()
+                if self.sp_group is not None:  # each rank holds its partial gradients
+                    for p in self.optimizer.params:
+                        if p.grad is not None:
+                            sp_all_reduce(p.grad, self.sp_group)
+                loss = loss.detach()
+                if self.mesh is not None and self.mesh.dp > 1:  # the mean over the replicas' rows
+                    loss = sp_all_reduce(loss.clone(), self.mesh.dp_group).div_(self.mesh.dp)
+            with profiling.span("train_step.optimizer"):
+                grad_norm = self.optimizer.step(lr)
+            if self.ema_params is not None:
+                with profiling.span("train_step.ema"):
+                    d = self.ema_decay
+                    params = [p.detach() for p in self.optimizer.params]
+                    torch._foreach_mul_(self.ema_params, d)
+                    torch._foreach_add_(self.ema_params, params, alpha=1.0 - d)
+            self.step += 1
         return {"loss": loss, "grad_norm": grad_norm}
 
     def _draws(self, x: torch.Tensor, generator, t, eps):
