@@ -55,25 +55,48 @@ class Faulty:
         return [{"pred": pred}]
 
 
+LATE_DRIFT = 1e4  # the factor on the mid attention's gradients of the planted late_drift
+
+
 @contextlib.contextmanager
 def planted(fault):
     """The harness's modes with ``fault`` planted in the program they build:
-    a sampling fault of :class:`Faulty`, or ``state_unchanged`` (a
-    training step that leaves the parameters and moments as they were)."""
+    a sampling fault of :class:`Faulty`; ``state_unchanged`` (a training
+    step that leaves the parameters and moments as they were); and two
+    faults that start after the first ``check.steps`` steps, as a backward
+    does that goes wrong only once its values have grown: ``late_drift``
+    (the gradients of the mid attention's leaves come out ``LATE_DRIFT``
+    times too large) and ``late_double`` (every leaf's gradient counted
+    twice)."""
     from cuda_bench.modes import sample, train
 
     if fault is None:
         yield
         return
+    base = train.PortTrainer
     if fault == "state_unchanged":
-        base = train.PortTrainer
-
         class Unchanged(base):
             def __init__(self, cell, P):
                 super().__init__(cell, P)
                 self.trainer.optimizer.adamw.step = lambda *a, **k: None
 
         mod, attr, value = train, "PortTrainer", Unchanged
+    elif fault in ("late_drift", "late_double"):
+        prefix, factor = ("mid_attn.fn.fn.", LATE_DRIFT) if fault == "late_drift" else ("", 2.0)
+
+        class Late(base):
+            def __init__(self, cell, P):
+                super().__init__(cell, P)
+                self.steps, n = 0, cell.workload["check"]["steps"]
+                for name, (p, _) in self.leaves.items():
+                    if name.startswith(prefix):
+                        p.register_hook(lambda g: g * factor if self.steps > n else g)
+
+            def step(self, *a):
+                self.steps += 1
+                return super().step(*a)
+
+        mod, attr, value = train, "PortTrainer", Late
     else:
         build = sample.build
         mod, attr, value = sample, "build", lambda cell, P: Faulty(build(cell, P), fault)

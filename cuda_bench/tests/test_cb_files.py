@@ -49,16 +49,38 @@ def test_cell_files(cell):
     assert any(cell in m.get("workloads", [cell]) for m in BENCH["per_layer"])
 
 
+def _unet_full():
+    """The full UNet1d as its configuration file would state it: the
+    canonical block with ``simple: false`` and the constructor's
+    ``tfer_depth``, outside ``BENCHMARK.json``."""
+    entry = dict(next(c for c in BENCH["configs"] if c["name"] == "unet-simple"),
+                 name="unet-full", file="cuda_bench/configs/unet-full.json")
+    data = json.load(open(os.path.join(ROOT, "cuda_bench", "configs", "unet-simple.json")))
+    data["model"]["UNet1d"]["simple"] = False
+    data.update(assumed={"tfer_depth": 4}, parameters=2_829_323_087)
+    return entry, data
+
+
+def _check_config(entry, data):
+    """A configuration's entry and its file agree, and the file states the
+    parameters its block has."""
+    assert set(entry) == {"name", "source", "file", "reduced", "why"}
+    assert entry["file"] == f"cuda_bench/configs/{entry['name']}.json"
+    assert data["source"] == entry["source"] and data["reduced"] == entry["reduced"]
+    assert all(NAME.match(k) for k in entry["reduced"]) and len(entry["reduced"]) <= 16
+    shapes = R.param_shapes(data["model"]["UNet1d"])
+    assert sum(math.prod(s) for s in shapes.values()) == data["parameters"]
+
+
 @pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
 def test_config_files(config):
     entry = next(c for c in BENCH["configs"] if c["name"] == config)
-    assert set(entry) == {"name", "source", "file", "reduced", "why"}
-    assert entry["file"] == f"cuda_bench/configs/{config}.json"
-    data = json.load(open(os.path.join(ROOT, entry["file"])))
-    assert data["reduced"] == entry["reduced"] == []
-    n = sum(math.prod(s) for s in R.param_shapes(data["model"]["UNet1d"]).values())
-    assert n == {"unet-simple": 1_204_738_383}[config]
+    _check_config(entry, json.load(open(os.path.join(ROOT, entry["file"]))))
     assert any(w["config"] == config for w in BENCH["workloads"])
+
+
+def test_config_check_takes_the_full_unet():
+    _check_config(*_unet_full())
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])

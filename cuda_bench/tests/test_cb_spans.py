@@ -88,7 +88,7 @@ def test_reader_needs_a_slice(metric):
     profiling.clear()
     assert read({"slice": {"busy_s": 1.0}}) is None  # no spans recorded
     entry = next(m for m in BENCH["per_layer"] if m["name"] == metric)
-    assert entry["source"] == "program_span" and entry["workloads"] == [SPANS[metric][0]]
+    assert entry["source"] == "program_span" and SPANS[metric][0] in entry["workloads"]
 
 
 @pytest.mark.parametrize("metric", sorted(SPANS))
