@@ -959,7 +959,8 @@ def phase_flash_forward(gen, results):
             for b, h, n, m in FLASH_SHAPES:
                 q, k, v = _flash_inputs(gen, b, h, n, m, dt)
                 out = fa.flash_attention(q, k, v)
-                _, lse, out32 = fa._launch_forward(q, k, v, 32 ** -0.5)
+                _, out32, stats = fa._launch_forward(q, k, v, 32 ** -0.5)
+                lse = fa.lse_of(stats)
                 ref, ref_lse = fa.flash_attention_reference(q, k, v, 32 ** -0.5)
                 err = max(err, _compare(f"K7a flash_attention {tag} ({b}, {h}, {n}, 32) x m {m}",
                                         out, ref, tol))
@@ -1345,7 +1346,7 @@ def phase_flash_backward(gen, results):
     on the same values, at the FLASH_SHAPES; determinism; times at the RT
     lengths 34 and 340 around the wrapper and on the device (its kernels a
     call, which must be flash_backward_plan's one launch), against the plain
-    backward from the same saved (float32 out, lse) and the backward of
+    backward from the same saved (float32 out, stats) and the backward of
     ``scaled_dot_product_attention``; then at n = m = FLASH_BWD_LONG (two
     launches) against that library backward alone."""
     import torch
@@ -1359,9 +1360,10 @@ def phase_flash_backward(gen, results):
         for b, h, n, m in FLASH_SHAPES:
             q, k, v = _flash_inputs(gen, b, h, n, m, dt)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-            _, lse, out = fa._launch_forward(q, k, v, scale)  # out: float32, as autograd saves it
-            got = fa.flash_attention_backward(q, k, v, out, lse, do, scale)
-            again = fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+            # out: float32, and the rows' statistics, as autograd saves them
+            _, out, stats = fa._launch_forward(q, k, v, scale)
+            got = fa.flash_attention_backward(q, k, v, out, stats, do, scale)
+            again = fa.flash_attention_backward(q, k, v, out, stats, do, scale)
             torch.cuda.synchronize()
             check(all(torch.equal(a, c) for a, c in zip(got, again)),
                   "K7b: two identical calls gave different gradients")
@@ -1373,7 +1375,7 @@ def phase_flash_backward(gen, results):
                 GRAD_TOL[tag]))
             if dt == torch.bfloat16 and (b, n) in ((1, 34), (1, 340)):
                 def call():
-                    return fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+                    return fa.flash_attention_backward(q, k, v, out, stats, do, scale)
 
                 plan = fa.flash_backward_plan(b, h, n, m)
                 _, per_call, kinds, dev_ms = device_kernels(call, 50, plan["launches"])
@@ -1389,7 +1391,7 @@ def phase_flash_backward(gen, results):
                 times[n] = (
                     cuda_time(call, 50),
                     cuda_time(lambda: fa.flash_attention_backward_reference(
-                        q, k, v, out, lse, do, scale), 50),
+                        q, k, v, out, stats, do, scale), 50),
                     cuda_time(lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), 50),
                     dev_ms, len(kinds), flash_bound(b, h, n, m, 32, 2, backward=True),
                 )
@@ -1403,8 +1405,8 @@ def phase_flash_backward(gen, results):
     n = FLASH_BWD_LONG
     q, k, v = _flash_inputs(gen, 1, 4, n, n, torch.bfloat16)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    _, lse, out = fa._launch_forward(q, k, v, scale)
-    long_ms = cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, lse, do, scale), 5)
+    _, out, stats = fa._launch_forward(q, k, v, scale)
+    long_ms = cuda_time(lambda: fa.flash_attention_backward(q, k, v, out, stats, do, scale), 5)
     ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
     lo = torch.nn.functional.scaled_dot_product_attention(*ls)
     long_lib = cuda_time(lambda: torch.autograd.grad(lo, ls, do, retain_graph=True), 5)
@@ -1412,7 +1414,7 @@ def phase_flash_backward(gen, results):
         f"{fa.flash_backward_plan(1, 4, n, n)['launches']} launches: kernel {long_ms:.4f} ms, "
         f"scaled_dot_product_attention backward {long_lib:.4f} ms, bound "
         f"{flash_bound(1, 4, n, n, 32, 2, backward=True)['bound_ms']:.4f} ms")
-    del q, k, v, do, lse, out, ls, lo
+    del q, k, v, do, out, stats, ls, lo
     torch.cuda.empty_cache()
     results["flash_attention_backward"].update(
         max_abs_err=err, ms=times[34][0], plain_ms=times[34][1], library_ms=times[34][2],

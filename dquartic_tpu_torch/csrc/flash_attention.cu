@@ -1,7 +1,8 @@
 // K7a: flash attention forward over (b, h, n, d = 32), writing the output
-// and, where autograd will need them, the per-row logsumexp
-// lse = m + log l (float32) and, for bf16 inputs, the output in float32
-// (out32), before its rounding. lse and out32 may be null.
+// and, where autograd will need them, each row's statistics (m, l)
+// (float32 pairs: m the largest scaled score in log2 units, l the sum of
+// exp2(score - m)) and, for bf16 inputs, the output in float32 (out32),
+// before its rounding. stats and out32 may be null.
 //
 // Replaces the TPU kernel dquartic_tpu/ops/flash_attention.py:
 // _flash_forward (_flash_kernel). There one grid step holds a whole
@@ -9,8 +10,19 @@
 // blocks in order with a running max, sum and accumulator (online
 // softmax). Here a CTA takes one (b*h, q block) and streams the kv tiles
 // through shared memory; ragged n and m are masked here (-1e30 for scores
-// past m, rows past n not written), l is clamped at 1e-30, and
-// lse = m ln 2 + log l, as the JAX kernel does.
+// past m, rows past n not written) and l is clamped at 1e-30, as the JAX
+// kernel does. The JAX kernel's second result, lse = m ln 2 + log l, is
+// formed from stats by the caller that wants it (ops/flash_attention.py
+// lse_of).
+//
+// stats is what K7b rebuilds P from: P = exp2(score - m) / l, with each
+// score formed as it is formed here, so P is this kernel's softmax to
+// float32's rounding however large the scores are. lse cannot carry that:
+// at |m| ~ 1e8 float32's spacing is 8 or more, so m ln 2 + log l loses
+// log l and several units of m, and P rebuilt from it is off by factors
+// of 2^k (the fault that made the full UNet1d's training diverge). The
+// scaled score is one rounded product (__fmul_rn), never contracted into
+// a later subtraction, so K7b forms it bitwise alike.
 //
 // bf16 (flash_fwd_mma), FA2-style on tensor cores, mma.sync m16n8k16 with
 // float32 accumulators:
@@ -22,9 +34,10 @@
 //     with cp.async (rows past m zero-filled), rows padded to 40 elements
 //     so the ldmatrix rows fall on distinct banks;
 //   * S = Q K^T is 8 n-tiles x 2 k-steps over d = 32, on K fragments from
-//     ldmatrix; the online softmax runs on the accumulator fragments, row
-//     max and row sum by shuffles within the quad that holds a row, exp2f
-//     of scores pre-scaled by scale * log2(e);
+//     ldmatrix (Q the A operand, K the B operand: K7b forms its scores in
+//     the same way); the online softmax runs on the accumulator fragments,
+//     row max and row sum by shuffles within the quad that holds a row,
+//     exp2f of scores pre-scaled by scale * log2(e);
 //   * P goes from the S accumulators into the A operand of P V in
 //     registers, no shared-memory round trip; V fragments come from
 //     ldmatrix.trans. P is split into a bf16 high part and a bf16 low part
@@ -57,7 +70,7 @@ namespace {
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ lse, int n, int m, float scale_log2) {
+    float* __restrict__ out, float2* __restrict__ stats, int n, int m, float scale_log2) {
   __shared__ float qs[kBlock][kD];    // read broadcast
   __shared__ float ks[kBlock][kPad];  // read one row per lane
   __shared__ float vs[kBlock][kD];    // read one column per lane
@@ -85,8 +98,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;
       if (q0 + r >= n) break;  // warp-uniform; later rows are past n too
-      const float s0 = ok0 ? dot_row(qs[r], ks[lane]) * scale_log2 : kNegInf;
-      const float s1 = ok1 ? dot_row(qs[r], ks[lane + 32]) * scale_log2 : kNegInf;
+      const float s0 = ok0 ? __fmul_rn(dot_row(qs[r], ks[lane]), scale_log2) : kNegInf;
+      const float s1 = ok1 ? __fmul_rn(dot_row(qs[r], ks[lane + 32]), scale_log2) : kNegInf;
       const float m_new = fmaxf(m_i[rr], warp_max(fmaxf(s0, s1)));
       const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
       const float alpha = exp2f(m_i[rr] - m_new);
@@ -108,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(
     if (row >= n) break;
     const float l = fmaxf(l_i[rr], 1e-30f);
     out[((size_t)bh * n + row) * kD + lane] = acc[rr] / l;
-    if (lse && lane == 0) lse[(size_t)bh * n + row] = m_i[rr] * kLn2 + logf(l);
+    if (stats && lane == 0) stats[(size_t)bh * n + row] = make_float2(m_i[rr], l);
   }
 }
 
@@ -182,7 +195,7 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_b
 __global__ void __launch_bounds__(kMmaWarps * 32) flash_fwd_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ out32, float* __restrict__ lse, int n, int m, float scale_log2) {
+    float* __restrict__ out32, float2* __restrict__ stats, int n, int m, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 qs[kMmaWarps * kMmaRows * kRow];
   __shared__ __align__(16) __nv_bfloat16 ks[2][kKv * kRow];
   __shared__ __align__(16) __nv_bfloat16 vs[2][kKv * kRow];
@@ -247,7 +260,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32) flash_fwd_mma(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j0 + nt * 8 + 2 * tig + (e & 1);
-        const float sv = col < m ? s[nt][e] * scale_log2 : kNegInf;
+        const float sv = col < m ? __fmul_rn(s[nt][e], scale_log2) : kNegInf;
         s[nt][e] = sv;
         mx[e >> 1] = fmaxf(mx[e >> 1], sv);
       }
@@ -316,32 +329,33 @@ __global__ void __launch_bounds__(kMmaWarps * 32) flash_fwd_mma(
       *reinterpret_cast<__nv_bfloat162*>(out + base + c) = __floats2bfloat162_rn(a, b);
       if (out32) *reinterpret_cast<float2*>(out32 + base + c) = make_float2(a, b);
     }
-    if (lse && tig == 0) lse[(size_t)bh * n + row] = m_r[r] * kLn2 + logf(l);
+    if (stats && tig == 0) stats[(size_t)bh * n + row] = make_float2(m_r[r], l);
   }
 }
 
 }  // namespace
 
-// out32 and lse may be null; bf16 q, k, v and out must be 16-byte aligned.
+// out32 and stats ((m, l) float32 pairs a row) may be null; bf16 q, k, v
+// and out must be 16-byte aligned.
 extern "C" int dq_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                  void* out32, void* lse, int bh, int n, int m, float scale,
+                                  void* out32, void* stats, int bh, int n, int m, float scale,
                                   int bf16, int device, void* stream) {
   if (bh < 1 || bh > 65535 || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  float2* st = static_cast<float2*>(stats);
   const float scale_log2 = scale * kLog2e;
   if (bf16) {
     const int warps = std::min(kMmaWarps, dq::ceil_div(n, kMmaRows));
     flash_fwd_mma<<<dim3(dq::ceil_div(n, warps * kMmaRows), bh), warps * 32, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(out32), l, n, m, scale_log2);
+        static_cast<float*>(out32), st, n, m, scale_log2);
   } else {
     flash_fwd_f32<<<dim3(dq::ceil_div(n, kBlock), bh), kThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), l, n, m, scale_log2);
+        static_cast<const float*>(v), static_cast<float*>(out), st, n, m, scale_log2);
   }
   return (int)cudaGetLastError();
 }

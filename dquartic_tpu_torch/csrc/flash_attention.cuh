@@ -19,7 +19,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kBlock / kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;          // masked score, as the JAX kernel
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -272,6 +272,24 @@ class UNet1d(nn.Module):
             return checkpoint(attn, x, group, sharded, use_reentrant=False)
         return attn(x, group, sharded)
 
+    def _cond_tower(self, attn_cond, b, rt, dtype, group):
+        """The MS1 condition tower: (b, cond_dim, rt). Spans ``unet.cond``
+        and ``unet.cond.backward``; the latter opens when the condition's
+        gradient is complete and closes where it leaves the tower's first
+        conv (no gradient reaches the trace itself, so that conv's weight
+        gradient falls after the span)."""
+        grad = profiling.backward_span("unet.cond.backward")
+        with profiling.span("unet.cond"):
+            if self.simple:
+                cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
+                conv, act, proj = self.attn_cond_proj[1]  # after the simple model's Identity
+                return grad.exit(proj(act(grad.entry(conv(cond)))))  # (b, acid, rt)
+            mz_net, tfer = self.attn_cond_proj
+            conv, res1, res2, mixer = mz_net
+            ac = res2(res1(grad.entry(conv(attn_cond.reshape(b * rt, 1, -1).to(dtype)))))
+            ac = self._mixer(mixer, ac, group)  # (b*rt, acid, mz_c), on every rank
+            return grad.exit(tfer(ac.reshape(b, rt, -1).transpose(1, 2)))
+
     def _sp_group(self):
         """The ``sp`` group the m/z axis splits over, or None."""
         if self.activation_sharding is None:
@@ -335,15 +353,8 @@ class UNet1d(nn.Module):
         cond = None
         if self.conditional and attn_cond is None:
             attn_cond = torch.zeros((b, rt), dtype=dtype, device=x.device)
-        if self.conditional and self.simple:
-            cond = attn_cond.reshape(b, rt, -1).transpose(1, 2).to(dtype)
-            cond = self.attn_cond_proj(cond)  # (b, acid, rt)
-        elif self.conditional:
-            mz_net, tfer = self.attn_cond_proj
-            conv, res1, res2, mixer = mz_net
-            ac = res2(res1(conv(attn_cond.reshape(b * rt, 1, -1).to(dtype))))
-            ac = self._mixer(mixer, ac, group)  # (b*rt, acid, mz_c), on every rank
-            cond = tfer(ac.reshape(b, rt, -1).transpose(1, 2))
+        if self.conditional:
+            cond = self._cond_tower(attn_cond, b, rt, dtype, group)
 
         rows = not self.fused_resnet  # row blocks that remat_blocks recomputes
         skips = []
@@ -372,7 +383,9 @@ class UNet1d(nn.Module):
         with profiling.span("unet.mid"):
             x = grad.entry(x.reshape(b, rt, self.mid_ch).transpose(1, 2))
             x = self._block(self.mid_block1, x, t)
-            x = self.mid_attn(x, cond)
+            attn_grad = profiling.backward_span("unet.mid.attn.backward")
+            with profiling.span("unet.mid.attn"):
+                x = attn_grad.exit(self.mid_attn(attn_grad.entry(x), cond))
             x = self._block(self.mid_block2, x, t)
             x = grad.exit(x).transpose(1, 2).reshape(b * rt, mid_dim, mzp)
         if group is not None and k == n_levels:

@@ -71,10 +71,11 @@ _SIGNATURES = {
     # flags, dtype bits, gradient dtype bits, x_bf16, device, stream
     "dq_fused_resnet_bwd": ([_P] * 3 + sum(([_P] + [_L] * n for n in (3, 1, 1, 2, 2, 3, 1, 1, 2, 1)), []) * 2
                             + [_P] + [_I] * 9 + [_P]),
-    # q, k, v, out, out32, lse, BH, n, m, scale, bf16, device, stream
+    # q, k, v, out, out32, stats, BH, n, m, scale, bf16, device, stream
     "dq_flash_attention": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
-    # q, k, v, o (float32), lse, dO, dq, dk, dv, BH, n, m, scale, bf16,
-    # cluster (CTAs of the one cluster launch, 0: two launches), device, stream
+    # q, k, v, o (float32), stats ((m, l) float32 pairs), dO, dq, dk, dv, BH,
+    # n, m, scale, bf16, cluster (CTAs of the one cluster launch, 0: two
+    # launches), device, stream
     "dq_flash_attention_bwd": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     # x, y, x's and y's (b, n, c) strides, then w_qkv, w_out, b_out, g as
     # dq_linear_attention takes them, B, C, N, heads, w_bf16, x_bf16,

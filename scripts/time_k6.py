@@ -31,9 +31,10 @@ For each tree the script times, in bf16 with float32 weights (as phase 10 of
   at (34, 40000, 4) also the kernels alone (``rows_launcher``'s launch) and
   K8 on row-major memory;
 * K7a (``flash_attention``, untracked) at (1, 4, 34, 32) and K7b
-  (``flash_attention_backward``, from the float32 output and lse) at
-  (1, 4, 34, 32), (8, 4, 34, 32), (1, 4, 340, 32) and (1, 4, 16384, 32),
-  with the backward of ``scaled_dot_product_attention`` at the last;
+  (``flash_attention_backward``, from the float32 output and the rows'
+  statistics) at (1, 4, 34, 32), (8, 4, 34, 32), (1, 4, 340, 32) and
+  (1, 4, 16384, 32), with the backward of ``scaled_dot_product_attention``
+  at the last;
 
 each around the wrapper (CUDA events over back-to-back calls, the mean) and
 on the device (``torch.profiler`` over whole calls, padded by a 2 ms spin
@@ -162,9 +163,9 @@ def time_flash(out, both, gen, reps):
         if n == 34 and b == 1:
             with torch.no_grad():
                 both("K7a_1x34", lambda: fa.flash_attention(q, k, v))
-        _, lse, o32 = fa._launch_forward(q, k, v, scale)
+        _, o32, stats = fa._launch_forward(q, k, v, scale)
         out_reps = reps if n <= 512 else 5
-        both(f"K7b_{b}x{n}", lambda: fa.flash_attention_backward(q, k, v, o32, lse, do, scale),
+        both(f"K7b_{b}x{n}", lambda: fa.flash_attention_backward(q, k, v, o32, stats, do, scale),
              out_reps)
         if n > 512:
             ls = [t.detach().requires_grad_(True) for t in (q, k, v)]

@@ -112,12 +112,13 @@ def test_flash_gradients_match_jax(n, m, dtype):
 
 
 def test_flash_backward_reference_is_autograd_of_forward():
-    """The backward formulas (from lse, without the softmax) equal autograd
-    of the plain forward: float32, 1e-5 (summation order)."""
+    """The backward formulas (from the rows' statistics, without the
+    softmax) equal autograd of the plain forward: float32, 1e-5 (summation
+    order)."""
     q, k, v = (_t(a) for a in _qkv(2, 2, 40, 23, seed=7))
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
-    out, lse = tfa.flash_attention_reference(q, k, v, 0.3)
-    got = tfa.flash_attention_backward_reference(q, k, v, out, lse, do, 0.3)
+    out, stats = tfa._reference_f32(q, k, v, 0.3)
+    got = tfa.flash_attention_backward_reference(q, k, v, out, stats, do, 0.3)
     ref = torch.autograd.grad(
         tfa.flash_attention_plain(*[t.requires_grad_(True) for t in (q, k, v)], 0.3), (q, k, v), do)
     for a, b in zip(got, ref):
@@ -129,8 +130,8 @@ def test_flash_backward_gets_the_float32_output(monkeypatch):
     output, not the one rounded to bf16, so D = rowsum(dO ∘ O) carries no
     rounding shared by every key of a row; its gradients are then those of
     autograd through the plain version, up to their own rounding to bf16.
-    The kernel writes that output and lse only where autograd will need
-    them."""
+    The kernel writes that output and the rows' statistics only where
+    autograd will need them."""
     seen = []
     real = tfa.flash_attention_backward
     monkeypatch.setattr(tfa, "flash_attention_backward",
@@ -150,13 +151,13 @@ def test_flash_backward_gets_the_float32_output(monkeypatch):
         torch.testing.assert_close(g.float(), r.float(), rtol=2**-7, atol=1e-6)
 
     # The kernel path's buffers, with the kernel library faked: an untracked
-    # call (serving) passes the kernel neither the float32 output nor lse,
-    # a call autograd tracks passes both, for the backward.
+    # call (serving) passes the kernel neither the float32 output nor the
+    # statistics, a call autograd tracks passes both, for the backward.
     passed = []
 
     class FakeLibrary:
-        def dq_flash_attention(self, q, k, v, out, out32, lse, *rest):
-            passed.append((out32 is not None, lse is not None))
+        def dq_flash_attention(self, q, k, v, out, out32, stats, *rest):
+            passed.append((out32 is not None, stats is not None))
             return 0
 
     monkeypatch.setattr(tfa, "_plain", lambda t: False)
@@ -191,10 +192,10 @@ def test_flash_backward_plan_is_two_launches_past_the_limit(n, m):
 @pytest.mark.parametrize("n,m", [(34, 34), (600, 130)])
 def test_flash_backward_wrapper_allocates_only_the_gradients(monkeypatch, dtype, n, m):
     """K7b's wrapper, with the kernel library faked: given dense, aligned
-    inputs in the kernel's dtypes (the float32 output autograd saves), it
-    runs no aten op but the allocations of dq, dk and dv, hands the kernel
-    the inputs' own memory and the cluster size of flash_backward_plan, and
-    counts one call."""
+    inputs in the kernel's dtypes (the float32 output and the rows'
+    statistics autograd saves), it runs no aten op but the allocations of
+    dq, dk and dv, hands the kernel the inputs' own memory and the cluster
+    size of flash_backward_plan, and counts one call."""
     passed = []
 
     class FakeLibrary:
@@ -208,21 +209,158 @@ def test_flash_backward_wrapper_allocates_only_the_gradients(monkeypatch, dtype,
     monkeypatch.setattr(tfa._build, "stream_of", lambda t: 0)
     q, k, v = (_t(a, dtype) for a in _qkv(1, 2, n, m, seed=17))
     o = _t(np.random.default_rng(18).normal(size=q.shape))
-    lse = _t(np.random.default_rng(19).normal(size=q.shape[:3]))
+    stats = _t(np.random.default_rng(21).uniform(1, 2, size=(*q.shape[:3], 2)))
     do = _t(np.random.default_rng(20).normal(size=q.shape), dtype)
     before = tfa.flash_attention_backward.launches
     with _AtenLog() as log:
-        dq, dk, dv = tfa.flash_attention_backward(q, k, v, o, lse, do, 0.25)
+        dq, dk, dv = tfa.flash_attention_backward(q, k, v, o, stats, do, 0.25)
     assert log.ops == ["aten.empty_like"] * 3, log.ops
     assert tfa.flash_attention_backward.launches == before + 1
     (args,) = passed
-    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv))
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, stats, do, dq, dk, dv))
     plan = tfa.flash_backward_plan(1, 2, n, m, dtype == "bfloat16")
     assert args[:9] == ptrs
     assert args[9:12] == (2, n, m) and args[12] == 0.25
     assert args[13:16] == (int(dtype == "bfloat16"), plan["cluster"], 0)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert dq.dtype == dk.dtype == dv.dtype == q.dtype
+
+
+# --------------------------------------------------------------------- #
+# P rebuilt at large logits: the rows' statistics (m, l)                #
+# --------------------------------------------------------------------- #
+
+# |logits| the backward is held at: the full UNet1d's transformer reached
+# 1e4 to 1.36e8 in training, where P rebuilt from lse went wrong
+LOGIT_SCALES = (1e2, 1e4, 1e6, 1.4e8)
+
+
+def _logit_inputs(b, h, n, m, target, seed):
+    """q and k of small integers times powers of two, so every score is an
+    exact integer multiple in float32 and in float64 whatever the order of
+    its sums (rows tie exactly, and a tie stays one); scaled so the largest
+    |logit| (``q·kᵀ·d^-0.5``) is within a factor of two of ``target``; v
+    and dO standard normal."""
+    rng = np.random.default_rng(seed)
+    qi = rng.integers(-3, 4, size=(b, h, n, 32)).astype(np.float64)
+    ki = rng.integers(-3, 4, size=(b, h, m, 32)).astype(np.float64)
+    top = np.abs(qi @ np.swapaxes(ki, -1, -2)).max() * 32 ** -0.5
+    e = int(round(np.log2(target / top)))
+    q, k = qi * 2.0 ** (e // 2), ki * 2.0 ** (e - e // 2)
+    v, do = (rng.normal(size=(b, h, x, 32)) for x in (m, n))
+    return q, k, v, do
+
+
+def _softmax_backward64(q, k, v, do, scale):
+    """dq, dk, dv in float64 by autograd of a plain softmax attention, from
+    q, k, v and dO alone, and for each the norm it would have were all its
+    terms of one sign: ``|dS|`` bounded by ``P ∘ (|dP| + |D|)``. That norm
+    stays clear of 0 where a row is one-hot and the true dq, dk vanish."""
+    q, k, v, do = (torch.as_tensor(np.asarray(t, np.float64)) for t in (q, k, v, do))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    p = torch.softmax(ts[0] @ ts[1].transpose(-1, -2) * scale, dim=-1)
+    grads = torch.autograd.grad(p @ ts[2], ts, do)
+    p = p.detach()
+    d = (do * (p @ v)).sum(-1, keepdim=True)
+    ds = p * ((do @ v.transpose(-1, -2)).abs() + d.abs())
+    norms = ((ds @ k.abs()).norm() * scale, (ds.transpose(-1, -2) @ q.abs()).norm() * scale,
+             (p.transpose(-1, -2) @ do.abs()).norm())
+    return grads, [float(x) for x in norms]
+
+
+def _gap(got, ref, norm):
+    return float((got.double().cpu() - ref).norm()) / norm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("target", LOGIT_SCALES)
+def test_plain_backward_at_large_logits(dtype, target):
+    """The op's plain backward (its autograd Function on CPU tensors, P
+    rebuilt from the saved statistics) against float64 autograd of a plain
+    softmax attention on the same values, at |logits| from 1e2 to 1.4e8.
+    Each gradient's error over the norm it would have were its terms of one
+    sign. float32: 1e-4 (the scaled scores round once, 2^-24 of |s|, which
+    moves a P that is not one-hot by ~1e-5 at 1e2). bf16: 1e-2 (the
+    gradients round once to bf16, 2^-9)."""
+    q, k, v, do = _logit_inputs(1, 2, 34, 34, target, seed=int(target) % 1000)
+    ts = [_t(a, dtype).requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*ts), ts, _t(do, dtype))
+    ref, norms = _softmax_backward64(*(t.detach().double() for t in ts), do, 32 ** -0.5)
+    for g, r, norm in zip(got, ref, norms):
+        assert g.dtype == getattr(torch, dtype)
+        assert _gap(g, r, norm) < (1e-4 if dtype == "float32" else 1e-2), (target, norm)
+
+
+@pytest.mark.parametrize("target", LOGIT_SCALES)
+def test_row_statistics_are_the_rows_max_and_sum(target):
+    """The statistics: m the row's largest scaled score (log2 units) and l
+    the sum of exp2(score - m), against float64 (m to float32's rounding of
+    the scaled score, l within 1e-6 of its float64 sum, so that P = exp2(s -
+    m) / l sums to 1 within 1e-5 on every row, even at 1.4e8, where lse
+    loses log l and several units of m)."""
+    q, k, _, _ = _logit_inputs(2, 2, 40, 23, target, seed=5)
+    stats = tfa._reference_f32(_t(q), _t(k), _t(k), 32 ** -0.5)[1]
+    s2 = q @ np.swapaxes(k, -1, -2) * float(np.float32(32 ** -0.5) * np.float32(np.log2(np.e)))
+    m = s2.max(-1)
+    assert stats.shape == (2, 2, 40, 2) and stats.dtype == torch.float32
+    np.testing.assert_allclose(stats[..., 0].numpy(), m, rtol=2 ** -23, atol=0)
+    np.testing.assert_allclose(stats[..., 1].numpy(), np.exp2(s2 - m[..., None]).sum(-1),
+                               rtol=1e-6)
+    p = torch.exp2(tfa._scaled_scores(_t(q), _t(k), 32 ** -0.5) - stats[..., :1]) \
+        / stats[..., 1:]
+    assert float(p.max()) <= 1 + 2 ** -23
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["plain", "kernel"])
+def test_flash_fn_saves_the_statistics(monkeypatch, path, dtype):
+    """The autograd Function saves (q, k, v, out32, stats) on both paths,
+    and nothing else (no lse): on CPU tensors the plain forward's; on the
+    kernel path (the library faked) the buffers K7a was handed, stats
+    (b, h, n, 2) float32; and its backward hands those statistics on."""
+    q, k, v = (_t(a, dtype).requires_grad_(True) for a in _qkv(1, 2, 30, 20, seed=31))
+    handed = {}
+    if path == "kernel":
+        class FakeLibrary:
+            def dq_flash_attention(self, q, k, v, out, out32, stats, *rest):
+                handed.update(out32=out32, stats=stats)
+                return 0
+
+        monkeypatch.setattr(tfa, "_plain", lambda t: False)
+        monkeypatch.setattr(tfa, "_check_kernel_args", lambda *a: None)
+        monkeypatch.setattr(tfa._build, "library", FakeLibrary)
+        monkeypatch.setattr(tfa._build, "stream_of", lambda t: 0)
+    out = tfa.flash_attention(q, k, v)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and all(a is b for a, b in zip(saved[:3], (q, k, v)))
+    out32, stats = saved[3:]
+    assert out32.dtype == stats.dtype == torch.float32
+    assert out32.shape == q.shape and stats.shape == (*q.shape[:3], 2)
+    if path == "plain":
+        assert torch.equal(stats, tfa._reference_f32(q, k, v, 32 ** -0.5)[1])
+    else:
+        assert handed["stats"] == stats.data_ptr()
+    seen = []
+    monkeypatch.setattr(tfa, "flash_attention_backward",
+                        lambda *a: seen.append(a[4]) or (None, None, None))
+    out.grad_fn.apply(torch.ones_like(out))
+    assert seen[0] is stats
+
+
+@pytest.mark.parametrize("path", ["plain", "kernel"])
+def test_flash_backward_refuses_lse_for_the_statistics(monkeypatch, path):
+    """The backward takes the rows' statistics (b, h, n, 2) and nothing in
+    their place: a caller that hands it lse (b, h, n), the JAX kernel's
+    saved row, is refused on both paths before anything runs (on the CPU,
+    lse would broadcast against the scores and rebuild a wrong P)."""
+    if path == "kernel":
+        monkeypatch.setattr(tfa, "_plain", lambda t: False)
+        monkeypatch.setattr(tfa._build, "library", lambda: pytest.fail("reached the kernel"))
+    q, k, v = (_t(a) for a in _qkv(1, 2, 7, 9, seed=33))
+    out, lse = tfa.flash_attention_reference(q, k, v, 0.25)
+    with pytest.raises(ValueError, match=r"stats \(b, h, n, 2\)"):
+        tfa.flash_attention_backward(q, k, v, out, lse, q, 0.25)
 
 
 # --------------------------------------------------------------------- #
@@ -328,7 +466,7 @@ def test_flash_forward_kernel_on_card(cuda, dtype, b, h, n, m):
     q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=20))
     before = tfa.flash_attention.launches
     out = tfa.flash_attention(q, k, v)
-    out2, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    out2, out32, stats = tfa._launch_forward(q, k, v, 32 ** -0.5)
     torch.cuda.synchronize()
     ref, ref_lse = tfa.flash_attention_reference(q, k, v, 32 ** -0.5)
     ref32, _ = tfa.flash_attention_reference(q.float(), k.float(), v.float(), 32 ** -0.5)
@@ -338,7 +476,7 @@ def test_flash_forward_kernel_on_card(cuda, dtype, b, h, n, m):
     tol = CARD_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(out32, ref32, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tfa.lse_of(stats), ref_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -349,9 +487,9 @@ def test_flash_backward_kernel_on_card(cuda, dtype, b, h, n, m):
     values, max |error| over the largest entry; deterministic."""
     q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=21))
     do = _t(np.random.default_rng(22).normal(size=q.shape).astype(np.float32), dtype, cuda)
-    _, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
-    got = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
-    again = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    _, out32, stats = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    got = tfa.flash_attention_backward(q, k, v, out32, stats, do, 32 ** -0.5)
+    again = tfa.flash_attention_backward(q, k, v, out32, stats, do, 32 ** -0.5)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ts = [t.float().requires_grad_(True) for t in (q, k, v)]
@@ -382,10 +520,10 @@ def test_flash_backward_kernel_every_edge_on_card(cuda, dtype, b, h, n, m):
     zero: P = 1 and dS = dP - D = 0); two identical calls bitwise equal."""
     q, k, v = (_t(a, dtype, cuda) for a in _qkv(b, h, n, m, seed=n * 1000 + m))
     do = _t(np.random.default_rng(n + m).normal(size=q.shape).astype(np.float32), dtype, cuda)
-    _, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    _, out32, stats = tfa._launch_forward(q, k, v, 32 ** -0.5)
     before = tfa.flash_attention_backward.launches
-    got = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
-    again = tfa.flash_attention_backward(q, k, v, out32, lse, do, 32 ** -0.5)
+    got = tfa.flash_attention_backward(q, k, v, out32, stats, do, 32 ** -0.5)
+    again = tfa.flash_attention_backward(q, k, v, out32, stats, do, 32 ** -0.5)
     torch.cuda.synchronize()
     assert tfa.flash_attention_backward.launches == before + 2
     assert all(torch.equal(a, c) for a, c in zip(got, again))
@@ -405,11 +543,12 @@ def test_flash_backward_kernel_every_edge_on_card(cuda, dtype, b, h, n, m):
 def test_flash_forward_bf16_tensor_cores_on_card(cuda, b, h, n, m):
     """The bf16 K7a (mma.sync) at the UNet's shapes and at n, m around its
     tile edges: the output within the bf16 tolerance of the plain version,
-    the float32 output and lse within 1e-5 of the plain version in float32
-    on the same values; an untracked call (the serving path) gives the same
-    output without writing lse or the float32 output."""
+    the float32 output and lse (from the rows' statistics) within 1e-5 of
+    the plain version in float32 on the same values; an untracked call (the
+    serving path) gives the same output without writing the statistics or
+    the float32 output."""
     q, k, v = (_t(a, "bfloat16", cuda) for a in _qkv(b, h, n, m, seed=n * 100 + m))
-    out, lse, out32 = tfa._launch_forward(q, k, v, 32 ** -0.5)
+    out, out32, stats = tfa._launch_forward(q, k, v, 32 ** -0.5)
     with torch.no_grad():
         served = tfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -419,4 +558,64 @@ def test_flash_forward_bf16_tensor_cores_on_card(cuda, b, h, n, m):
     torch.testing.assert_close(out.float(), ref.float(), rtol=CARD_TOL["bfloat16"],
                                atol=CARD_TOL["bfloat16"])
     torch.testing.assert_close(out32, ref32, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tfa.lse_of(stats), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+# shapes of the backward at large logits: the canonical model's (batch 1 and
+# 8), production's RT axis, and one past the one-launch limit
+LARGE_SHAPES = ((1, 4, 34, 34), (8, 4, 34, 34), (1, 4, 340, 340), (1, 2, 600, 600))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("target", LOGIT_SCALES)
+@pytest.mark.parametrize("b,h,n,m", LARGE_SHAPES)
+def test_flash_backward_kernel_at_large_logits_on_card(cuda, b, h, n, m, target, dtype):
+    """K7a then K7b through the autograd Function (as the model runs them)
+    at |logits| from 1e2 to 1.4e8, against a float64 softmax backward
+    computed from q, k, v and dO alone (not from the kernel's statistics);
+    each gradient's error over the norm it would have were its terms of one
+    sign, which stays clear of 0 where rows are one-hot.
+    float32: 1e-4 (the scaled scores round once, 2^-24 of |s|, which moves a
+    P that is not one-hot by ~1e-5 at 1e2). bf16: 1e-2 (the gradients
+    round once to bf16, 2^-9, and dS enters its products as (hi, lo)
+    halves, ~2^-17)."""
+    q, k, v, do = _logit_inputs(b, h, n, m, target, seed=n + int(np.log10(target)))
+    ts = [_t(a, dtype, cuda).requires_grad_(True) for a in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*ts), ts, _t(do, dtype, cuda))
+    torch.cuda.synchronize()
+    ref, norms = _softmax_backward64(*(t.detach().double().cpu() for t in ts), do, 32 ** -0.5)
+    for name, g, r, norm in zip("qkv", got, ref, norms):
+        assert g.dtype == getattr(torch, dtype) and bool(torch.isfinite(g).all())
+        err = _gap(g, r, norm)
+        assert err < (1e-4 if dtype == "float32" else 1e-2), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("target", LOGIT_SCALES)
+@pytest.mark.parametrize("m", [34, 600])
+def test_flash_backward_rebuilds_p_exactly_on_card(cuda, m, target, dtype):
+    """The P that K7b rebuilds, read out through dv = Pᵀ dO with dO's row
+    i the unit vector of feature i (n = 32 rows: dv[j, i] = P[i, j]), on
+    the one cluster launch (m = 34) and the two launches (m = 600). On
+    every row: no entry above 1 by more than float32's rounding, the row's
+    sum 1 within 1e-5, and P within 2e-5 of a float64 softmax of the same
+    scores (exact in both: integer multiples; the scale's product rounds
+    once, 2^-24 of |s|). bf16 writes dv in bf16: P to 2^-8 there, the sums
+    within 32 of its spacings."""
+    q, k, v, _ = _logit_inputs(1, 4, 32, m, target, seed=m + int(np.log10(target)))
+    qt, kt, vt = (_t(a, dtype, cuda) for a in (q, k, v))
+    do = torch.eye(32, dtype=qt.dtype, device=cuda).expand(1, 4, 32, 32).contiguous()
+    _, out32, stats = tfa._launch_forward(qt, kt, vt, 32 ** -0.5)
+    dv = tfa.flash_attention_backward(qt, kt, vt, out32, stats, do, 32 ** -0.5)[2]
+    torch.cuda.synchronize()
+    p = dv.double().cpu().transpose(-1, -2)  # (b, h, n, m)
+    s = torch.as_tensor(q @ np.swapaxes(k, -1, -2) * 32 ** -0.5)
+    p64 = torch.softmax(s, dim=-1)
+    one = 2 ** -23 if dtype == "float32" else 0.0
+    assert float(p.max()) <= 1 + one
+    sums = (p.sum(-1) - 1).abs().max()
+    assert float(sums) <= (1e-5 if dtype == "float32" else 32 * 2 ** -9), float(sums)
+    tol = 2e-5 if dtype == "float32" else 2 ** -8
+    assert float((p - p64).abs().max()) <= tol

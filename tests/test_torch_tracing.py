@@ -23,15 +23,21 @@ TINY = dict(dim=4, channels=1, dim_mults=(1, 2), conditional=True, init_cond_cha
             attn_cond_channels=1, downsample_dim=64, simple=True, fused_resnet=True)
 RT, MZ, STEPS = 4, 64, 3
 MARKER = "_BackwardMarkBackward"
-PREDICT = ["predict", "predict.to_device"] + ["ddim.step", "unet.forward", "unet.mid"] * STEPS \
+UNET = ["unet.forward", "unet.cond", "unet.mid", "unet.mid.attn"]
+PREDICT = ["predict", "predict.to_device"] + ["ddim.step"] * STEPS + UNET * STEPS \
     + ["predict.to_host"]
-TRAIN = ["train_step", "train_step.batch", "train_step.forward", "unet.forward", "unet.mid",
-         "train_step.backward", "unet.mid.backward", "train_step.optimizer", "train_step.ema"]
+TRAIN = ["train_step", "train_step.batch", "train_step.forward"] + UNET \
+    + ["train_step.backward", "unet.mid.backward", "unet.mid.attn.backward",
+       "unet.cond.backward", "train_step.optimizer", "train_step.ema"]
 PARENT = {"predict.to_device": "predict", "ddim.step": "predict", "predict.to_host": "predict",
           "train_step.batch": "train_step", "train_step.forward": "train_step",
           "train_step.backward": "train_step", "train_step.optimizer": "train_step",
           "train_step.ema": "train_step", "unet.mid": "unet.forward",
-          "unet.mid.backward": "train_step.backward"}
+          "unet.cond": "unet.forward", "unet.mid.attn": "unet.mid",
+          "unet.mid.backward": "train_step.backward",
+          "unet.mid.attn.backward": "unet.mid.backward",
+          "unet.cond.backward": "train_step.backward"}
+MARKERS = 6  # two identity nodes for each of the three backward spans
 
 
 @pytest.fixture(autouse=True)
@@ -52,9 +58,9 @@ def _process():
     return DDIMProcess(schedule=make_schedule(1000, "cosine", "eps"))
 
 
-def _model():
+def _model(**kw):
     torch.manual_seed(0)
-    return UNet1d(**TINY)
+    return UNet1d(**dict(TINY, **kw))
 
 
 def _draws(seed, b=2):
@@ -68,9 +74,9 @@ def _predict(batches=1):
     return [r["pred"] for r in sampler.predict(data, num_steps=STEPS, seed=5, device="cpu")]
 
 
-def _train():
+def _train(**kw):
     """One step of a fresh trainer: its loss, gradients, parameters and EMA."""
-    tr = Trainer(_model(), _process(), seed=3)
+    tr = Trainer(_model(**kw), _process(), seed=3)
     t, eps = _draws(7)
     loss = tr.train_step(_batch(1), 1e-3, t=t, eps=eps)["loss"]
     return [loss] + [p.grad for p in tr.optimizer.params] + list(tr.optimizer.params) \
@@ -114,7 +120,7 @@ def test_off_enters_nothing(what, monkeypatch):
         assert MARKER not in off and profiling.spans() == []
         with profiling.recording():
             on = _graph(_loss())
-        assert sorted(on) == sorted(off + [MARKER] * 2)
+        assert sorted(on) == sorted(off + [MARKER] * MARKERS)
     else:
         RUN[what]()
         assert profiling.spans() == []
@@ -207,3 +213,32 @@ def test_store_keeps_the_newest(keep, monkeypatch):
     assert [s.name for s in profiling.spans()] == [f"s{i}" for i in range(6 - keep, 6)]
     profiling.clear()
     assert profiling.spans() == []
+
+
+@pytest.mark.parametrize("simple", [True, False])
+def test_train_step_spans_the_mid_attention_and_the_condition(simple):
+    """One train step of the small model (``simple: true``: a cross
+    attention and two convs over the trace; ``simple: false``: the 4-layer
+    transformer and the MS1 tower) records ``unet.mid.attn`` inside
+    ``unet.mid``, ``unet.cond`` inside ``unet.forward``, and their
+    backward spans inside ``unet.mid.backward`` and
+    ``train_step.backward``, all of the step's request; with spans off,
+    nothing records and the numbers are bitwise the same."""
+    off = _train(simple=simple)
+    assert profiling.spans() == []
+    with profiling.recording():
+        on = _train(simple=simple)
+    assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in zip(off, on))
+    got = profiling.spans()
+    by_id = {s.id: s for s in got}
+    (root,) = [s for s in got if s.name == "train_step"]
+    for name in ("unet.mid.attn", "unet.mid.attn.backward", "unet.cond", "unet.cond.backward"):
+        (s,) = [x for x in got if x.name == name]
+        parent = by_id[s.parent]
+        assert parent.name == PARENT[name] and s.request == root.request
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+        assert 0 <= s.device_ms <= parent.device_ms
+    (fwd,) = [s for s in got if s.name == "unet.forward"]
+    for name in ("unet.cond", "unet.mid", "unet.mid.attn"):
+        (s,) = [x for x in got if x.name == name]
+        assert fwd.start_ns <= s.start_ns <= s.end_ns <= fwd.end_ns
